@@ -11,7 +11,10 @@ setup(
     name="stac_st_tpu",
     version="0.1.0",
     description="TPU-native speech-translation framework (STAC-ST rebuild)",
-    packages=find_packages(include=["stac_st_tpu", "stac_st_tpu.*"]),
+    packages=find_packages(include=["stac_st_tpu", "stac_st_tpu.*",
+                                    "stac_st_tpu_torch",
+                                    "stac_st_tpu_torch.*"]),
+    package_data={"stac_st_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "_stacnative",

@@ -1,0 +1,171 @@
+"""TransformerMultiTask: the joint ASR+ST encoder-decoder (inference parts).
+
+Port of ``stac_st_tpu/models/multitask.py``: linear source projection,
+fixed sinusoidal positions, pre-LN encoder (``encode``), the oracle
+full-prefix ``decode``, and the KV-cached ``decode_step`` with its cache
+(``init_decode_cache`` / ``grow_decode_cache``). The task is selected by
+the decoder prompt ``[bos, source_lang, target_lang]``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops import masks as M
+from .activations import default_activation
+from .positional import sinusoidal_table
+from .transformer import (
+    NormalizedEmbedding,
+    TransformerDecoder,
+    TransformerEncoder,
+)
+
+__all__ = ["TransformerMultiTask", "LinearHead", "glorot_init_"]
+
+MAX_LENGTH = 2500  # sinusoidal table rows (reference max_length)
+
+
+class TransformerMultiTask(nn.Module):
+    def __init__(self, tgt_vocab: int, input_size: int, d_model: int = 512,
+                 nhead: int = 8, num_encoder_layers: int = 6,
+                 num_decoder_layers: int = 6, d_ffn: int = 2048,
+                 activation: Callable = default_activation):
+        """Pre-LN only (``normalize_before=True``, as every reference
+        preset); positions up to ``MAX_LENGTH``."""
+        super().__init__()
+        self.d_model, self.nhead = d_model, nhead
+        self.src_proj = nn.Linear(input_size, d_model)
+        self.tgt_embed = NormalizedEmbedding(d_model, tgt_vocab)
+        self.encoder = TransformerEncoder(num_encoder_layers, d_model, nhead,
+                                          d_ffn, activation)
+        self.decoder = TransformerDecoder(num_decoder_layers, d_model, nhead,
+                                          d_ffn, activation)
+        self.register_buffer(
+            "pe", torch.from_numpy(sinusoidal_table(MAX_LENGTH, d_model)),
+            persistent=False)
+
+    @staticmethod
+    def _flatten_src(src: torch.Tensor) -> torch.Tensor:
+        """(B, T, F, C) conv features -> (B, T, F·C), F major."""
+        if src.dim() == 4:
+            b, t, f, c = src.shape
+            src = src.reshape(b, t, f * c)
+        return src
+
+    def _add_pe(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pe[None, : x.shape[1], :].to(x.dtype)
+
+    # -------------------------------------------------------------- encode
+    def encode(self, src: torch.Tensor,
+               wav_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Inference encoder pass (floor-based key padding mask)."""
+        src = self._flatten_src(src)
+        bias = None
+        if wav_len is not None:
+            pad = M.src_key_padding_mask_encode(wav_len, src.shape[1])
+            bias = M.additive_bias(pad[:, None, None, :])
+        return self.encoder(self._add_pe(self.src_proj(src)), bias)
+
+    # ------------------------------------------------- full-prefix decode
+    def decode(self, tgt: torch.Tensor, encoder_out: torch.Tensor,
+               enc_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Oracle full-prefix decode, no KV cache: tgt (B, T) -> (B, T, d).
+        enc_len: absolute encoder lengths or None (no cross mask)."""
+        T = tgt.shape[1]
+        self_bias = M.additive_bias(
+            M.lookahead_mask(T, tgt.device)[None, None, :, :])
+        cross_bias = None
+        if enc_len is not None:
+            S = encoder_out.shape[1]
+            pad = (torch.arange(S, device=tgt.device)[None, :]
+                   >= enc_len[:, None])
+            cross_bias = M.additive_bias(pad[:, None, None, :])
+        d = self._add_pe(self.tgt_embed(tgt))
+        return self.decoder(d, encoder_out, self_bias, cross_bias)
+
+    # --------------------------------------------------- KV-cached decode
+    def init_decode_cache(self, encoder_out: torch.Tensor, max_len: int,
+                          enc_bias: Optional[torch.Tensor] = None,
+                          beam: int = 1, anc_mode: bool = False
+                          ) -> Dict[str, Any]:
+        """encoder_out (B, S, d), untiled; self caches get B·beam rows.
+        enc_bias: (B, S) additive fp32 or None. anc_mode adds the ancestor
+        table ``anc`` (B, beam, max_len) int32, initially the identity."""
+        B = encoder_out.shape[0]
+        cache = {
+            "layers": self.decoder.init_cache(B * beam, max_len, encoder_out,
+                                              anc_mode),
+            "enc_bias": enc_bias,
+        }
+        if anc_mode:
+            cache["anc"] = (
+                torch.arange(beam, dtype=torch.int32,
+                             device=encoder_out.device)[None, :, None]
+                .expand(B, beam, max_len).contiguous())
+        return cache
+
+    @staticmethod
+    def grow_decode_cache(cache: Dict[str, Any], new_max_len: int
+                          ) -> Dict[str, Any]:
+        """Re-allocate the self caches (and the ancestor table) at a larger
+        step budget, zero-padded, keeping contents and the write index."""
+        anc_mode = cache.get("anc") is not None
+
+        def pad(t: torch.Tensor, dim: int) -> torch.Tensor:
+            shape = list(t.shape)
+            shape[dim] = new_max_len
+            out = t.new_zeros(shape)
+            out.narrow(dim, 0, t.shape[dim]).copy_(t)
+            return out
+
+        for layer in cache["layers"]:
+            sc = layer["self"]
+            sc["k"] = pad(sc["k"], 2 if anc_mode else 3)
+            sc["v"] = pad(sc["v"], 2)
+        if anc_mode:
+            cache["anc"] = pad(cache["anc"], 2)
+        return cache
+
+    def decode_step(self, tokens: torch.Tensor, position: int,
+                    cache: Dict[str, Any]) -> torch.Tensor:
+        """tokens (B·beam,) at ``position`` (host int) -> hidden (B·beam, d).
+        Updates ``cache`` in place."""
+        emb = self.tgt_embed(tokens) + self.pe[position].to(
+            self.tgt_embed.embed.weight.dtype)
+        beam = tokens.shape[0] // cache["layers"][0]["cross_k"].shape[0]
+        return self.decoder.step(emb, cache["layers"], cache["enc_bias"],
+                                 beam, anc=cache.get("anc"))
+
+
+class LinearHead(nn.Module):
+    """Output projection head (seq_lin / ctc_lin)."""
+
+    def __init__(self, input_size: int, n_neurons: int):
+        super().__init__()
+        self.linear = nn.Linear(input_size, n_neurons)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x)
+
+
+@torch.no_grad()
+def glorot_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights as the reference initializes them: Glorot
+    (Xavier) normal for Linear, Conv2d and Embedding weights, zero biases,
+    unit LayerNorm scales."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Embedding)):
+            w = m.weight
+            receptive = math.prod(w.shape[2:]) if w.dim() > 2 else 1
+            fan_out, fan_in = w.shape[0] * receptive, w.shape[1] * receptive
+            std = math.sqrt(2.0 / (fan_in + fan_out))
+            w.copy_(torch.randn(w.shape, generator=generator) * std)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()

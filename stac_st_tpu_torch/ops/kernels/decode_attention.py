@@ -1,0 +1,243 @@
+"""Single-step decode attention: CUDA kernels and their plain versions.
+
+Port of ``stac_st_tpu/ops/pallas/decode_attention.py``. Three kernels, one
+design (``csrc/decode_attention.cu``): per (query row, head),
+softmax(q · Kᵀ + mask) · V with a pre-scaled query, fp32 accumulation and
+the output in the query's dtype.
+
+Each wrapper replaces one TPU kernel (``KERNELS`` below names it):
+
+* ``decode_self_attention`` <- ``_self_kernel`` (decode_attention.py:30);
+* ``decode_self_attention_anc`` <- ``_anc_kernel`` (:82);
+* ``decode_cross_attention`` <- ``_cross_kernel`` (:159).
+
+All three are bound by device memory: one step reads each cached key and
+value once for 4·Dh flops per (query, position), about one flop per byte
+in bf16. The design reads each needed byte once (see the source note).
+
+A wrapper given CPU tensors returns its ``*_ref`` plain version. Given CUDA
+tensors it checks dtype, shape and contiguity, launches the kernel on the
+current stream, raises if the launch failed, and counts the launch. There
+is no fallback from a CUDA tensor to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import count_launch, load_library
+
+__all__ = [
+    "decode_self_attention", "decode_self_attention_ref",
+    "decode_self_attention_anc", "decode_self_attention_anc_ref",
+    "decode_cross_attention", "decode_cross_attention_ref",
+    "KERNELS",
+]
+
+NEG_INF = -1e9
+_LIB = "decode_attention"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# name -> (TPU kernel it replaces, source of the Hopper kernel)
+KERNELS = {
+    "decode_self_attention": (
+        "stac_st_tpu/ops/pallas/decode_attention.py:30",
+        "stac_st_tpu_torch/csrc/decode_attention.cu"),
+    "decode_self_attention_anc": (
+        "stac_st_tpu/ops/pallas/decode_attention.py:82",
+        "stac_st_tpu_torch/csrc/decode_attention.cu"),
+    "decode_cross_attention": (
+        "stac_st_tpu/ops/pallas/decode_attention.py:159",
+        "stac_st_tpu_torch/csrc/decode_attention.cu"),
+}
+
+
+# ------------------------------------------------------------ plain versions
+def _position_bias(S: int, idx: int, device) -> torch.Tensor:
+    pos = torch.arange(S, device=device)
+    return torch.where(pos > idx, NEG_INF, 0.0).to(torch.float32)
+
+
+def decode_self_attention_ref(q, kT, v, idx: int):
+    """q (BB, H, Dh) pre-scaled; kT (BB, H, Dh, S); v (BB, H, S, Dh);
+    attend positions 0..idx. Returns (BB, H, Dh) in q's dtype."""
+    s = torch.matmul(q.float()[:, :, None, :], kT.float())  # (BB, H, 1, S)
+    s = s + _position_bias(kT.shape[-1], idx, q.device)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float())[:, :, 0, :].to(q.dtype)
+
+
+def decode_self_attention_anc_ref(q, k, v, anc, idx: int, beam: int):
+    """q (B·beam, H, Dh) pre-scaled; k/v (B·beam, H, S, Dh) never reordered;
+    anc (B, beam, S) int32: hypothesis r reads position s from cache row
+    b·beam + anc[b, r, s]. Explicit gather, then attention over 0..idx."""
+    BB, H, Dh = q.shape
+    S = k.shape[2]
+    B = BB // beam
+    rows = (torch.arange(B, device=q.device)[:, None, None] * beam
+            + anc.long()).reshape(BB, S)
+    cols = torch.arange(S, device=q.device)[None, :]
+    kg = k.permute(0, 2, 1, 3)[rows, cols].permute(0, 2, 1, 3)  # (BB,H,S,Dh)
+    vg = v.permute(0, 2, 1, 3)[rows, cols].permute(0, 2, 1, 3)
+    s = torch.matmul(q.float()[:, :, None, :], kg.float().transpose(-1, -2))
+    s = s + _position_bias(S, idx, q.device)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, vg.float())[:, :, 0, :].to(q.dtype)
+
+
+def decode_cross_attention_ref(q, kT, v, bias: Optional[torch.Tensor],
+                               beam: int):
+    """q (B·beam, H, Dh) pre-scaled; kT (B, H, Dh, S); v (B, H, S, Dh);
+    bias (B, S) additive fp32 or None. Beam queries of utterance b attend
+    to its K/V. Returns (B·beam, H, Dh) in q's dtype."""
+    BB, H, Dh = q.shape
+    B = kT.shape[0]
+    qg = q.float().reshape(B, beam, H, Dh).transpose(1, 2)  # (B,H,beam,Dh)
+    s = torch.matmul(qg, kT.float())  # (B, H, beam, S)
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(p, v.float())  # (B, H, beam, Dh)
+    return out.transpose(1, 2).reshape(BB, H, Dh).to(q.dtype)
+
+
+# ------------------------------------------------------------------ kernels
+def _lib():
+    lib = load_library(_LIB)
+    if not getattr(lib, "_stac_bound", False):
+        lib.stac_decode_self_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I,
+                                                   _I, _I, _P]
+        lib.stac_decode_self_attention_anc.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        lib.stac_decode_cross_attention.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        for fn in (lib.stac_decode_self_attention,
+                   lib.stac_decode_self_attention_anc,
+                   lib.stac_decode_cross_attention,
+                   lib.stac_decode_head_dim, lib.stac_decode_max_beam):
+            fn.restype = _I
+        lib.stac_decode_head_dim.argtypes = []
+        lib.stac_decode_max_beam.argtypes = []
+        lib.stac_cuda_error_string.argtypes = [_I]
+        lib.stac_cuda_error_string.restype = ctypes.c_char_p
+        lib._stac_bound = True
+    return lib
+
+
+def _on_cpu(*tensors) -> bool:
+    devs = {t.device.type for t in tensors if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"} or len({t.device for t in tensors
+                                if t is not None}) != 1:
+        raise ValueError(f"tensors must all be on one CUDA device or all on "
+                         f"the CPU, got {sorted(devs)}")
+    return False
+
+
+def _check(lib, name: str, q, tensors, shapes):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported")
+    if q.shape[-1] != lib.stac_decode_head_dim():
+        raise ValueError(f"{name}: head dim {q.shape[-1]} != "
+                         f"{lib.stac_decode_head_dim()}")
+    for label, t in tensors.items():
+        want_dtype = q.dtype if label not in ("anc", "bias") else (
+            torch.int32 if label == "anc" else torch.float32)
+        if t.dtype != want_dtype:
+            raise TypeError(f"{name}: {label} is {t.dtype}, "
+                            f"expected {want_dtype}")
+        if tuple(t.shape) != tuple(shapes[label]):
+            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shapes[label])}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def _raise_on(lib, name: str, rc: int) -> None:
+    if rc != 0:
+        msg = lib.stac_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: kernel launch failed ({rc}: {msg})")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def decode_self_attention(q, kT, v, idx: int):
+    """See :func:`decode_self_attention_ref`. ``idx`` is a host int."""
+    if _on_cpu(q, kT, v):
+        return decode_self_attention_ref(q, kT, v, idx)
+    name = "decode_self_attention"
+    lib = _lib()
+    BB, H, Dh = q.shape
+    S = kT.shape[-1]
+    _check(lib, name, q, {"q": q, "kT": kT, "v": v},
+           {"q": (BB, H, Dh), "kT": (BB, H, Dh, S), "v": (BB, H, S, Dh)})
+    if not 0 <= idx < S:
+        raise ValueError(f"{name}: idx {idx} outside [0, {S})")
+    out = torch.empty_like(q)
+    rc = lib.stac_decode_self_attention(
+        q.data_ptr(), kT.data_ptr(), v.data_ptr(), out.data_ptr(),
+        BB, H, S, int(idx), _DTYPES[q.dtype], _stream())
+    _raise_on(lib, name, rc)
+    count_launch(name)
+    return out
+
+
+def decode_self_attention_anc(q, k, v, anc, idx: int, beam: int):
+    """See :func:`decode_self_attention_anc_ref`. ``idx`` is a host int."""
+    if _on_cpu(q, k, v, anc):
+        return decode_self_attention_anc_ref(q, k, v, anc, idx, beam)
+    name = "decode_self_attention_anc"
+    lib = _lib()
+    BB, H, Dh = q.shape
+    S = k.shape[2]
+    if BB % beam:
+        raise ValueError(f"{name}: {BB} rows not a multiple of beam {beam}")
+    _check(lib, name, q, {"q": q, "k": k, "v": v, "anc": anc},
+           {"q": (BB, H, Dh), "k": (BB, H, S, Dh), "v": (BB, H, S, Dh),
+            "anc": (BB // beam, beam, S)})
+    if not 0 <= idx < S:
+        raise ValueError(f"{name}: idx {idx} outside [0, {S})")
+    out = torch.empty_like(q)
+    rc = lib.stac_decode_self_attention_anc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), anc.data_ptr(),
+        out.data_ptr(), BB, H, S, beam, int(idx), _DTYPES[q.dtype], _stream())
+    _raise_on(lib, name, rc)
+    count_launch(name)
+    return out
+
+
+def decode_cross_attention(q, kT, v, bias: Optional[torch.Tensor],
+                           beam: int):
+    """See :func:`decode_cross_attention_ref`."""
+    if _on_cpu(q, kT, v, bias):
+        return decode_cross_attention_ref(q, kT, v, bias, beam)
+    name = "decode_cross_attention"
+    lib = _lib()
+    BB, H, Dh = q.shape
+    B, S = kT.shape[0], kT.shape[-1]
+    if BB != B * beam:
+        raise ValueError(f"{name}: {BB} query rows != {B} x beam {beam}")
+    if not 1 <= beam <= lib.stac_decode_max_beam():
+        raise ValueError(f"{name}: beam {beam} outside "
+                         f"[1, {lib.stac_decode_max_beam()}]")
+    tensors = {"q": q, "kT": kT, "v": v}
+    shapes = {"q": (BB, H, Dh), "kT": (B, H, Dh, S), "v": (B, H, S, Dh)}
+    if bias is not None:
+        tensors["bias"], shapes["bias"] = bias, (B, S)
+    _check(lib, name, q, tensors, shapes)
+    out = torch.empty_like(q)
+    rc = lib.stac_decode_cross_attention(
+        q.data_ptr(), kT.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        B, H, S, beam, _DTYPES[q.dtype], _stream())
+    _raise_on(lib, name, rc)
+    count_launch(name)
+    return out

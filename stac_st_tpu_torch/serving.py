@@ -1,0 +1,222 @@
+"""STEngine: batched speech translation serving on one GPU.
+
+Port of ``stac_st_tpu/serving.py::STEngine`` (the prompted beam-search
+path). One call runs PCM16 or float audio through
+
+    fbank -> CMVN -> conv front end -> pre-LN encoder -> beam search
+    (beam 10, eos threshold 1.5, length normalization, temperature 1.15,
+    at most 192 decode tokens) -> detokenize,
+
+and ``speaker_turns`` runs the CTC head's frame argmax into ``[turn]`` /
+``[xt]`` events. Inputs are grouped into fixed audio-length buckets; ASR
+and ST differ only in the decoder prompt, so ``transcribe_and_translate``
+encodes once and searches both prompts in one fused search.
+
+Weights are cast to bf16 when ``bf16`` is set; fbank, CMVN and beam
+scoring stay fp32. The engine runs on ``cuda`` unless ``device="cpu"`` is
+given, and owns the modules it is handed (it moves and casts them).
+
+The tokenizer is duck-typed: ``encode_as_ids(text)`` and ``decode_ids``.
+Not ported yet: ``mesh``, ``kv_cache_dtype``, ``weights_int8``,
+``long_form``, ``warmup``, the experiment loaders and
+``SpeculativeSTEngine``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .decoding.beam_search import MultiTaskBeamSearch
+from .device import model_dtype, resolve_device, set_tf32
+from .ops.cmvn import CmvnState, cmvn_apply
+from .ops.fbank import Fbank
+from .utils.rttm import extract_turn_events
+
+__all__ = ["STEngine"]
+
+_BUCKET_SECONDS = (2.0, 4.0, 8.0, 16.0, 32.0)
+
+
+class STEngine:
+    def __init__(self, transformer, cnn, seq_lin, ctc_lin, cmvn: CmvnState,
+                 tokenizer, source_lang: str = "es", target_lang: str = "en",
+                 beam_size: int = 10, max_decode_tokens: Optional[int] = 192,
+                 sample_rate: int = 16000,
+                 bucket_seconds: Sequence[float] = _BUCKET_SECONDS,
+                 bf16: bool = True, pad_batch_rows=None,
+                 transfer_dtype: str = "float32", turn_id: int = 7,
+                 xt_id: int = 8, device=None):
+        """pad_batch_rows: None, an int (round rows up to a multiple) or a
+        ladder of row counts (pad to the smallest rung that fits; beyond
+        the top rung, round up to a multiple of it). Padded rows are
+        full-length silence and are dropped on output."""
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            set_tf32(False)
+        self.tokenizer = tokenizer
+        self.sample_rate = int(sample_rate)
+        self.buckets = tuple(sorted(bucket_seconds))
+        if pad_batch_rows and not isinstance(pad_batch_rows, int):
+            self.pad_batch_rows = tuple(sorted(int(r) for r in pad_batch_rows))
+            if min(self.pad_batch_rows) < 1:
+                raise ValueError("pad_batch_rows ladder must be >= 1")
+        else:
+            self.pad_batch_rows = int(pad_batch_rows) if pad_batch_rows \
+                else None
+        if transfer_dtype not in ("float32", "int16"):
+            raise ValueError(
+                f"transfer_dtype must be float32|int16, got {transfer_dtype}")
+        self.transfer_dtype = transfer_dtype
+        self.source_lang, self.target_lang = source_lang, target_lang
+        self.turn_id, self.xt_id = turn_id, xt_id
+        self.dtype = model_dtype(bf16)
+
+        self._fbank = Fbank(sample_rate=self.sample_rate)
+        mods = [cnn, transformer, seq_lin] + (
+            [ctc_lin] if ctc_lin is not None else [])
+        for m in mods:
+            m.to(device=self.device, dtype=self.dtype).eval()
+        self._cnn, self._transformer = cnn, transformer
+        self._ctc_lin = ctc_lin
+        self.cmvn = cmvn.to(self.device)
+        self.searcher = MultiTaskBeamSearch(
+            transformer, seq_lin, bos_index=1, eos_index=2, blank_index=0,
+            min_decode_ratio=0.0, max_decode_ratio=1.0,
+            beam_size=int(beam_size), using_eos_threshold=True,
+            length_normalization=True, temperature=1.15,
+            max_decode_tokens=max_decode_tokens,
+        )
+
+    # ------------------------------------------------------------- internal
+    def _bucket_width(self, n_samples: int) -> int:
+        seconds = n_samples / self.sample_rate
+        for b in self.buckets:
+            if seconds <= b:
+                return int(b * self.sample_rate)
+        return int(math.ceil(seconds / self.buckets[-1]) * self.buckets[-1]
+                   * self.sample_rate)
+
+    def _rows(self, n: int) -> int:
+        if isinstance(self.pad_batch_rows, tuple):
+            top = self.pad_batch_rows[-1]
+            if n > top:
+                return n + (-n) % top
+            return next(r for r in self.pad_batch_rows if r >= n)
+        if self.pad_batch_rows:
+            return n + (-n) % self.pad_batch_rows
+        return n
+
+    def _prepare(self, wavs: Sequence[np.ndarray]):
+        """Group inputs by bucket: [(indices, (rows, width) audio on the
+        device, (rows,) relative lengths)], buckets in increasing width."""
+        pcm16 = self.transfer_dtype == "int16"
+        by_width: Dict[int, List[int]] = {}
+        arrays = []
+        for i, wav in enumerate(wavs):
+            wav = np.asarray(wav)
+            if pcm16:
+                if wav.dtype != np.int16:
+                    wav = np.clip(np.asarray(wav, np.float32) * 32768.0,
+                                  -32768, 32767).astype(np.int16)
+            elif wav.dtype == np.int16:
+                wav = wav.astype(np.float32) / 32768.0
+            else:
+                wav = np.asarray(wav, np.float32)
+            arrays.append(wav)
+            by_width.setdefault(self._bucket_width(len(wav)), []).append(i)
+        groups = []
+        for width, idx in sorted(by_width.items()):
+            rows = self._rows(len(idx))
+            batch = np.zeros((rows, width), np.int16 if pcm16 else np.float32)
+            # padded rows are full-length silence (length 1.0): a zero
+            # length would make every encoder position padding
+            lens = np.ones((rows,), np.float32)
+            for row, i in enumerate(idx):
+                batch[row, : len(arrays[i])] = arrays[i]
+                lens[row] = len(arrays[i]) / width
+            groups.append((idx, torch.from_numpy(batch).to(self.device),
+                           torch.from_numpy(lens).to(self.device)))
+        return groups
+
+    def _encode(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+        if wavs.dtype == torch.int16:  # PCM16 transfer: unpack on device
+            wavs = wavs.to(torch.float32) / 32768.0
+        feats = cmvn_apply(self.cmvn, self._fbank(wavs)).to(self.dtype)
+        return self._transformer.encode(self._cnn(feats), wav_lens)
+
+    def _prompt(self, src: str, tgt: str) -> List[int]:
+        sp = self.tokenizer
+        return [self.searcher.bos_token, sp.encode_as_ids(f"[{src}]")[-1],
+                sp.encode_as_ids(f"[{tgt}]")[-1]]
+
+    @torch.inference_mode()
+    def _texts(self, wavs, prompts: List[List[int]]) -> List[List[str]]:
+        """texts[p][i]: input i decoded under prompt p. Per bucket, one
+        encoder pass and ONE search over all prompts (the encoder output
+        tiled once per prompt)."""
+        out = [[""] * len(wavs) for _ in prompts]
+        for idx, batch, lens in self._prepare(wavs):
+            enc = self._encode(batch, lens)
+            for p, (hyps, _) in enumerate(
+                    self.searcher.call_multi(enc, prompts)):
+                for row, i in enumerate(idx):
+                    out[p][i] = self.tokenizer.decode_ids(hyps[row])
+        return out
+
+    # ------------------------------------------------------------------ API
+    def translate(self, wavs: Sequence[np.ndarray],
+                  source_lang: Optional[str] = None,
+                  target_lang: Optional[str] = None) -> List[str]:
+        src = source_lang or self.source_lang
+        return self._texts(wavs, [self._prompt(
+            src, target_lang or self.target_lang)])[0]
+
+    def transcribe(self, wavs: Sequence[np.ndarray],
+                   source_lang: Optional[str] = None) -> List[str]:
+        lang = source_lang or self.source_lang
+        return self._texts(wavs, [self._prompt(lang, lang)])[0]
+
+    def transcribe_and_translate(
+        self, wavs: Sequence[np.ndarray], source_lang: Optional[str] = None,
+        target_lang: Optional[str] = None,
+    ) -> Tuple[List[str], List[str]]:
+        """Both task outputs from ONE encoder pass and ONE fused
+        dual-prompt search (2 rows per utterance). Returns
+        (transcriptions, translations)."""
+        src = source_lang or self.source_lang
+        tgt = target_lang or self.target_lang
+        asr, st = self._texts(
+            wavs, [self._prompt(src, src), self._prompt(src, tgt)])
+        return asr, st
+
+    @torch.inference_mode()
+    def speaker_turns(self, wavs: Sequence[np.ndarray]) -> List[Dict]:
+        """Per-input [turn]/[xt] event times (seconds) from the CTC head.
+        Frames past each input's length are forced to blank, so bucket
+        padding cannot fake speaker-change spikes."""
+        if self._ctc_lin is None:
+            raise RuntimeError("engine built without a CTC head")
+        blank = self.searcher.config.blank_index
+        results: List[Optional[Dict]] = [None] * len(wavs)
+        for idx, batch, lens in self._prepare(wavs):
+            enc = self._encode(batch, lens)
+            am = torch.argmax(self._ctc_lin(enc), dim=-1)
+            n_frames = enc.shape[1]
+            valid = torch.ceil(lens * n_frames).to(torch.long)
+            frames = torch.arange(n_frames, device=am.device)
+            am = torch.where(frames[None, :] < valid[:, None], am, blank)
+            ids = [f"utt{i}-0-0-0" for i in idx]
+            events = extract_turn_events(
+                ids, am.cpu().numpy(), {"turn": self.turn_id,
+                                        "xt": self.xt_id})
+            for row, i in enumerate(idx):
+                results[i] = {
+                    name: [float(line.split()[3]) for line in events[name]
+                           if line.split()[1] == ids[row]]
+                    for name in ("turn", "xt")
+                }
+        return results  # type: ignore[return-value]

@@ -18,6 +18,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(8886)

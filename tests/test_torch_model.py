@@ -1,0 +1,253 @@
+"""Port model parity: weights loaded from JAX, encoder, cached decode.
+
+The JAX tiny model (d32, 4 heads, 2+2 layers, vocab 150, CNN (16, 16))
+and its PyTorch twin share weights through ``interop.from_jax``; inputs are
+made with numpy from a seed. Tolerance: fp32, atol 1e-4 on activations.
+
+``build_jax_tiny`` / ``build_port_twin`` are shared with
+``test_torch_engine.py``.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from stac_st_tpu.models import (
+    ConvolutionFrontEnd,
+    LinearHead,
+    TransformerMultiTask,
+)
+from stac_st_tpu_torch import models as P
+from stac_st_tpu_torch.decoding.beam_search import (
+    BeamSearchConfig,
+    beam_search,
+)
+from stac_st_tpu_torch.interop.from_jax import load_jax_params
+
+VOCAB, D, NHEAD, LAYERS, FFN = 150, 32, 4, 2, 64
+ATOL = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _seeded_leaf(path, shape, rng):
+    """A parameter value from numpy: Glorot-normal kernels/embeddings,
+    scales near 1, small nonzero biases (so every import path matters)."""
+    name = getattr(path[-1], "key", str(path[-1]))
+    if name == "scale":
+        return 1.0 + 0.1 * rng.standard_normal(shape)
+    if name == "bias":
+        return 0.1 * rng.standard_normal(shape)
+    receptive = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
+    std = np.sqrt(2.0 / (receptive * (shape[-2] + shape[-1])))
+    return std * rng.standard_normal(shape)
+
+
+def build_jax_tiny(seed=0):
+    """JAX modules + params made from a numpy seed (shapes from
+    ``jax.eval_shape`` of the modules' init: nothing is compiled)."""
+    cnn = ConvolutionFrontEnd(out_channels=(16, 16))
+    transformer = TransformerMultiTask(
+        tgt_vocab=VOCAB, input_size=20 * 16, d_model=D, nhead=NHEAD,
+        num_encoder_layers=LAYERS, num_decoder_layers=LAYERS, d_ffn=FFN,
+        dropout=0.0, normalize_before=True,
+    )
+    seq_lin = LinearHead(input_size=D, n_neurons=VOCAB)
+    ctc_lin = LinearHead(input_size=D, n_neurons=VOCAB)
+    key = jax.random.PRNGKey(0)
+    feats = jax.ShapeDtypeStruct((1, 41, 80), jnp.float32)
+    src = jax.ShapeDtypeStruct((1, 11, 20, 16), jnp.float32)
+    enc = jax.ShapeDtypeStruct((1, 11, D), jnp.float32)
+    shapes = {
+        "CNN": jax.eval_shape(cnn.init, key, feats),
+        "Transformer": jax.eval_shape(
+            transformer.init, key, src,
+            jax.ShapeDtypeStruct((1, 4), jnp.int32)),
+        "seq_lin": jax.eval_shape(seq_lin.init, key, enc),
+        "ctc_lin": jax.eval_shape(ctc_lin.init, key, enc),
+    }
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, s: jnp.asarray(_seeded_leaf(path, s.shape, rng),
+                                    jnp.float32),
+        shapes)
+    return dict(cnn=cnn, transformer=transformer, seq_lin=seq_lin,
+                ctc_lin=ctc_lin, params=params)
+
+
+def new_port_modules():
+    return dict(
+        cnn=P.ConvolutionFrontEnd(out_channels=(16, 16)),
+        transformer=P.TransformerMultiTask(
+            VOCAB, 20 * 16, d_model=D, nhead=NHEAD,
+            num_encoder_layers=LAYERS, num_decoder_layers=LAYERS, d_ffn=FFN),
+        seq_lin=P.LinearHead(D, VOCAB),
+        ctc_lin=P.LinearHead(D, VOCAB),
+    )
+
+
+def build_port_twin(jx):
+    """The port's modules, loaded from the JAX params (fp32, CPU)."""
+    mods = new_port_modules()
+    load_jax_params(jax.tree_util.tree_map(np.asarray, jx["params"]), **mods)
+    return mods
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jx = build_jax_tiny()
+    return jx, build_port_twin(jx)
+
+
+@pytest.fixture(scope="module")
+def encoded(pair):
+    """Encoder outputs of both sides on one seeded batch."""
+    jx, pt = pair
+    rng = np.random.default_rng(1)
+    feats = rng.standard_normal((2, 41, 80)).astype(np.float32)
+    wav_len = np.asarray([1.0, 0.7], np.float32)
+    t = jx["transformer"]
+
+    @jax.jit
+    def encode(params, feats, wav_len):
+        src = jx["cnn"].apply(params["CNN"], feats)
+        return t.apply(params["Transformer"], src, wav_len, method=t.encode)
+
+    enc_j = encode(jx["params"], jnp.asarray(feats), jnp.asarray(wav_len))
+    with torch.no_grad():
+        enc_t = pt["transformer"].encode(pt["cnn"](torch.from_numpy(feats)),
+                                         torch.from_numpy(wav_len))
+    return np.asarray(enc_j), enc_t
+
+
+def test_from_jax_covers_every_parameter(pair):
+    jx, pt = pair
+    tree = jax.tree_util.tree_map(np.asarray, jx["params"])
+    n_jax = sum(x.size for x in jax.tree_util.tree_leaves(tree))
+    n_port = sum(p.numel() for m in pt.values() for p in m.parameters())
+    assert n_port == n_jax
+    # a stray key of the tree raises ...
+    stray = {**tree, "ctc_lin": {"params": {
+        **tree["ctc_lin"]["params"], "stray": np.zeros(3, np.float32)}}}
+    with pytest.raises(KeyError, match="not consumed"):
+        load_jax_params(stray, **new_port_modules())
+    # ... and so does a port parameter the tree does not reach
+    mods = new_port_modules()
+    mods["seq_lin"].extra = torch.nn.Parameter(torch.zeros(2))
+    with pytest.raises(KeyError, match="left unset"):
+        load_jax_params(tree, **mods)
+
+
+def test_encoder_matches_jax(encoded):
+    enc_j, enc_t = encoded
+    assert enc_t.shape == enc_j.shape == (2, 11, D)
+    np.testing.assert_allclose(enc_t.numpy(), enc_j, atol=ATOL, rtol=0)
+
+
+def _jax_gather(cache, flat_parent):
+    """Gather-mode reorder of the JAX self caches (the searcher's
+    cache_gather_fn)."""
+    layers = []
+    for layer in cache["layers"]:
+        sc = layer["self"]
+        layers.append({**layer, "self": {
+            n: (x if n == "index" else jnp.take(x, flat_parent, axis=0))
+            for n, x in sc.items()}})
+    return {**cache, "layers": layers}
+
+
+@pytest.mark.parametrize("beam", [1, 3])
+def test_decode_step_matches_jax_gather_mode(pair, encoded, beam):
+    """Hidden state at every step: the port (beam 1 layout, or anc mode
+    with a non-identity parent sequence) against JAX's decode_step in
+    gather mode with the same parents."""
+    jx, pt = pair
+    enc_j, enc_t = encoded
+    t, tp = jx["transformer"], jx["params"]["Transformer"]
+    B, steps = enc_j.shape[0], 7
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(3, VOCAB, (steps, B * beam))
+    parents = rng.integers(0, beam, (steps, B, beam))
+    cache_j = t.apply(tp, jnp.asarray(enc_j), steps, None, beam,
+                      method=t.init_decode_cache)
+    step_j = jax.jit(lambda tok, pos, c: t.apply(tp, tok, pos, c,
+                                                 method=t.decode_step))
+    model = pt["transformer"]
+    cache_t = model.init_decode_cache(enc_t, steps, None, beam,
+                                      anc_mode=beam > 1)
+    with torch.no_grad():
+        for p in range(steps):
+            if p and beam > 1:
+                flat = (np.arange(B)[:, None] * beam + parents[p]).reshape(-1)
+                cache_j = _jax_gather(cache_j, jnp.asarray(flat))
+                par = torch.from_numpy(parents[p])
+                anc = torch.gather(cache_t["anc"], 1,
+                                   par[:, :, None].expand(-1, -1, steps))
+                anc[:, :, p] = torch.arange(beam, dtype=torch.int32)
+                cache_t["anc"] = anc
+            h_j, cache_j = step_j(jnp.asarray(tokens[p]),
+                                  jnp.asarray(p, jnp.int32), cache_j)
+            h_t = model.decode_step(torch.from_numpy(tokens[p]), p, cache_t)
+            np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j),
+                                       atol=ATOL, rtol=0,
+                                       err_msg=f"step {p}")
+
+
+def test_cached_anc_decode_equals_oracle_decode(pair, encoded):
+    """The port's KV-cached anc-mode decode, under a random beam ancestry,
+    equals its own full-prefix oracle ``decode`` of each hypothesis's
+    reconstructed prefix at every step."""
+    _, pt = pair
+    _, enc = encoded
+    model = pt["transformer"]
+    B, beam, steps = enc.shape[0], 4, 6
+    rng = np.random.default_rng(3)
+    cache = model.init_decode_cache(enc, steps, None, beam, anc_mode=True)
+    hist = np.zeros((B, beam, 0), np.int64)
+    with torch.no_grad():
+        for p in range(steps):
+            if p:
+                parent = rng.integers(0, beam, (B, beam))
+                hist = np.take_along_axis(hist, parent[:, :, None], axis=1)
+                par = torch.from_numpy(parent)
+                cache["anc"] = torch.gather(
+                    cache["anc"], 1, par[:, :, None].expand(-1, -1, steps))
+                cache["anc"][:, :, p] = torch.arange(beam, dtype=torch.int32)
+            tok = rng.integers(3, VOCAB, (B, beam))
+            hist = np.concatenate([hist, tok[:, :, None]], axis=2)
+            h = model.decode_step(torch.from_numpy(tok.reshape(-1)), p, cache)
+            oracle = model.decode(
+                torch.from_numpy(hist.reshape(B * beam, p + 1)),
+                enc.repeat_interleave(beam, dim=0))[:, -1]
+            np.testing.assert_allclose(h.numpy(), oracle.numpy(), atol=ATOL,
+                                       rtol=0, err_msg=f"step {p}")
+
+
+@pytest.mark.parametrize("beam", [1, 4])
+def test_segmented_cache_growth_is_exact(pair, encoded, beam):
+    """Decoding in growing cache segments (3, 6, 12, 14 steps here)
+    continues the same search: tokens and lengths equal one full-budget
+    allocation, in both cache layouts; scores agree to fp32 rounding (the
+    plain attention sums over the allocated length, masked positions
+    adding exact zeros in another blocking)."""
+    _, pt = pair
+    _, enc = encoded
+    cfg = BeamSearchConfig(beam_size=beam, using_eos_threshold=True,
+                           length_normalization=True, temperature=1.15)
+    prompt = torch.tensor([1, 3, 4])
+    with torch.no_grad():
+        grown = beam_search(pt["transformer"], pt["seq_lin"], enc, prompt,
+                            14, cfg, cache_growth=3)
+        whole = beam_search(pt["transformer"], pt["seq_lin"], enc, prompt,
+                            14, cfg, cache_growth=None)
+    torch.testing.assert_close(grown[0], whole[0], atol=0, rtol=0)
+    torch.testing.assert_close(grown[1], whole[1], atol=0, rtol=0)
+    torch.testing.assert_close(grown[2], whole[2], atol=1e-5, rtol=0)
