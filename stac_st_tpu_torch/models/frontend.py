@@ -1,8 +1,10 @@
 """Convolutional front end (port of ``stac_st_tpu/models/frontend.py``).
 
 Two blocks of Conv2d (kernel 3, stride 2, symmetric ``k//2`` padding) ->
-LayerNorm -> LeakyReLU(0.01) over (time, freq), no residuals: 100 Hz
-fbank frames become 25 Hz encoder frames and 80 mels become 20.
+LayerNorm -> LeakyReLU(0.01) -> Dropout over (time, freq), no residuals:
+100 Hz fbank frames become 25 Hz encoder frames and 80 mels become 20.
+Dropout is active only when the caller passes ``train=True`` with a
+:class:`~stac_st_tpu_torch.models.dropout.StepRandom`.
 
 The JAX module is NHWC with H = time and W = freq. Activations stay in that
 layout here and are permuted to NCHW only around each convolution, so the
@@ -13,11 +15,13 @@ the same order as the reference's ``_flatten_src``.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from .dropout import StepRandom, dropout
 
 __all__ = ["ConvolutionFrontEnd", "conv_out_length"]
 
@@ -32,8 +36,9 @@ class ConvolutionFrontEnd(nn.Module):
     def __init__(self, n_mels: int = 80,
                  out_channels: Sequence[int] = (256, 256),
                  kernel_sizes: Sequence[int] = (3, 3),
-                 strides: Sequence[int] = (2, 2)):
+                 strides: Sequence[int] = (2, 2), dropout: float = 0.1):
         super().__init__()
+        self.dropout = float(dropout)
         self.layers = nn.ModuleDict()
         freq, c_in = n_mels, 1
         for b, (c_out, k, s) in enumerate(zip(out_channels, kernel_sizes,
@@ -46,11 +51,14 @@ class ConvolutionFrontEnd(nn.Module):
             c_in = c_out
         self.num_blocks = len(out_channels)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, train: bool = False,
+                rng: Optional[StepRandom] = None) -> torch.Tensor:
         """feats (B, T, F) -> (B, T', F', C)."""
         x = feats[..., None]  # NHWC
         for b in range(self.num_blocks):
             conv = self.layers[f"block{b}_conv0"]
             x = conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             x = F.leaky_relu(self.layers[f"block{b}_norm0"](x), 0.01)
+            if train:
+                x = dropout(x, self.dropout, rng)
         return x

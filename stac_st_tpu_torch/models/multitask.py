@@ -1,10 +1,13 @@
-"""TransformerMultiTask: the joint ASR+ST encoder-decoder (inference parts).
+"""TransformerMultiTask: the joint ASR+ST encoder-decoder.
 
-Port of ``stac_st_tpu/models/multitask.py``: linear source projection,
-fixed sinusoidal positions, pre-LN encoder (``encode``), the oracle
-full-prefix ``decode``, and the KV-cached ``decode_step`` with its cache
-(``init_decode_cache`` / ``grow_decode_cache``). The task is selected by
-the decoder prompt ``[bos, source_lang, target_lang]``.
+Port of ``stac_st_tpu/models/multitask.py``: linear source projection
+(+ dropout in training), fixed sinusoidal positions, the teacher-forced
+``forward`` / ``forward_decoder`` (round-based key padding, lookahead |
+target padding), the serving ``encode`` (floor-based key padding, plain
+attention), the oracle full-prefix ``decode``, and the KV-cached
+``decode_step`` with its cache (``init_decode_cache`` /
+``grow_decode_cache``). The task is selected by the decoder prompt
+``[bos, source_lang, target_lang]``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 
 from ..ops import masks as M
 from .activations import default_activation
+from .dropout import StepRandom, dropout
 from .positional import sinusoidal_table
 from .transformer import (
     NormalizedEmbedding,
@@ -33,17 +37,20 @@ class TransformerMultiTask(nn.Module):
     def __init__(self, tgt_vocab: int, input_size: int, d_model: int = 512,
                  nhead: int = 8, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 6, d_ffn: int = 2048,
-                 activation: Callable = default_activation):
+                 activation: Callable = default_activation,
+                 dropout: float = 0.1):
         """Pre-LN only (``normalize_before=True``, as every reference
-        preset); positions up to ``MAX_LENGTH``."""
+        preset); positions up to ``MAX_LENGTH``. ``dropout`` acts only in
+        the training forward."""
         super().__init__()
         self.d_model, self.nhead = d_model, nhead
+        self.dropout = float(dropout)
         self.src_proj = nn.Linear(input_size, d_model)
         self.tgt_embed = NormalizedEmbedding(d_model, tgt_vocab)
         self.encoder = TransformerEncoder(num_encoder_layers, d_model, nhead,
-                                          d_ffn, activation)
+                                          d_ffn, activation, dropout)
         self.decoder = TransformerDecoder(num_decoder_layers, d_model, nhead,
-                                          d_ffn, activation)
+                                          d_ffn, activation, dropout)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_table(MAX_LENGTH, d_model)),
             persistent=False)
@@ -58,6 +65,45 @@ class TransformerMultiTask(nn.Module):
 
     def _add_pe(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.pe[None, : x.shape[1], :].to(x.dtype)
+
+    def _src_bias(self, wav_len: Optional[torch.Tensor], S: int):
+        if wav_len is None:
+            return None
+        pad = M.src_key_padding_mask(wav_len, S)  # round-based
+        return M.additive_bias(pad[:, None, None, :])
+
+    # ------------------------------------------------------------- forward
+    def forward(self, src: torch.Tensor, tgt: torch.Tensor,
+                wav_len: Optional[torch.Tensor] = None, pad_idx: int = 0,
+                train: bool = False, rng: Optional[StepRandom] = None):
+        """Teacher-forced forward -> (encoder_out, decoder_out). With
+        ``train`` dropout is on and key-padding attention runs through
+        ``flash_attention_train``; without, through ``flash_attention``."""
+        src = self._flatten_src(src)
+        h = self.src_proj(src)
+        if train:
+            h = dropout(h, self.dropout, rng)
+        enc = self.encoder(self._add_pe(h), self._src_bias(wav_len,
+                                                          src.shape[1]),
+                           "train" if train else "eval", rng)
+        return enc, self.forward_decoder(tgt, enc, wav_len, pad_idx, train,
+                                         rng)
+
+    def forward_decoder(self, tgt: torch.Tensor, encoder_out: torch.Tensor,
+                        wav_len: Optional[torch.Tensor] = None,
+                        pad_idx: int = 0, train: bool = False,
+                        rng: Optional[StepRandom] = None) -> torch.Tensor:
+        """Decoder half of the teacher-forced forward: lookahead | target
+        padding on self-attention, round-based padding on cross."""
+        T = tgt.shape[1]
+        tgt_pad = M.tgt_key_padding_mask(tgt, pad_idx)
+        self_bias = M.additive_bias(
+            M.lookahead_mask(T, tgt.device)[None, None, :, :]
+            | tgt_pad[:, None, None, :])
+        d = self._add_pe(self.tgt_embed(tgt))
+        return self.decoder(d, encoder_out, self_bias,
+                            self._src_bias(wav_len, encoder_out.shape[1]),
+                            "train" if train else "eval", rng)
 
     # -------------------------------------------------------------- encode
     def encode(self, src: torch.Tensor,

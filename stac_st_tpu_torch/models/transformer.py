@@ -1,6 +1,6 @@
 """Pre-LN Transformer encoder/decoder with KV-cached decoding.
 
-Port of the inference parts of ``stac_st_tpu/models/transformer.py``.
+Port of ``stac_st_tpu/models/transformer.py`` (pre-LN; float weights).
 Parameter layout follows PyTorch: each attention block holds one
 ``in_proj`` Linear whose (3·d, d) weight stacks the q, k and v projections
 in the order of the reference's ``_fused_qkv``.
@@ -17,8 +17,20 @@ Decode mode keeps the reference's cache layouts:
 
 Unlike the functional JAX cache, the port appends to its caches in place
 (one row write per step, no copy) and keeps the write index as a host int.
-Encoder self-attention stays plain ``matmul`` + softmax, as in the
-reference's inference path.
+
+Full-sequence attention takes a ``mode``:
+
+* ``None`` (``encode`` and the oracle ``decode``, the serving paths):
+  plain ``matmul`` + softmax, as the reference's inference path;
+* ``"eval"`` (the teacher-forced forward with training off): a
+  key-padding-only bias (encoder self-attention, decoder
+  cross-attention) goes to the ``flash_attention`` kernel;
+* ``"train"``: a key-padding-only bias goes to ``flash_attention_train``
+  with its in-kernel dropout, one 32-bit seed drawn per call (the
+  reference's ``_flash_trainable`` route, transformer.py:125-158); any
+  other bias (decoder self-attention with its causal mask) takes matmul +
+  softmax + dropout on the weights. Dropout also hits the FFN hidden
+  layer and the residual branches, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,12 +42,15 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.kernels.attention import flash_attention
 from ..ops.kernels.decode_attention import (
     decode_cross_attention,
     decode_self_attention,
     decode_self_attention_anc,
 )
+from ..ops.kernels.train_attention import flash_attention_train
 from .activations import default_activation
+from .dropout import StepRandom, dropout
 
 __all__ = [
     "NormalizedEmbedding", "MultiHeadAttention", "FeedForward",
@@ -59,11 +74,12 @@ class NormalizedEmbedding(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} not divisible by {nhead}")
         self.d_model, self.nhead = d_model, nhead
+        self.dropout = float(dropout)
         self.head_dim = d_model // nhead
         self.scale = 1.0 / math.sqrt(self.head_dim)
         self.in_proj = nn.Linear(d_model, 3 * d_model)  # rows: q | k | v
@@ -74,21 +90,36 @@ class MultiHeadAttention(nn.Module):
         sl = slice(part * d, (part + 1) * d)
         return F.linear(x, self.in_proj.weight[sl], self.in_proj.bias[sl])
 
-    # ---- full-sequence attention (encoder, oracle decode) -----------------
-    def forward(self, query, key, value, bias=None):
+    # ---- full-sequence attention ------------------------------------------
+    def forward(self, query, key, value, bias=None, mode: Optional[str] = None,
+                rng: Optional[StepRandom] = None):
         """query (B, Tq, d), key/value (B, Tk, d); bias broadcastable to
-        (B, H, Tq, Tk), additive fp32."""
+        (B, H, Tq, Tk), additive fp32. ``mode`` as in the module note."""
         B, Tq, _ = query.shape
         Tk = key.shape[1]
         H, Dh = self.nhead, self.head_dim
-        q = self._proj(query, 0).reshape(B, Tq, H, Dh).transpose(1, 2)
-        k = self._proj(key, 1).reshape(B, Tk, H, Dh).transpose(1, 2)
-        v = self._proj(value, 2).reshape(B, Tk, H, Dh).transpose(1, 2)
+        q = self._proj(query, 0).reshape(B, Tq, H, Dh)
+        k = self._proj(key, 1).reshape(B, Tk, H, Dh)
+        v = self._proj(value, 2).reshape(B, Tk, H, Dh)
+        key_pad_only = bias is None or (
+            bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1)
+        if mode is not None and key_pad_only:
+            bias2 = None if bias is None else bias.reshape(B, Tk).contiguous()
+            if mode == "train":
+                p = self.dropout
+                seed = rng.kernel_seed() if p > 0.0 else 0
+                out = flash_attention_train(q, k, v, bias2, seed, p)
+            else:
+                out = flash_attention(q, k, v, bias2)
+            return self.out_proj(out.reshape(B, Tq, self.d_model))
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         logits = logits * self.scale
         if bias is not None:
             logits = logits + bias
         weights = torch.softmax(logits, dim=-1).to(q.dtype)
+        if mode == "train":
+            weights = dropout(weights, self.dropout, rng)
         out = torch.matmul(weights.float(), v.float()).to(q.dtype)
         out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
         return self.out_proj(out)
@@ -148,53 +179,74 @@ class MultiHeadAttention(nn.Module):
 
 class FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ffn: int,
-                 activation: Callable = default_activation):
+                 activation: Callable = default_activation,
+                 dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(d_model, d_ffn)
         self.fc2 = nn.Linear(d_ffn, d_model)
         self.activation = activation
+        self.dropout = float(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.activation(self.fc1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: Optional[StepRandom] = None) -> torch.Tensor:
+        h = self.activation(self.fc1(x))
+        if train:
+            h = dropout(h, self.dropout, rng)
+        return self.fc2(h)
+
+
+def _residual(x, h, p: float, mode: Optional[str], rng):
+    return x + (dropout(h, p, rng) if mode == "train" else h)
 
 
 class EncoderLayer(nn.Module):
     """Pre-LN encoder layer."""
 
     def __init__(self, d_model: int, nhead: int, d_ffn: int,
-                 activation: Callable = default_activation):
+                 activation: Callable = default_activation,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.ffn = FeedForward(d_model, d_ffn, activation)
+        self.dropout = float(dropout)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.ffn = FeedForward(d_model, d_ffn, activation, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, bias=None):
+    def forward(self, x, bias=None, mode: Optional[str] = None, rng=None):
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, h, bias)
-        return x + self.ffn(self.norm2(x))
+        x = _residual(x, self.self_attn(h, h, h, bias, mode, rng),
+                      self.dropout, mode, rng)
+        h = self.ffn(self.norm2(x), mode == "train", rng)
+        return _residual(x, h, self.dropout, mode, rng)
 
 
 class DecoderLayer(nn.Module):
     """Pre-LN decoder layer: self-attention, cross-attention, FFN."""
 
     def __init__(self, d_model: int, nhead: int, d_ffn: int,
-                 activation: Callable = default_activation):
+                 activation: Callable = default_activation,
+                 dropout: float = 0.0):
         super().__init__()
         self.nhead, self.head_dim = nhead, d_model // nhead
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.cross_attn = MultiHeadAttention(d_model, nhead)
-        self.ffn = FeedForward(d_model, d_ffn, activation)
+        self.dropout = float(dropout)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.ffn = FeedForward(d_model, d_ffn, activation, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, memory, self_bias=None, cross_bias=None):
+    def forward(self, x, memory, self_bias=None, cross_bias=None,
+                mode: Optional[str] = None, rng=None):
+        p = self.dropout
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, h, self_bias)
+        x = _residual(x, self.self_attn(h, h, h, self_bias, mode, rng), p,
+                      mode, rng)
         h = self.norm2(x)
-        x = x + self.cross_attn(h, memory, memory, cross_bias)
-        return x + self.ffn(self.norm3(x))
+        x = _residual(x, self.cross_attn(h, memory, memory, cross_bias, mode,
+                                         rng), p, mode, rng)
+        h = self.ffn(self.norm3(x), mode == "train", rng)
+        return _residual(x, h, p, mode, rng)
 
     def init_cache(self, batch: int, max_len: int, memory: torch.Tensor,
                    anc_mode: bool) -> Dict[str, Any]:
@@ -228,31 +280,34 @@ class DecoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, d_ffn: int,
-                 activation: Callable = default_activation):
+                 activation: Callable = default_activation,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, d_ffn, activation)
+            EncoderLayer(d_model, nhead, d_ffn, activation, dropout)
             for _ in range(num_layers))
         self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, bias=None):
+    def forward(self, x, bias=None, mode: Optional[str] = None, rng=None):
         for layer in self.layers:
-            x = layer(x, bias)
+            x = layer(x, bias, mode, rng)
         return self.final_norm(x)
 
 
 class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, d_ffn: int,
-                 activation: Callable = default_activation):
+                 activation: Callable = default_activation,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, nhead, d_ffn, activation)
+            DecoderLayer(d_model, nhead, d_ffn, activation, dropout)
             for _ in range(num_layers))
         self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, memory, self_bias=None, cross_bias=None):
+    def forward(self, x, memory, self_bias=None, cross_bias=None,
+                mode: Optional[str] = None, rng=None):
         for layer in self.layers:
-            x = layer(x, memory, self_bias, cross_bias)
+            x = layer(x, memory, self_bias, cross_bias, mode, rng)
         return self.final_norm(x)
 
     def init_cache(self, batch: int, max_len: int, memory,

@@ -1,7 +1,11 @@
-"""Global CMVN apply (port of ``stac_st_tpu/ops/cmvn.py``).
+"""Global CMVN with epoch-gated running statistics (port of
+``stac_st_tpu/ops/cmvn.py``).
 
-Serving only normalizes with frozen statistics; the running update
-(``cmvn_update``) belongs to the training slice.
+Training folds each batch into the running stats until
+``update_until_epoch`` (``InputNormalization.should_update``), then
+freezes them; serving only applies them. The running stats are the
+arithmetic mean of all PER-UTTERANCE means and stds seen so far (not a
+pooled std): a batch update is ``(stat · count + Σ_batch) / (count + B)``.
 """
 
 from __future__ import annotations
@@ -10,7 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["CmvnState", "cmvn_init", "cmvn_apply"]
+__all__ = ["CmvnState", "InputNormalization", "cmvn_init", "cmvn_apply",
+           "cmvn_update"]
 
 _EPS = 1e-10
 
@@ -36,3 +41,45 @@ def cmvn_apply(state: CmvnState, feats: torch.Tensor) -> torch.Tensor:
     """(B, T, D) -> (feats - mean) / max(std, eps)."""
     std = torch.clamp(state.std, min=_EPS)
     return (feats - state.mean[None, None, :]) / std[None, None, :]
+
+
+def _per_utt_stats(feats: torch.Tensor, rel_lengths: torch.Tensor):
+    """Masked per-utterance mean/std over time, abs_len = round(rel · T).
+    feats (B, T, D) -> (B, D), (B, D)."""
+    T = feats.shape[1]
+    abs_len = torch.round(rel_lengths.to(torch.float32) * T)
+    mask = (torch.arange(T, device=feats.device)[None, :]
+            < abs_len[:, None]).to(torch.float32)
+    denom = torch.clamp(mask.sum(1, keepdim=True), min=1.0)  # (B, 1)
+    mean = (feats * mask[..., None]).sum(1) / denom
+    var = (((feats - mean[:, None, :]) ** 2) * mask[..., None]).sum(1) / denom
+    return mean, torch.sqrt(torch.clamp(var, min=_EPS))
+
+
+def cmvn_update(state: CmvnState, feats: torch.Tensor,
+                rel_lengths: torch.Tensor) -> CmvnState:
+    """Fold a batch of utterances into the running stats."""
+    mean_b, std_b = _per_utt_stats(feats, rel_lengths)
+    count = state.count + float(feats.shape[0])
+    mean = (state.mean * state.count + mean_b.sum(0)) / count
+    std = (state.std * state.count + std_b.sum(0)) / count
+    return CmvnState(mean, std, count)
+
+
+class InputNormalization:
+    """The hparams-facing spec (global norm, epoch-gated update); the
+    statistics themselves live in a :class:`CmvnState`."""
+
+    def __init__(self, norm_type: str = "global",
+                 update_until_epoch: int = 4, **unused):
+        if norm_type != "global":
+            raise NotImplementedError("only norm_type 'global' is supported")
+        self.norm_type = norm_type
+        self.update_until_epoch = int(update_until_epoch)
+
+    def init_state(self, dim: int, device="cpu") -> CmvnState:
+        return cmvn_init(dim, device)
+
+    def should_update(self, epoch: int) -> bool:
+        """Stats update while epoch < update_until_epoch."""
+        return epoch < self.update_until_epoch

@@ -11,12 +11,24 @@ import torch
 
 __all__ = [
     "NEG_INF",
+    "src_key_padding_mask",
     "src_key_padding_mask_encode",
+    "tgt_key_padding_mask",
     "lookahead_mask",
     "additive_bias",
 ]
 
 NEG_INF = -1e9
+
+
+def src_key_padding_mask(rel_lengths: torch.Tensor,
+                         max_len: int) -> torch.Tensor:
+    """Training-forward variant: abs_len = round(rel · max_len) (half to
+    even, as ``jnp.round``), position p is padding iff p >= abs_len.
+    (B,) -> (B, max_len) bool."""
+    abs_len = torch.round(rel_lengths.to(torch.float32) * max_len)
+    pos = torch.arange(max_len, device=rel_lengths.device)
+    return pos[None, :] >= abs_len[:, None]
 
 
 def src_key_padding_mask_encode(rel_lengths: torch.Tensor,
@@ -27,6 +39,12 @@ def src_key_padding_mask_encode(rel_lengths: torch.Tensor,
     abs_len = torch.floor(rel_lengths.to(torch.float32) * max_len)
     pos = torch.arange(max_len, device=rel_lengths.device)
     return pos[None, :] > abs_len[:, None]
+
+
+def tgt_key_padding_mask(tokens: torch.Tensor,
+                         pad_idx: int = 0) -> torch.Tensor:
+    """True where tokens == pad. (B, T) bool."""
+    return tokens == pad_idx
 
 
 def lookahead_mask(size: int, device=None) -> torch.Tensor:
