@@ -12,7 +12,8 @@ Phases, each printed as one JSON line:
 1. environment: card name and power limit (nvidia-smi), torch and CUDA
    versions, and the build time of the kernels (nvcc, sm_90a, every
    source of stac_st_tpu_torch/csrc built in parallel into
-   build/torch_kernels/);
+   build/torch_kernels/); ptxas must report no spills for the
+   tensor-core forward (fwd_tc_kernel, four instantiations);
 2. kernel: each decode-attention kernel against its plain PyTorch version
    at the serving path's shapes (B 16 x 10 s, beam 10: 160 rows, 4 heads of
    64, self cache 3 + 192 positions, 251 encoder frames), in fp32 with TF32
@@ -25,7 +26,12 @@ Phases, each printed as one JSON line:
    ragged key padding, decoder cross-attention 128 x 376, and B4 x 1501
    frames, a 60 s window, whose 128-row tiles move the dropout hash's
    coordinates), fp32 (TF32 off) and bf16, dropout 0 and 0.1 with one
-   seed; forward outputs, L, dQ, dK and dV checked; times as in phase 2;
+   seed; forward outputs, L, dQ, dK and dV checked; every bf16 forward
+   launch went through the tensor-core kernel (variant "wgmma"), every
+   fp32 one through the CUDA-core kernel ("simt"); times as in phase 2,
+   and the host time of one call of each forward wrapper (µs, fp32 and
+   bf16 at the encoder shape) and of the bare library call with either
+   forward kernel on the same bf16 inputs;
 4. main_path: the engine at the flagship width (d256, 4 heads, 12 + 6
    layers, FFN 1024, vocab 5000, CNN (256, 256); bf16, seeded random
    weights) serving B 16 x 10 s of PCM16 through translate,
@@ -36,8 +42,9 @@ Phases, each printed as one JSON line:
    WarmCoolDecay, clip 5.0, bf16 compute, B32 x 15 s, U128, seeded
    weights) through STTrainer.fit for one epoch of 6 copies of one batch,
    CMVN update on; counts zeroed just before and read just after (exactly
-   18 training-forward, 18 dQ and 18 dK/dV launches a step), then one
-   eval forward (exactly 18 flash_attention launches);
+   18 training-forward, 18 dQ and 18 dK/dV launches a step, every forward
+   on the tensor-core kernel), then one eval forward (exactly 18
+   flash_attention launches, all on the tensor-core kernel);
 6. card_vs_cpu: the port on the card against the port on the CPU, full
    width, fp32, 2 x 2 s: one decode step's logits and the token agreement
    of a short translate;
@@ -45,7 +52,9 @@ Phases, each printed as one JSON line:
    B2 x 2 s, fp32 (TF32 off), dropout 0: loss, gradients and updated
    parameters, card against CPU.
 
-Then the card's name and power limit, a {"kernels": [...]} line, and last
+Then the card's name and power limit, a {"kernels": [...]} line (the two
+forward entry points name the kernel variant their main-path launches went
+through), and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
 alone, or without a CUDA device, it fails.
@@ -55,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -135,6 +145,22 @@ class Timer:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+
+
+def host_us(torch, fn, n: int = 40, rounds: int = 5) -> float:
+    """Host time of one call in µs: the median over rounds of the mean of n
+    calls issued back to back (launches are asynchronous, so this is the
+    caller's own cost, not the kernel's)."""
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        means.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(means))
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -250,9 +276,28 @@ def _flash_bounds(name, B, Tq, Tk, es):
 
 FLASH = ("flash_attention", "flash_attention_train_fwd",
          "flash_attention_train_dq", "flash_attention_train_dkv")
+FWD = FLASH[:2]  # the entry points of the forward kernels
+TC = "wgmma"     # the tensor-core forward's variant (bf16 / fp16, Dh 64)
+VARIANTS = (TC, "simt")
 
 
-def train_kernel_phase(torch, timer):
+def spills(log: str, kernel: str):
+    """{mangled name: (spill store bytes, spill load bytes)} of every
+    instantiation of ``kernel`` in an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for " in ln:
+            name = ln.split("Function properties for ", 1)[1].strip()
+        elif name is not None and "spill stores" in ln:
+            if kernel in name:
+                nums = [int(w) for w in ln.replace(",", " ").split()
+                        if w.isdigit()]
+                out[name] = (nums[1], nums[2])  # stack, stores, loads
+            name = None
+    return out
+
+
+def train_kernel_phase(torch, kernels, timer):
     """The four flash kernels vs their plain versions at the training
     shapes; bf16 times at the encoder and cross shapes."""
     import torch.nn.functional as F
@@ -283,7 +328,10 @@ def train_kernel_phase(torch, timer):
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             q, k, v, do = (t.to("cuda", dt).contiguous() for t in base)
+            want = TC if dtype == "bfloat16" else "simt"
+            check(TA.fwd_variant(dt, DH) == want, f"dispatch {dtype}")
             for p in (0.0, P_DROP):
+                kernels.reset_launches()
                 out, lse = TA.flash_attention_train_fwd(q, k, v, bias,
                                                         TRAIN_SEED, p)
                 o_ref, l_ref = TA.flash_attention_train_fwd_ref(
@@ -309,12 +357,41 @@ def train_kernel_phase(torch, timer):
                     torch.cuda.synchronize()
                     errs["flash_attention"] = err(
                         o, A.flash_attention_ref(q, k, v, bias))
+                for name in FWD:
+                    n = kernels.launches.get(name, 0)
+                    check(kernels.launches.get(f"{name}/{want}", 0) == n,
+                          f"{name} {case} {dtype}: {kernels.launches}")
                 for name, (e_abs, e) in errs.items():
                     check(e <= TRAIN_TOL[dtype],
                           f"{name} {case} {dtype} p={p}: rel err {e}")
                     key = f"{case}/{dtype}/p{p}"
                     recs[name].setdefault("rel_err", {})[key] = e
                     recs[name].setdefault("abs_err", {})[key] = e_abs
+            if case == "encoder_self":  # each forward kernel's host cost
+                for name, run in (
+                        ("flash_attention",
+                         partial(A.flash_attention, q, k, v, bias)),
+                        ("flash_attention_train_fwd",
+                         partial(TA.flash_attention_train_fwd, q, k, v,
+                                 bias, TRAIN_SEED, P_DROP))):
+                    recs[name].setdefault("host_us", {})[
+                        f"{dtype}/{want}"] = host_us(torch, run)
+                if dtype == "bfloat16":  # the library call alone, each kernel
+                    lb, o_buf = TA.lib(), torch.empty_like(q)
+                    l_buf = torch.empty((B, H, Tq), dtype=torch.float32,
+                                        device="cuda")
+                    c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), o_buf.data_ptr(),
+                              l_buf.data_ptr(),
+                              B, H, Tq, Tk, DH, *TA.drop_args(
+                                  1 / math.sqrt(DH), TRAIN_SEED, P_DROP, Tq,
+                                  Tk, dt))
+                    for variant, tc in ((TC, 1), ("simt", 0)):
+                        call = partial(lb.stac_flash_fwd, *c_args, tc)
+                        check(call() == 0, f"stac_flash_fwd {variant}")
+                        recs["flash_attention_train_fwd"].setdefault(
+                            "c_call_host_us", {})[f"{dtype}/{variant}"] = (
+                                host_us(torch, call))
             if dtype != "bfloat16" or case == "multi_tile":
                 continue
             # times at the main path's type and dropout rate
@@ -580,6 +657,8 @@ def train_phase(torch, kernels, profile: bool):
     for name in FLASH[1:]:
         check(launches.get(name, 0) == 18 * 6,
               f"{name}: {launches.get(name, 0)} launches, want 18 a step")
+    check(launches.get(f"{FWD[1]}/{TC}", 0) == 18 * 6,
+          f"training forward on the tensor cores: {launches}")
     check(launches.get("flash_attention", 0) == 0, "no eval kernel in fit")
     state = trainer.state
     check(state.optimizer_step == 6 and state.micro_step == 6, "counters")
@@ -590,7 +669,8 @@ def train_phase(torch, kernels, profile: bool):
                                              dev_batch)
     torch.cuda.synchronize()
     eval_launches = dict(kernels.launches)
-    check(eval_launches == {"flash_attention": 18},
+    check(eval_launches == {"flash_attention": 18,
+                             f"flash_attention/{TC}": 18},
           f"eval forward launches {eval_launches}")
     check(tuple(p_seq.shape) == (TB, U_TRAIN, 5000)
           and tuple(p_ctc.shape) == (TB, T_ENC, 5000)
@@ -764,15 +844,20 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
         f.write("\n".join(kernels.build_logs.values()))
     ptxas = [ln.strip() for log in kernels.build_logs.values()
-             for ln in log.splitlines() if "registers" in ln]
+             for ln in log.splitlines() if "registers" in ln
+             or "wgmma" in ln]
+    tc_spills = spills(kernels.build_logs["train_attention"], "fwd_tc_kernel")
+    check(len(tc_spills) == 4 and not any(sum(v) for v in tc_spills.values()),
+          f"fwd_tc_kernel spills: {tc_spills}")
     emit({"phase": "environment", "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_count": torch.cuda.device_count(),
-          "kernel_build_s": build_s, "built": built, "ptxas": ptxas})
+          "kernel_build_s": build_s, "built": built, "ptxas": ptxas,
+          "fwd_tc_kernel_spills": tc_spills})
 
     timer = Timer(torch)
     rows = kernel_phase(torch, K, timer)
-    train_rows = train_kernel_phase(torch, timer)
+    train_rows = train_kernel_phase(torch, kernels, timer)
     main_rec = main_path_phase(torch, kernels, args.profile)
     _, train_launches = train_phase(torch, kernels, args.profile)
     card_vs_cpu_phase(torch)
@@ -803,6 +888,10 @@ def main() -> int:
             "ms": enc["ms"], "plain_ms": enc["plain_ms"],
             "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
             "library_ms": enc["library_ms"],
+            **({"variant": "/".join(
+                v for v in VARIANTS
+                if train_launches.get(f"{rec['name']}/{v}"))}
+               if rec["name"] in FWD else {}),
         })
     print(smi, flush=True)
     emit({"kernels": kernel_line})

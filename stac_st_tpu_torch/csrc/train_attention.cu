@@ -20,29 +20,51 @@
 // reference's counter path (_dropout_mask, train_attention.py:51-92), bit
 // for bit; the tile sizes come from the wrapper.
 //
-// Bound: at the training shapes (Tq, Tk <= a few hundred, Dh 64) each kernel
-// does 4-8 flops per byte it must move, below the ~295 flop/byte ridge of
-// the bf16 tensor cores, so the least time is set by device memory. This
-// first design keeps every intermediate (scores, probabilities, dS) out of
-// device memory, reads Q/K/V/dO once per block, and computes on the fp32
-// CUDA cores from shared-memory tiles: 4 warps per block, 8 query (or key)
-// rows per warp, 32-key (or 32-query) tiles with one lane per key, an
-// odd row stride so lanes never share a bank. It is simple and right;
-// tensor-core (wgmma) tiles and TMA pipelines are later work.
+// Bound: at the encoder training shape (B32 x 376 x 376, 4 heads of 64) the
+// forward does 4.6 GFLOP against 24.6 MB of traffic, about 190 flop/byte,
+// under the ~295 flop/byte ridge of the bf16 tensor cores, so the least
+// time (7.4 us) is set by device memory; every kernel keeps its
+// intermediates (scores, probabilities, dS) out of device memory and reads
+// Q/K/V/dO once per block.
 //
-// The dQ / dK-dV split is the reference's own: each block owns its output
-// rows, so there are no cross-block reductions and no atomics, and the
-// gradients are deterministic.
+// Which kernel serves which call is fixed by dtype and head dim (the
+// wrapper's fwd_variant names it in stac_flash_fwd's use_tc argument):
+//
+// * bf16 and fp16 at Dh 64 (every configuration of the repo: d256, 4 heads)
+//   -> fwd_tc_kernel, both entry points' forward on the Hopper tensor cores:
+//   one warpgroup per 64 query rows of one (b, h); Q and a two-stage ring
+//   of 64-key K/V tiles arrive by TMA (4-D tensor maps over the tensors' own
+//   (B, T, H, Dh) layout, 128-B swizzle, zero fill past T); S = Q K^T and
+//   O += P V are wgmma.m64n64k16 with fp32 accumulators, P taken from
+//   registers, V read through the transpose bit; the online softmax and the
+//   dropout hash run on the accumulators in registers. P is rounded to the
+//   input type before P V (the reference keeps it in fp32).
+// * fp32, and any other head dim -> fwd_kernel on the fp32 CUDA cores: one
+//   fp32 train step is held to the CPU at rtol 1e-5, which TF32 or bf16
+//   tensor cores cannot meet.
+//
+// This is a dispatch, not a fallback: a launch of either that fails is an
+// error returned to the caller. dq_kernel and dkv_kernel run on the CUDA
+// cores for every type: 4 warps per block, 8 query (or key) rows per warp,
+// 32-key (or 32-query) tiles with one lane per key, an odd row stride so
+// lanes never share a bank. The dQ / dK-dV split is the reference's own:
+// each block owns its output rows, so there are no cross-block reductions
+// and no atomics, and the gradients are deterministic.
 //
 // Plain C interface, loaded with ctypes; every launcher returns the
-// cudaError_t of its launch (0 = success). Kernels run on the caller's
-// stream, allocate nothing and never synchronise.
+// cudaError_t of its launch (0 = success) or one of the ERR_* codes below.
+// Kernels run on the caller's stream, allocate nothing and never
+// synchronise. libcuda's cuTensorMapEncodeTiled is reached through
+// cudaGetDriverEntryPoint, so the library does not link libcuda.
 
+#include <cuda.h>  // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -86,19 +108,27 @@ struct Drop {
   int on;
 };
 
-// keep(i, j) / (1 - p) for query row i, key j of head bh.
-__device__ __forceinline__ float keep_scale(const Drop& dr, uint32_t bh, int i, int j) {
-  const uint32_t qt = (uint32_t)(i / dr.q_tile), row = (uint32_t)(i % dr.q_tile);
-  const uint32_t kt = (uint32_t)(j / dr.k_tile), col = (uint32_t)(j % dr.k_tile);
-  uint32_t x = (dr.seed * 0x9E3779B1u) ^ ((bh + 1u) * 0x85EBCA6Bu) ^
-               ((qt + 1u) * 0xC2B2AE35u) ^ ((kt + 1u) * 0x27D4EB2Fu);
-  x = x + row * 0x01000193u + col * 0x0000F1A7u;
+// The hash's terms: x = (seed*C0 ^ (bh+1)*C1 ^ (qt+1)*C2 ^ (kt+1)*C3)
+// + row*C4 + col*C5, then murmur3's fmix32; kept iff x >= thresh.
+constexpr uint32_t H_SEED = 0x9E3779B1u, H_BH = 0x85EBCA6Bu, H_QT = 0xC2B2AE35u,
+                   H_KT = 0x27D4EB2Fu, H_ROW = 0x01000193u, H_COL = 0x0000F1A7u;
+
+__device__ __forceinline__ bool kept(const Drop& dr, uint32_t x) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
-  return x >= dr.thresh ? dr.inv_keep : 0.f;
+  return x >= dr.thresh;
+}
+
+// keep(i, j) / (1 - p) for query row i, key j of head bh.
+__device__ __forceinline__ float keep_scale(const Drop& dr, uint32_t bh, int i, int j) {
+  const uint32_t qt = (uint32_t)(i / dr.q_tile), row = (uint32_t)(i % dr.q_tile);
+  const uint32_t kt = (uint32_t)(j / dr.k_tile), col = (uint32_t)(j % dr.k_tile);
+  const uint32_t x = (dr.seed * H_SEED) ^ ((bh + 1u) * H_BH) ^ ((qt + 1u) * H_QT) ^
+                     ((kt + 1u) * H_KT);
+  return kept(dr, x + row * H_ROW + col * H_COL) ? dr.inv_keep : 0.f;
 }
 
 // rows [r0, r0 + n) of one head of a (B, T, H, Dh) tensor into smem
@@ -203,6 +233,332 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     }
     if (WITH_L && lane == 0)
       lse[(size_t)bh * Tq + i] = l[r] > 0.f ? m[r] + logf(den) : NEG_INF;
+  }
+}
+
+// ---- forward on the tensor cores: bf16 / fp16, Dh 64 ----------------------
+// One warpgroup (128 threads) per (b*H + h, 64 query rows). Thread 0 keeps
+// the TMA load of K/V tile t+1 in flight while the warpgroup computes tile
+// t (a ring of two stages; 42 KB, so four blocks share an SM). Every tile is
+// 64 rows of 128 B, swizzled by TMA in 128-B rows, which is the layout the
+// wgmma descriptors below name.
+namespace tc {
+
+constexpr int DH = 64;
+constexpr int THREADS = 128;                         // one warpgroup
+constexpr int ROWS = 64;                             // query rows per block
+constexpr int KEYS = 64;                             // keys per tile
+constexpr uint32_t TILE_BYTES = KEYS * DH * 2;       // 8 KB: a Q, K or V tile
+constexpr uint32_t SQ = 0;                           // Q
+constexpr uint32_t SK = TILE_BYTES;                  // K, two stages
+constexpr uint32_t SV = 3 * TILE_BYTES;              // V, two stages
+constexpr uint32_t SBAR = 5 * TILE_BYTES;            // an mbarrier a stage
+constexpr size_t SMEM = SBAR + 16 + 1024;            // + room to align to 1 KB
+static_assert(SMEM <= 48 * 1024, "fits the default dynamic shared-memory cap");
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A transaction that
+// never arrives traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// rows [t0, t0 + 64) of head h of batch row b: one 8 KB tile
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int h, int t0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(h), "r"(t0), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-B swizzle: start address, leading and
+// stride byte offsets, all in 16-B units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (Q, K: Dh contiguous), k-step kk: 16 Dh = 32 B into each
+// swizzled row; 8-row groups 1 KB apart.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc(tile + 32u * kk, 16, 1024);
+}
+
+// MN-major operand (V: keys x Dh, Dh contiguous, read transposed), k-step kk:
+// 16 keys = 2 KB; the 8-key groups inside a step 1 KB apart (stride byte
+// offset); the leading offset would step to a second 64-wide column block,
+// which an N of 64 never reaches.
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return desc(tile + 2048u * kk, TILE_BYTES, 1024);
+}
+
+// 2^x on the SFU, subnormal results flushed to 0: a p below 2^-126 is
+// nothing beside the row's largest p = 1 in l, nor in a 16-bit P.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+#define TC_D32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define TC_D32_OUT(d)                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) . B (16 x 64, smem, K-major)
+#define TC_WGMMA_SS(TY)                                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " TC_D32         \
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                           \
+               : TC_D32_OUT(d)                                                             \
+               : "l"(da), "l"(db), "r"(accumulate))
+// D (64 x 64, fp32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
+#define TC_WGMMA_RS(TY)                                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " TC_D32         \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                             \
+               : TC_D32_OUT(d)                                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T> struct Mma;
+template <> struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+    TC_WGMMA_SS("bf16");
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+    TC_WGMMA_RS("bf16");
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+template <> struct Mma<__half> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+    TC_WGMMA_SS("f16");
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+    TC_WGMMA_RS("f16");
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+}  // namespace tc
+
+// Accumulator layout (wgmma m64nNk16, fp32): thread (warp w, lane l) holds
+// rows r = 16w + l/4 and r + 8; of each 8-column block j, columns
+// 8j + 2(l%4) and + 1, as d[4j + 2*half + c]. So a row's values sit in one
+// quad of lanes (two shuffles reduce a row), and the values of S for keys
+// 16kk .. 16kk + 15 are, packed in pairs, exactly the A fragment of the
+// register-A wgmma for k-step kk.
+template <typename T, bool WITH_L>
+__global__ void __launch_bounds__(tc::THREADS, 4)
+fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
+              T* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
+              float scale, Drop dr) {
+  extern __shared__ uint8_t tc_smem[];
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(tc_smem) + 1023u) & ~1023u;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * tc::ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad = lane & 3;
+  const int n_tiles = (Tk + tc::KEYS - 1) / tc::KEYS;
+  const uint32_t bar = base + tc::SBAR;  // stage st: bar + 8 st
+  const auto k_at = [&](int st) { return base + tc::SK + st * tc::TILE_BYTES; };
+  const auto v_at = [&](int st) { return base + tc::SV + st * tc::TILE_BYTES; };
+  if (threadIdx.x == 0) {
+    tc::mbar_init(bar);
+    tc::mbar_init(bar + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q rides on stage 0's barrier: one arrival, three copies
+    tc::mbar_expect(bar, 3 * tc::TILE_BYTES);
+    tc::tma_tile(base + tc::SQ, &tm_q, bar, h, q0, b);
+    tc::tma_tile(k_at(0), &tm_k, bar, h, 0, b);
+    tc::tma_tile(v_at(0), &tm_v, bar, h, 0, b);
+  }
+
+  // this thread's two rows, and their dropout-hash terms
+  int row[2];
+  uint32_t hrow[2] = {0u, 0u}, rterm[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + 16 * warp + (lane >> 2) + 8 * i;
+    if (WITH_L && dr.on) {
+      const int qt = row[i] / dr.q_tile;
+      hrow[i] = (dr.seed * H_SEED) ^ ((uint32_t)(bh + 1) * H_BH) ^ ((uint32_t)(qt + 1) * H_QT);
+      rterm[i] = (uint32_t)(row[i] - qt * dr.q_tile) * H_ROW;
+    }
+  }
+  const float* biasb = bias == nullptr ? nullptr : bias + (size_t)b * Tk;
+  float s[32], o[32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = o[e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (threadIdx.x == 0 && t + 1 < n_tiles) {  // stage st^1 was freed at the end of t-1
+      const uint32_t nb = bar + 8 * (st ^ 1);
+      tc::mbar_expect(nb, 2 * tc::TILE_BYTES);
+      tc::tma_tile(k_at(st ^ 1), &tm_k, nb, h, (t + 1) * tc::KEYS, b);
+      tc::tma_tile(v_at(st ^ 1), &tm_v, nb, h, (t + 1) * tc::KEYS, b);
+    }
+    // the additive bias of this thread's 16 keys while the tiles land; keys
+    // past Tk get -inf
+    const int k0 = t * tc::KEYS;
+    float add[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + 2 * quad + c;
+        add[2 * j + c] = key >= Tk ? -INFINITY : (biasb != nullptr ? __ldg(biasb + key) : 0.f);
+      }
+
+    // S = Q K^T
+    tc::mbar_wait(bar + 8 * st, (t >> 1) & 1);
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tc::fence_operand(s[e]);
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < tc::DH / 16; ++kk)
+      tc::Mma<T>::ss(s, tc::desc_kmajor(base + tc::SQ, kk), tc::desc_kmajor(k_at(st), kk), kk > 0);
+    tc::wg_commit();
+    tc::wg_wait0();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tc::fence_operand(s[e]);
+
+    // online softmax over the tile, as the reference: max floored at -1e9,
+    // l summed from the fp32 p before dropout
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int j = e >> 2, i = (e >> 1) & 1, c = e & 1;
+      s[e] = s[e] * scale + add[2 * j + c];
+      mx[i] = fmaxf(mx[i], s[e]);
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = tc::ex2((m[i] - mx[i]) * tc::LOG2E);
+      m[i] = mx[i];
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      s[e] = tc::ex2((s[e] - m[i]) * tc::LOG2E);
+      l[i] += s[e];
+    }
+    // once the running max settles, whole warps skip rescaling O
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[e] *= corr[(e >> 1) & 1];
+    }
+    // dropout: a dropped p becomes 0; the kept ones' 1/(1-p) is a constant
+    // factor of O, applied once in the epilogue
+    if (WITH_L && dr.on) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kb = k0 + 8 * j;  // k_tile is a multiple of 8: one logical tile
+        const int kt = kb / dr.k_tile;
+        const uint32_t hk = (uint32_t)(kt + 1) * H_KT;
+        const uint32_t cterm = (uint32_t)(kb - kt * dr.k_tile + 2 * quad) * H_COL;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t x = ((hrow[i] ^ hk) + rterm[i]) + cterm;
+          if (!kept(dr, x)) s[4 * j + 2 * i] = 0.f;
+          if (!kept(dr, x + H_COL)) s[4 * j + 2 * i + 1] = 0.f;
+        }
+      }
+    }
+    uint32_t p[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p[e] = tc::Mma<T>::pack(s[2 * e], s[2 * e + 1]);
+
+    // O += P V
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tc::fence_operand(o[e]);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) tc::fence_operand(p[e]);
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < tc::KEYS / 16; ++kk)
+      tc::Mma<T>::rs(o, p + 4 * kk, tc::desc_mnmajor(v_at(st), kk));
+    tc::wg_commit();
+    tc::wg_wait0();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tc::fence_operand(o[e]);
+    __syncthreads();  // every warp is done with stage st: it may be refilled
+  }
+
+  // epilogue: O / max(l, 1e-30) in place in (B, Tq, H, Dh); L as (B*H, Tq)
+  const size_t rs = (size_t)H * tc::DH;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (row[i] >= Tq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    const float keep = WITH_L && dr.on ? dr.inv_keep : 1.f;
+    T* orow = out + ((size_t)b * Tq + row[i]) * rs + (size_t)h * tc::DH + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = tc::Mma<T>::pack(
+          keep * o[4 * j + 2 * i] / den, keep * o[4 * j + 2 * i + 1] / den);
+    if (WITH_L && quad == 0)
+      lse[(size_t)bh * Tq + row[i]] = l[i] > 0.f ? m[i] + logf(den) : NEG_INF;
   }
 }
 
@@ -427,9 +783,9 @@ inline dim3 grid_of(int B, int H, int T) {
 }
 
 template <typename T>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias,
-                       void* out, void* lse, int B, int H, int Tq, int Tk, int Dh,
-                       float scale, Drop dr, cudaStream_t st) {
+cudaError_t launch_fwd_simt(const void* q, const void* k, const void* v, const void* bias,
+                            void* out, void* lse, int B, int H, int Tq, int Tk, int Dh,
+                            float scale, Drop dr, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * (2 * TILE * (Dh + 1) + BLOCK_ROWS * Dh + BLOCK_ROWS * TILE);
   cudaError_t e;
@@ -449,6 +805,72 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
         Tk, Dh, scale, dr);
   }
   return cudaGetLastError();
+}
+
+// Codes beside cudaError_t's for the tensor-map set-up of fwd_tc_kernel.
+constexpr int ERR_NO_ENCODE = 10001;  // libcuda has no cuTensorMapEncodeTiled
+constexpr int ERR_ENCODE = 10002;     // it refused a map (e.g. a pointer not 16-B aligned)
+constexpr int ERR_TC_ARGS = 10003;    // fwd_tc_kernel asked for other than bf16/fp16 at Dh 64
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A (B, T, H, 64) 16-bit tensor as the 4-D map (Dh, H, T, B), boxes of
+// 64 rows of one head; rows past T read as zeros.
+bool tile_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+              int B, int H, int T) {
+  const cuuint64_t row = (cuuint64_t)tc::DH * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)tc::DH, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, row * H, row * H * T};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {(cuuint32_t)tc::DH, 1, (cuuint32_t)tc::ROWS, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps hold the tensors' pointers, so they are built for every call.
+template <typename T>
+int launch_fwd_tc(const void* q, const void* k, const void* v, const void* bias, void* out,
+                  void* lse, int B, int H, int Tq, int Tk, float scale, Drop dr,
+                  cudaStream_t st) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return ERR_NO_ENCODE;
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap mq, mk, mv;
+  if (!tile_map(enc, &mq, q, type, B, H, Tq) || !tile_map(enc, &mk, k, type, B, H, Tk) ||
+      !tile_map(enc, &mv, v, type, B, H, Tk))
+    return ERR_ENCODE;
+  const dim3 grid((unsigned)(B * H), (unsigned)((Tq + tc::ROWS - 1) / tc::ROWS));
+  if (lse != nullptr)
+    fwd_tc_kernel<T, true><<<grid, tc::THREADS, tc::SMEM, st>>>(
+        mq, mk, mv, (const float*)bias, (T*)out, (float*)lse, H, Tq, Tk, scale, dr);
+  else
+    fwd_tc_kernel<T, false><<<grid, tc::THREADS, tc::SMEM, st>>>(
+        mq, mk, mv, (const float*)bias, (T*)out, nullptr, H, Tq, Tk, scale, dr);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -500,24 +922,37 @@ extern "C" {
 
 int stac_flash_max_head_dim() { return MAX_DH; }
 
-const char* stac_flash_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* stac_flash_error_string(int code) {
+  if (code == ERR_NO_ENCODE) return "libcuda has no cuTensorMapEncodeTiled";
+  if (code == ERR_ENCODE) return "cuTensorMapEncodeTiled refused a q/k/v tensor map";
+  if (code == ERR_TC_ARGS) return "fwd_tc_kernel serves bf16 and fp16 at head dim 64 only";
+  return cudaGetErrorString((cudaError_t)code);
+}
 
-// lse == nullptr: the inference kernel (no L, no dropout).
+// lse == nullptr: the inference kernel (no L, no dropout). use_tc != 0
+// launches fwd_tc_kernel (bf16 and fp16 at Dh 64 only), use_tc == 0 fwd_kernel.
 int stac_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
                    void* lse, int B, int H, int Tq, int Tk, int Dh, float scale,
                    unsigned seed, unsigned thresh, float inv_keep, int q_tile, int k_tile,
-                   int drop, int dtype, void* stream) {
+                   int drop, int dtype, void* stream, int use_tc) {
   if (Dh <= 0 || Dh > MAX_DH || B * H <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
+  if (use_tc && !((dtype == BF16 || dtype == F16) && Dh == tc::DH)) return ERR_TC_ARGS;
   const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop && lse != nullptr);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
-    case F32: return launch_fwd<float>(q, k, v, bias, out, lse, B, H, Tq, Tk, Dh, scale, dr, st);
+    case F32:
+      return launch_fwd_simt<float>(q, k, v, bias, out, lse, B, H, Tq, Tk, Dh, scale, dr, st);
     case BF16:
-      return launch_fwd<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, Tq, Tk, Dh, scale, dr,
-                                       st);
+      if (use_tc)
+        return launch_fwd_tc<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, Tq, Tk, scale, dr,
+                                            st);
+      return launch_fwd_simt<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, Tq, Tk, Dh, scale,
+                                            dr, st);
     case F16:
-      return launch_fwd<__half>(q, k, v, bias, out, lse, B, H, Tq, Tk, Dh, scale, dr, st);
+      if (use_tc)
+        return launch_fwd_tc<__half>(q, k, v, bias, out, lse, B, H, Tq, Tk, scale, dr, st);
+      return launch_fwd_simt<__half>(q, k, v, bias, out, lse, B, H, Tq, Tk, Dh, scale, dr, st);
   }
   return (int)cudaErrorInvalidValue;
 }

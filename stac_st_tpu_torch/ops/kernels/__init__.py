@@ -5,6 +5,8 @@ compiled at first use with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into ``build/torch_kernels/`` at the repository root (named by the hash of
 its source and flags, so an edited source is never served stale) and
 loaded with ``ctypes``. Nothing is compiled when a module is imported.
+Each build's nvcc output (``-Xptxas -v``: registers, spills) is kept
+beside its library, so ``build_logs`` holds it for a cached build too.
 
 ``launches`` counts kernel launches by name: a wrapper adds one exactly
 where it launches its kernel, never for its plain PyTorch version, so a run
@@ -65,7 +67,13 @@ def _target(name: str) -> Path:
 def build(names: Iterable[str]) -> Dict[str, float]:
     """Compile every named source that has no current build, all nvcc
     processes started together. Returns seconds per compiled name."""
-    todo = [n for n in names if not _target(n).exists()]
+    todo = []
+    for n in names:
+        if _target(n).exists():
+            log = _target(n).with_suffix(".log")
+            build_logs[n] = log.read_text() if log.exists() else ""
+        else:
+            todo.append(n)
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,6 +94,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             failed.append(f"{name}:\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            _target(name).with_suffix(".log").write_text(out)
             os.replace(tmp, _target(name))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -4,9 +4,15 @@ Port of ``stac_st_tpu/ops/pallas/attention.py`` (``flash_attention``,
 kernel ``_attn_kernel`` :35, call :69): softmax(QKᵀ/√Dh + bias)·V with an
 additive key-padding bias (B, Tk) fp32 or None. As in the reference, q is
 scaled in its own dtype before the kernel (attention.py:84) and the
-running max starts at −1e9. The kernel is the training forward of
-``csrc/train_attention.cu`` without L and without dropout; see
-:mod:`.train_attention` for the layout, the bound and the design.
+running max starts at −1e9. The kernels are the training forward's of
+``csrc/train_attention.cu`` without L and without dropout, chosen by
+dtype and head dim alone (:func:`.train_attention.fwd_variant`): bf16 and
+fp16 at Dh 64 run ``fwd_tc_kernel`` (``wgmma``: one warpgroup per 64
+query rows, K/V tiles by TMA, both products on the tensor cores, P
+rounded to the input type before P·V); fp32 and other head dims run
+``fwd_kernel`` (``simt``) on the fp32 CUDA cores, because the fp32 path is
+held to the CPU at 1e-5, which TF32 or bf16 tensor cores cannot meet. See
+:mod:`.train_attention` for the layout and the bound.
 
 The port runs it on the teacher-forced forward with training off
 (``make_eval_forward``): encoder self-attention and decoder
@@ -20,8 +26,7 @@ from typing import Optional
 
 import torch
 
-from . import count_launch
-from .train_attention import check, drop_args, lib, on_cpu, raise_on
+from .train_attention import launch_fwd, on_cpu
 
 __all__ = ["flash_attention", "flash_attention_ref", "KERNELS"]
 
@@ -54,15 +59,6 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None):
     """See :func:`flash_attention_ref`."""
     if on_cpu(q, k, v, bias):
         return flash_attention_ref(q, k, v, bias)
-    name = "flash_attention"
-    lb = lib()
-    qs = _scaled(q).contiguous()
-    B, H, Tq, Tk, Dh = check(name, qs, k, v, bias)
-    out = torch.empty_like(qs)
-    rc = lb.stac_flash_fwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), None,
-        B, H, Tq, Tk, Dh, *drop_args(1.0, 0, 0.0, Tq, Tk, q.dtype))
-    raise_on(lb, name, rc)
-    count_launch(name)
+    out, _ = launch_fwd("flash_attention", _scaled(q).contiguous(), k, v,
+                        bias, with_lse=False, scale=1.0, seed=0, p_drop=0.0)
     return out

@@ -6,7 +6,14 @@ replaces):
 
 * ``flash_attention_train_fwd`` <- ``_fwd_kernel`` (train_attention.py:294):
   O = softmax(scale·QKᵀ + bias)·V with in-kernel dropout on the weights,
-  plus the per-row logsumexp L;
+  plus the per-row logsumexp L. Two CUDA kernels serve it, chosen by
+  :func:`fwd_variant` (the only copy of the rule) from dtype and head
+  dim alone: ``wgmma`` (bf16 and
+  fp16 at Dh 64, every configuration of the repository: TMA-fed tiles,
+  both products on the tensor cores, P rounded to the input type before
+  P·V) and ``simt`` (fp32 and other head dims, on the fp32 CUDA cores: a
+  fp32 train step is held to the CPU at 1e-5, which tensor cores in TF32
+  or bf16 cannot meet). ``flash_attention`` shares them;
 * ``flash_attention_train_dq`` <- ``_dq_kernel`` (:344);
 * ``flash_attention_train_dkv`` <- ``_dkv_kernel`` (:356).
 
@@ -29,8 +36,10 @@ versions. Given the same seed, forward and backward see the same mask.
 
 A wrapper given CPU tensors runs its ``*_ref`` plain version. Given CUDA
 tensors it checks dtype, shape and contiguity, launches on the current
-stream, raises if the launch failed, and counts the launch; there is no
-fallback from a CUDA tensor to the plain version.
+stream, raises if the launch failed, and counts the launch (a forward
+also under ``<name>/<variant>``, the kernel it asked the library to
+launch); there is no fallback from a CUDA tensor to the plain version,
+nor from one forward kernel to the other.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ __all__ = [
     "flash_attention_train_fwd_ref", "flash_attention_train_dq",
     "flash_attention_train_dq_ref", "flash_attention_train_dkv",
     "flash_attention_train_dkv_ref", "dropout_keep", "tile_rows",
-    "KERNELS",
+    "fwd_variant", "KERNELS",
 ]
 
 NEG_INF = -1e9
@@ -201,7 +210,7 @@ def lib():
     if not getattr(lb, "_stac_bound", False):
         drop = [_F, _U, _U, _F, _I, _I, _I, _I, _P]  # scale .. dtype, stream
         dims = [_I, _I, _I, _I, _I]                 # B, H, Tq, Tk, Dh
-        lb.stac_flash_fwd.argtypes = [_P] * 6 + dims + drop
+        lb.stac_flash_fwd.argtypes = [_P] * 6 + dims + drop + [_I]
         lb.stac_flash_dq.argtypes = [_P] * 8 + dims + drop
         lb.stac_flash_dkv.argtypes = [_P] * 9 + dims + drop
         for fn in (lb.stac_flash_fwd, lb.stac_flash_dq, lb.stac_flash_dkv,
@@ -273,23 +282,43 @@ def drop_args(scale: float, seed: int, p_drop: float, Tq: int, Tk: int,
             int(on), _DTYPES[dtype], stream())
 
 
+def fwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel that serves (dtype, head dim) on the card, a fixed
+    rule: ``wgmma`` (the tensor cores) for bf16 and fp16 at Dh 64, ``simt``
+    (the fp32 CUDA cores) for fp32, which is held to the CPU at 1e-5, and
+    for every other head dim."""
+    tc = dtype in (torch.bfloat16, torch.float16) and head_dim == 64
+    return "wgmma" if tc else "simt"
+
+
+def launch_fwd(name: str, q, k, v, bias, with_lse: bool, scale: float,
+               seed: int, p_drop: float):
+    """Launch the forward on CUDA tensors; returns (O, L or None)."""
+    lb = lib()
+    B, H, Tq, Tk, Dh = check(name, q, k, v, bias)
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    variant = fwd_variant(q.dtype, Dh)
+    rc = lb.stac_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, H, Tq, Tk, Dh,
+        *drop_args(scale, seed, p_drop, Tq, Tk, q.dtype),
+        int(variant == "wgmma"))
+    raise_on(lb, name, rc)
+    count_launch(name)
+    count_launch(f"{name}/{variant}")
+    return out, lse
+
+
 def flash_attention_train_fwd(q, k, v, bias, seed: int, p_drop: float):
     """See :func:`flash_attention_train_fwd_ref`."""
     if on_cpu(q, k, v, bias):
         return flash_attention_train_fwd_ref(q, k, v, bias, seed, p_drop)
-    name = "flash_attention_train_fwd"
-    lb = lib()
-    B, H, Tq, Tk, Dh = check(name, q, k, v, bias)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    rc = lb.stac_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, Tq, Tk, Dh,
-        *drop_args(1.0 / math.sqrt(Dh), seed, p_drop, Tq, Tk, q.dtype))
-    raise_on(lb, name, rc)
-    count_launch(name)
-    return out, lse
+    return launch_fwd("flash_attention_train_fwd", q, k, v, bias,
+                      with_lse=True, scale=1.0 / math.sqrt(q.shape[-1]),
+                      seed=seed, p_drop=p_drop)
 
 
 def _bwd_extra(q, dout, lse, delta):

@@ -9,11 +9,17 @@ padded key row, dropout off and at p 0.25 with the same seed; the hash
 itself bit for bit; and the autograd function's backward against autograd
 of dense attention.
 
+On the CPU too: the forward's dispatch rule as a pure function of (dtype,
+head dim).
+
 On a card (marked ``cuda``, skipped without one): each CUDA kernel against
 its plain version on the same inputs, fp32 with TF32 off (atol 5e-5: sums
 of a few hundred products in another order) and bf16 (atol 2e-2: both
-store in bf16, one step is 2^-7 near 1, and the backward sums bf16-rounded
-inputs). The card tests need no JAX:
+store in bf16, one step is 2^-7 near 1, P is rounded to bf16 before P·V in
+the tensor-core forward, and the backward sums bf16-rounded inputs), with
+a batch row whose keys are all masked and query counts around the 64-row
+tile of the tensor-core forward; and which forward kernel each (dtype,
+head dim) launched. The card tests need no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_train_attention.py
 """
@@ -182,6 +188,17 @@ def test_wrappers_reject_unsupported_inputs():
         K.check("x", q, q, q, torch.zeros(1, 4, dtype=torch.float64))
 
 
+def test_forward_dispatch_rule():
+    """bf16 and fp16 at Dh 64 go to the tensor-core forward; fp32 (held to
+    the CPU at 1e-5) and every other head dim to the CUDA-core one."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert K.fwd_variant(dtype, 64) == "wgmma"
+        for dh in (8, 32, 56, 72, 128):
+            assert K.fwd_variant(dtype, dh) == "simt"
+    for dh in (8, 32, 64, 128):
+        assert K.fwd_variant(torch.float32, dh) == "simt"
+
+
 # ---------------------------------------------- CUDA kernels vs plain ones
 @pytest.fixture
 def card():
@@ -198,11 +215,12 @@ _DTYPES = {"float32": (torch.float32, 5e-5),
 @pytest.mark.cuda
 @pytest.mark.parametrize("p_drop", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
-@pytest.mark.parametrize("Tq,Tk", [(150, 150), (40, 150), (600, 600)])
+@pytest.mark.parametrize("Tq,Tk", [(150, 150), (40, 150), (600, 600),
+                                   (1, 150), (63, 65), (65, 150)])
 def test_train_kernels_match_plain_on_card(card, dtype, p_drop, Tq, Tk):
     dt, tol = _DTYPES[dtype]
     rng = np.random.default_rng(5)
-    B, H, Dh = 3, 4, 64
+    B, H, Dh = 4, 4, 64
     q = torch.from_numpy(rng.standard_normal((B, Tq, H, Dh),
                                              dtype=np.float32)).to(card, dt)
     k, v = (torch.from_numpy(rng.standard_normal((B, Tk, H, Dh),
@@ -210,7 +228,7 @@ def test_train_kernels_match_plain_on_card(card, dtype, p_drop, Tq, Tk):
             for _ in range(2))
     g = torch.from_numpy(rng.standard_normal((B, Tq, H, Dh),
                                              dtype=np.float32)).to(card, dt)
-    lens = torch.tensor([Tk, Tk // 2, 7], device=card)
+    lens = torch.tensor([Tk, Tk // 2, 7, 0], device=card)  # row 3: all masked
     bias = torch.where(torch.arange(Tk, device=card)[None, :] < lens[:, None],
                        0.0, NEG_INF).float()
     out, lse = K.flash_attention_train_fwd(q, k, v, bias, SEED, p_drop)
@@ -232,5 +250,43 @@ def test_train_kernels_match_plain_on_card(card, dtype, p_drop, Tq, Tk):
                                    atol=tol * scale, rtol=0)
     o = A.flash_attention(q, k, v, bias)
     torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), A.flash_attention_ref(
+        q, k, v, bias).float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_forward_dispatch_on_card(card, dtype, Dh):
+    """Each forward launch went through the kernel the rule names, and
+    that kernel matches the plain version (fp16: one step is 2^-10 near 1,
+    P rounded to fp16 before P·V)."""
+    dt, tol = {"float32": (torch.float32, 5e-5),
+               "bfloat16": (torch.bfloat16, 2e-2),
+               "float16": (torch.float16, 1e-2)}[dtype]
+    rng = np.random.default_rng(6)
+    B, H, Tq, Tk = 2, 4, 97, 130
+    q = torch.from_numpy(rng.standard_normal((B, Tq, H, Dh),
+                                             dtype=np.float32)).to(card, dt)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Tk, H, Dh),
+                                                 dtype=np.float32)).to(card, dt)
+            for _ in range(2))
+    bias = torch.where(torch.arange(Tk, device=card)[None, :]
+                       < torch.tensor([Tk, 50], device=card)[:, None],
+                       0.0, NEG_INF).float()
+    variant = K.fwd_variant(dt, Dh)
+    assert variant == ("wgmma" if dt != torch.float32 and Dh == 64
+                       else "simt")
+    kernels.reset_launches()
+    out, lse = K.flash_attention_train_fwd(q, k, v, bias, SEED, 0.1)
+    o = A.flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert kernels.launches == {
+        "flash_attention_train_fwd": 1,
+        f"flash_attention_train_fwd/{variant}": 1,
+        "flash_attention": 1, f"flash_attention/{variant}": 1}
+    ref, lse_ref = K.flash_attention_train_fwd_ref(q, k, v, bias, SEED, 0.1)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=1e-5)
     torch.testing.assert_close(o.float(), A.flash_attention_ref(
         q, k, v, bias).float(), atol=tol, rtol=0)
