@@ -13,7 +13,8 @@ Phases, each printed as one JSON line:
    versions, and the build time of the kernels (nvcc, sm_90a, every
    source of stac_st_tpu_torch/csrc built in parallel into
    build/torch_kernels/); ptxas must report no spills for the
-   tensor-core forward (fwd_tc_kernel, four instantiations);
+   tensor-core kernels (fwd_tc_kernel, four instantiations; dq_tc_kernel
+   and dkv_tc_kernel, two each);
 2. kernel: each decode-attention kernel against its plain PyTorch version
    at the serving path's shapes (B 16 x 10 s, beam 10: 160 rows, 4 heads of
    64, self cache 3 + 192 positions, 251 encoder frames), in fp32 with TF32
@@ -26,12 +27,14 @@ Phases, each printed as one JSON line:
    ragged key padding, decoder cross-attention 128 x 376, and B4 x 1501
    frames, a 60 s window, whose 128-row tiles move the dropout hash's
    coordinates), fp32 (TF32 off) and bf16, dropout 0 and 0.1 with one
-   seed; forward outputs, L, dQ, dK and dV checked; every bf16 forward
-   launch went through the tensor-core kernel (variant "wgmma"), every
-   fp32 one through the CUDA-core kernel ("simt"); times as in phase 2,
-   and the host time of one call of each forward wrapper (µs, fp32 and
-   bf16 at the encoder shape) and of the bare library call with either
-   forward kernel on the same bf16 inputs;
+   seed; forward outputs, L, dQ, dK and dV checked; every bf16 launch
+   of the four went through a tensor-core kernel (variant "wgmma"), every
+   fp32 one through a CUDA-core kernel ("simt"); two launches of dQ and
+   dK/dV on the same bf16 inputs give bitwise-equal gradients; times as
+   in phase 2 (dQ + dK/dV summed beside SDPA's whole backward), the host
+   time of one call of each wrapper (µs, fp32 and bf16 at the encoder
+   shape) and of the bare library call with either forward kernel on the
+   same bf16 inputs;
 4. main_path: the engine at the flagship width (d256, 4 heads, 12 + 6
    layers, FFN 1024, vocab 5000, CNN (256, 256); bf16, seeded random
    weights) serving B 16 x 10 s of PCM16 through translate,
@@ -42,8 +45,8 @@ Phases, each printed as one JSON line:
    WarmCoolDecay, clip 5.0, bf16 compute, B32 x 15 s, U128, seeded
    weights) through STTrainer.fit for one epoch of 6 copies of one batch,
    CMVN update on; counts zeroed just before and read just after (exactly
-   18 training-forward, 18 dQ and 18 dK/dV launches a step, every forward
-   on the tensor-core kernel), then one eval forward (exactly 18
+   18 training-forward, 18 dQ and 18 dK/dV launches a step, every one on
+   a tensor-core kernel), then one eval forward (exactly 18
    flash_attention launches, all on the tensor-core kernel);
 6. card_vs_cpu: the port on the card against the port on the CPU, full
    width, fp32, 2 x 2 s: one decode step's logits and the token agreement
@@ -52,9 +55,9 @@ Phases, each printed as one JSON line:
    B2 x 2 s, fp32 (TF32 off), dropout 0: loss, gradients and updated
    parameters, card against CPU.
 
-Then the card's name and power limit, a {"kernels": [...]} line (the two
-forward entry points name the kernel variant their main-path launches went
-through), and last
+Then the card's name and power limit, a {"kernels": [...]} line (the four
+flash kernels name the variant their main-path launches went through),
+and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
 alone, or without a CUDA device, it fails.
@@ -276,9 +279,10 @@ def _flash_bounds(name, B, Tq, Tk, es):
 
 FLASH = ("flash_attention", "flash_attention_train_fwd",
          "flash_attention_train_dq", "flash_attention_train_dkv")
-FWD = FLASH[:2]  # the entry points of the forward kernels
-TC = "wgmma"     # the tensor-core forward's variant (bf16 / fp16, Dh 64)
+TC = "wgmma"     # the tensor-core kernels' variant (bf16 / fp16, Dh 64)
 VARIANTS = (TC, "simt")
+# the tensor-core kernels and their instantiations (ptxas: no spills)
+TC_KERNELS = {"fwd_tc_kernel": 4, "dq_tc_kernel": 2, "dkv_tc_kernel": 2}
 
 
 def spills(log: str, kernel: str):
@@ -329,7 +333,7 @@ def train_kernel_phase(torch, kernels, timer):
             dt = getattr(torch, dtype)
             q, k, v, do = (t.to("cuda", dt).contiguous() for t in base)
             want = TC if dtype == "bfloat16" else "simt"
-            check(TA.fwd_variant(dt, DH) == want, f"dispatch {dtype}")
+            check(TA.flash_variant(dt, DH) == want, f"dispatch {dtype}")
             for p in (0.0, P_DROP):
                 kernels.reset_launches()
                 out, lse = TA.flash_attention_train_fwd(q, k, v, bias,
@@ -357,23 +361,38 @@ def train_kernel_phase(torch, kernels, timer):
                     torch.cuda.synchronize()
                     errs["flash_attention"] = err(
                         o, A.flash_attention_ref(q, k, v, bias))
-                for name in FWD:
+                for name in FLASH:
                     n = kernels.launches.get(name, 0)
                     check(kernels.launches.get(f"{name}/{want}", 0) == n,
                           f"{name} {case} {dtype}: {kernels.launches}")
+                if dtype == "bfloat16":  # no atomics: bitwise repeatable
+                    again = (TA.flash_attention_train_dq(*args),
+                             *TA.flash_attention_train_dkv(*args))
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b)
+                              for a, b in zip((dq, dk, dv), again)),
+                          f"backward not deterministic {case} p={p}")
+                    recs["flash_attention_train_dq"].setdefault(
+                        "bitwise_repeatable", []).append(f"{case}/p{p}")
                 for name, (e_abs, e) in errs.items():
                     check(e <= TRAIN_TOL[dtype],
                           f"{name} {case} {dtype} p={p}: rel err {e}")
                     key = f"{case}/{dtype}/p{p}"
                     recs[name].setdefault("rel_err", {})[key] = e
                     recs[name].setdefault("abs_err", {})[key] = e_abs
-            if case == "encoder_self":  # each forward kernel's host cost
+            # the backward's inputs at the main path's dropout rate
+            args = (q, k, v, bias, TRAIN_SEED, P_DROP, do, l_ref, delta)
+            if case == "encoder_self":  # each wrapper's host cost
                 for name, run in (
                         ("flash_attention",
                          partial(A.flash_attention, q, k, v, bias)),
                         ("flash_attention_train_fwd",
                          partial(TA.flash_attention_train_fwd, q, k, v,
-                                 bias, TRAIN_SEED, P_DROP))):
+                                 bias, TRAIN_SEED, P_DROP)),
+                        ("flash_attention_train_dq",
+                         partial(TA.flash_attention_train_dq, *args)),
+                        ("flash_attention_train_dkv",
+                         partial(TA.flash_attention_train_dkv, *args))):
                     recs[name].setdefault("host_us", {})[
                         f"{dtype}/{want}"] = host_us(torch, run)
                 if dtype == "bfloat16":  # the library call alone, each kernel
@@ -415,7 +434,6 @@ def train_kernel_phase(torch, kernels, timer):
                     partial(F.scaled_dot_product_attention, qh, kh, vh,
                             mask, dropout_p=P_DROP)),
             }
-            args = (q, k, v, bias, TRAIN_SEED, P_DROP, do, l_ref, delta)
             lib_bwd = partial(torch.autograd.grad, lib_out, (qh, kh, vh), doh,
                               retain_graph=True)
             calls["flash_attention_train_dq"] = (
@@ -434,6 +452,12 @@ def train_kernel_phase(torch, kernels, timer):
                     # dq and dkv: one autograd backward computes dq, dk, dv
                     "library_ms": timer.ms(lib, 10),
                     "bound_ms": b_ms, "bound_by": b_by}
+            # the whole backward, ours beside the library's in this run
+            bwd_ms = (recs["flash_attention_train_dq"][case]["ms"]
+                      + recs["flash_attention_train_dkv"][case]["ms"])
+            for name in ("flash_attention_train_dq",
+                         "flash_attention_train_dkv"):
+                recs[name][case]["dq_plus_dkv_ms"] = bwd_ms
             del qh, kh, vh, doh, lib_out
     for rec in recs.values():
         rec["tol_rel"] = TRAIN_TOL
@@ -657,8 +681,8 @@ def train_phase(torch, kernels, profile: bool):
     for name in FLASH[1:]:
         check(launches.get(name, 0) == 18 * 6,
               f"{name}: {launches.get(name, 0)} launches, want 18 a step")
-    check(launches.get(f"{FWD[1]}/{TC}", 0) == 18 * 6,
-          f"training forward on the tensor cores: {launches}")
+        check(launches.get(f"{name}/{TC}", 0) == 18 * 6,
+              f"{name} on the tensor cores: {launches}")
     check(launches.get("flash_attention", 0) == 0, "no eval kernel in fit")
     state = trainer.state
     check(state.optimizer_step == 6 and state.micro_step == 6, "counters")
@@ -846,14 +870,17 @@ def main() -> int:
     ptxas = [ln.strip() for log in kernels.build_logs.values()
              for ln in log.splitlines() if "registers" in ln
              or "wgmma" in ln]
-    tc_spills = spills(kernels.build_logs["train_attention"], "fwd_tc_kernel")
-    check(len(tc_spills) == 4 and not any(sum(v) for v in tc_spills.values()),
-          f"fwd_tc_kernel spills: {tc_spills}")
+    tc_spills = {}
+    for kern, n in TC_KERNELS.items():
+        found = spills(kernels.build_logs["train_attention"], kern)
+        check(len(found) == n and not any(sum(v) for v in found.values()),
+              f"{kern} spills: {found}")
+        tc_spills.update(found)
     emit({"phase": "environment", "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_count": torch.cuda.device_count(),
           "kernel_build_s": build_s, "built": built, "ptxas": ptxas,
-          "fwd_tc_kernel_spills": tc_spills})
+          "tc_kernel_spills": tc_spills})
 
     timer = Timer(torch)
     rows = kernel_phase(torch, K, timer)
@@ -888,10 +915,8 @@ def main() -> int:
             "ms": enc["ms"], "plain_ms": enc["plain_ms"],
             "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
             "library_ms": enc["library_ms"],
-            **({"variant": "/".join(
-                v for v in VARIANTS
-                if train_launches.get(f"{rec['name']}/{v}"))}
-               if rec["name"] in FWD else {}),
+            "variant": "/".join(v for v in VARIANTS
+                                if train_launches.get(f"{rec['name']}/{v}")),
         })
     print(smi, flush=True)
     emit({"kernels": kernel_line})

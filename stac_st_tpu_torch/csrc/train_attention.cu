@@ -23,33 +23,45 @@
 // Bound: at the encoder training shape (B32 x 376 x 376, 4 heads of 64) the
 // forward does 4.6 GFLOP against 24.6 MB of traffic, about 190 flop/byte,
 // under the ~295 flop/byte ridge of the bf16 tensor cores, so the least
-// time (7.4 us) is set by device memory; every kernel keeps its
+// time (7.4 us) is set by device memory; so it is for dQ (three products,
+// 9.3 us) and dK/dV (four products, 11.2 us). Every kernel keeps its
 // intermediates (scores, probabilities, dS) out of device memory and reads
 // Q/K/V/dO once per block.
 //
-// Which kernel serves which call is fixed by dtype and head dim (the
-// wrapper's fwd_variant names it in stac_flash_fwd's use_tc argument):
+// Which kernel serves which call is fixed by dtype and head dim, one rule
+// for all three training kernels (the wrapper's flash_variant names it in
+// the use_tc argument of stac_flash_fwd, stac_flash_dq and stac_flash_dkv):
 //
 // * bf16 and fp16 at Dh 64 (every configuration of the repo: d256, 4 heads)
-//   -> fwd_tc_kernel, both entry points' forward on the Hopper tensor cores:
-//   one warpgroup per 64 query rows of one (b, h); Q and a two-stage ring
-//   of 64-key K/V tiles arrive by TMA (4-D tensor maps over the tensors' own
-//   (B, T, H, Dh) layout, 128-B swizzle, zero fill past T); S = Q K^T and
-//   O += P V are wgmma.m64n64k16 with fp32 accumulators, P taken from
-//   registers, V read through the transpose bit; the online softmax and the
-//   dropout hash run on the accumulators in registers. P is rounded to the
-//   input type before P V (the reference keeps it in fp32).
-// * fp32, and any other head dim -> fwd_kernel on the fp32 CUDA cores: one
-//   fp32 train step is held to the CPU at rtol 1e-5, which TF32 or bf16
-//   tensor cores cannot meet.
+//   -> the tensor-core kernels, one warpgroup (128 threads) per 64 rows of
+//   one (b, h); 64-row tiles arrive by TMA (4-D tensor maps over the
+//   tensors' own (B, T, H, Dh) layout, 128-B swizzle, zero fill past T),
+//   the streamed ones through a two-stage ring; every product is
+//   wgmma.m64n64k16 over a depth of 64 with fp32 accumulators, either both
+//   operands from shared memory (K-major) or A from registers (an
+//   accumulator rounded to the input type) and B read through the
+//   transpose bit; softmax, dropout hash and gradient arithmetic run on the
+//   accumulators in registers.
+//   - fwd_tc_kernel, both entry points' forward: S = Q K^T, O += P V over
+//     streamed K/V tiles, online softmax. P is rounded to the input type
+//     before P V (the reference keeps it in fp32).
+//   - dq_tc_kernel: Q and dO resident, K/V streamed; S = Q K^T, dP = dO V^T,
+//     dS = P o (dP o mask - delta) in registers, dQ += dS K.
+//   - dkv_tc_kernel: K and V resident, Q/dO (and 64 values each of L and
+//     delta) streamed; computed key-major from the start, so nothing is
+//     transposed through shared memory: S^T = K Q^T, dP^T = V dO^T, then
+//     dV += (P^T o mask) dO and dK += dS^T Q.
+//   P and dS are rounded to the input type before the gradient products.
+// * fp32, and any other head dim -> fwd_kernel, dq_kernel and dkv_kernel
+//   on the fp32 CUDA cores: one fp32 train step is held to the CPU at rtol
+//   1e-5, which TF32 or bf16 tensor cores cannot meet. 4 warps per block,
+//   8 query (or key) rows per warp, 32-key (or 32-query) tiles with one
+//   lane per key, an odd row stride so lanes never share a bank.
 //
 // This is a dispatch, not a fallback: a launch of either that fails is an
-// error returned to the caller. dq_kernel and dkv_kernel run on the CUDA
-// cores for every type: 4 warps per block, 8 query (or key) rows per warp,
-// 32-key (or 32-query) tiles with one lane per key, an odd row stride so
-// lanes never share a bank. The dQ / dK-dV split is the reference's own:
-// each block owns its output rows, so there are no cross-block reductions
-// and no atomics, and the gradients are deterministic.
+// error returned to the caller. The dQ / dK-dV split is the reference's
+// own: each block owns its output rows, so there are no cross-block
+// reductions and no atomics, and the gradients are deterministic.
 //
 // Plain C interface, loaded with ctypes; every launcher returns the
 // cudaError_t of its launch (0 = success) or one of the ERR_* codes below.
@@ -255,6 +267,15 @@ constexpr uint32_t SV = 3 * TILE_BYTES;              // V, two stages
 constexpr uint32_t SBAR = 5 * TILE_BYTES;            // an mbarrier a stage
 constexpr size_t SMEM = SBAR + 16 + 1024;            // + room to align to 1 KB
 static_assert(SMEM <= 48 * 1024, "fits the default dynamic shared-memory cap");
+// The backward kernels: two resident tiles (dQ: Q, dO; dK/dV: K, V) and a
+// two-stage ring of two streamed tiles (dQ: K, V; dK/dV: Q, dO). 50 KB,
+// above the default cap: the launchers raise it.
+constexpr uint32_t BA = 0;                           // resident A
+constexpr uint32_t BB = TILE_BYTES;                  // resident B
+constexpr uint32_t BR0 = 2 * TILE_BYTES;             // streamed 0, two stages
+constexpr uint32_t BR1 = 4 * TILE_BYTES;             // streamed 1, two stages
+constexpr uint32_t BBAR = 6 * TILE_BYTES;            // an mbarrier a stage
+constexpr size_t BWD_SMEM = BBAR + 16 + 1024;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
@@ -327,6 +348,49 @@ __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"
 __device__ __forceinline__ void fence_operand(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
+// every register of a wgmma operand: the compiler may not move reads or
+// writes of it across the asynchronous product
+template <typename R, int N>
+__device__ __forceinline__ void fence_all(R (&r)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) fence_operand(r[e]);
+}
+
+// The hash's terms of index i on an axis of logical tiles of `tile` rows:
+// (tile index + 1) * ct and (position in the tile) * cp.
+__device__ __forceinline__ void hash_terms(int i, int tile, uint32_t ct, uint32_t cp,
+                                           uint32_t& term, uint32_t& pos) {
+  const int n = i / tile;
+  term = (uint32_t)(n + 1) * ct;
+  pos = (uint32_t)(i - n * tile) * cp;
+}
+
+// The hash's seed and head terms: (seed * C0) ^ ((b*H + h + 1) * C1).
+__device__ __forceinline__ uint32_t head_term(const Drop& dr, int bh) {
+  return (dr.seed * H_SEED) ^ ((uint32_t)(bh + 1) * H_BH);
+}
+
+// Dropout keep bits of a thread's 32 accumulator values of a 64 x 64 tile,
+// bit e for value e (layout below). The hash is x = h + row * H_ROW +
+// col * H_COL (mod 2^32) with h the XOR of the seed, head and logical-tile
+// terms; the tile's rows and columns each lie on the query or the key axis.
+// r and c are the position terms of this thread's first row and column,
+// rstep and cstep the multipliers of their axes (H_ROW for queries, H_COL
+// for keys). A 64-aligned tile of 64 lies in one logical tile (ceil8(T)
+// >= T rows, or 128), so h is one value for the whole tile.
+__device__ __forceinline__ uint32_t keep_bits(const Drop& dr, uint32_t h, uint32_t r,
+                                              uint32_t rstep, uint32_t c, uint32_t cstep) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t x = h + r + 8u * i * rstep + c + 8u * j * cstep;
+      if (kept(dr, x)) bits |= 1u << (4 * j + 2 * i);
+      if (kept(dr, x + cstep)) bits |= 1u << (4 * j + 2 * i + 1);
+    }
+  return bits;
+}
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
@@ -389,6 +453,29 @@ template <> struct Mma<__half> {
   }
 };
 
+// D = A B^T over a depth of 64: A and B 64 x 64 K-major tiles in shared
+// memory (issued, not waited for)
+template <typename T>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) Mma<T>::ss(d, desc_kmajor(a, kk), desc_kmajor(b, kk), kk > 0);
+}
+
+// D += A B over a depth of 64: A packed in registers (k-step kk in
+// a[4kk .. 4kk + 3]), B a 64 x 64 tile read MN-major (issued, not waited for)
+template <typename T>
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[16], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) Mma<T>::rs(d, a + 4 * kk, desc_mnmajor(b, kk));
+}
+
+// the 32 values of an accumulator rounded in pairs to the A operand
+template <typename T>
+__device__ __forceinline__ void pack_all(uint32_t (&a)[16], const float (&d)[32]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) a[e] = Mma<T>::pack(d[2 * e], d[2 * e + 1]);
+}
+
 }  // namespace tc
 
 // Accumulator layout (wgmma m64nNk16, fp32): thread (warp w, lane l) holds
@@ -426,18 +513,11 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     tc::tma_tile(v_at(0), &tm_v, bar, h, 0, b);
   }
 
-  // this thread's two rows, and their dropout-hash terms
-  int row[2];
-  uint32_t hrow[2] = {0u, 0u}, rterm[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row[i] = q0 + 16 * warp + (lane >> 2) + 8 * i;
-    if (WITH_L && dr.on) {
-      const int qt = row[i] / dr.q_tile;
-      hrow[i] = (dr.seed * H_SEED) ^ ((uint32_t)(bh + 1) * H_BH) ^ ((uint32_t)(qt + 1) * H_QT);
-      rterm[i] = (uint32_t)(row[i] - qt * dr.q_tile) * H_ROW;
-    }
-  }
+  // this thread's two rows, and the dropout hash's terms of its rows
+  const int row[2] = {q0 + 16 * warp + (lane >> 2), q0 + 16 * warp + (lane >> 2) + 8};
+  uint32_t hq = 0, rq = 0;
+  if (WITH_L && dr.on) tc::hash_terms(row[0], dr.q_tile, H_QT, H_ROW, hq, rq);
+  hq ^= tc::head_term(dr, bh);
   const float* biasb = bias == nullptr ? nullptr : bias + (size_t)b * Tk;
   float s[32], o[32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
@@ -466,16 +546,12 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     // S = Q K^T
     tc::mbar_wait(bar + 8 * st, (t >> 1) & 1);
     __syncwarp();
-#pragma unroll
-    for (int e = 0; e < 32; ++e) tc::fence_operand(s[e]);
+    tc::fence_all(s);
     tc::wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < tc::DH / 16; ++kk)
-      tc::Mma<T>::ss(s, tc::desc_kmajor(base + tc::SQ, kk), tc::desc_kmajor(k_at(st), kk), kk > 0);
+    tc::mma_ss<T>(s, base + tc::SQ, k_at(st));
     tc::wg_commit();
     tc::wg_wait0();
-#pragma unroll
-    for (int e = 0; e < 32; ++e) tc::fence_operand(s[e]);
+    tc::fence_all(s);
 
     // online softmax over the tile, as the reference: max floored at -1e9,
     // l summed from the fp32 p before dropout
@@ -509,37 +585,24 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     // dropout: a dropped p becomes 0; the kept ones' 1/(1-p) is a constant
     // factor of O, applied once in the epilogue
     if (WITH_L && dr.on) {
+      uint32_t hk, ck;
+      tc::hash_terms(k0, dr.k_tile, H_KT, H_COL, hk, ck);
+      const uint32_t bits = tc::keep_bits(dr, hq ^ hk, rq, H_ROW, ck + 2u * quad * H_COL, H_COL);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kb = k0 + 8 * j;  // k_tile is a multiple of 8: one logical tile
-        const int kt = kb / dr.k_tile;
-        const uint32_t hk = (uint32_t)(kt + 1) * H_KT;
-        const uint32_t cterm = (uint32_t)(kb - kt * dr.k_tile + 2 * quad) * H_COL;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const uint32_t x = ((hrow[i] ^ hk) + rterm[i]) + cterm;
-          if (!kept(dr, x)) s[4 * j + 2 * i] = 0.f;
-          if (!kept(dr, x + H_COL)) s[4 * j + 2 * i + 1] = 0.f;
-        }
-      }
+      for (int e = 0; e < 32; ++e)
+        if (!((bits >> e) & 1u)) s[e] = 0.f;
     }
     uint32_t p[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) p[e] = tc::Mma<T>::pack(s[2 * e], s[2 * e + 1]);
+    tc::pack_all<T>(p, s);
 
     // O += P V
-#pragma unroll
-    for (int e = 0; e < 32; ++e) tc::fence_operand(o[e]);
-#pragma unroll
-    for (int e = 0; e < 16; ++e) tc::fence_operand(p[e]);
+    tc::fence_all(o);
+    tc::fence_all(p);
     tc::wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < tc::KEYS / 16; ++kk)
-      tc::Mma<T>::rs(o, p + 4 * kk, tc::desc_mnmajor(v_at(st), kk));
+    tc::mma_rs<T>(o, p, v_at(st));
     tc::wg_commit();
     tc::wg_wait0();
-#pragma unroll
-    for (int e = 0; e < 32; ++e) tc::fence_operand(o[e]);
+    tc::fence_all(o);
     __syncthreads();  // every warp is done with stage st: it may be refilled
   }
 
@@ -559,6 +622,281 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
           keep * o[4 * j + 2 * i] / den, keep * o[4 * j + 2 * i + 1] / den);
     if (WITH_L && quad == 0)
       lse[(size_t)bh * Tq + row[i]] = l[i] > 0.f ? m[i] + logf(den) : NEG_INF;
+  }
+}
+
+// ---- backward on the tensor cores: bf16 / fp16, Dh 64 ---------------------
+// Both kernels: one warpgroup per (b*H + h, 64 output rows). The two tiles
+// the block owns come by TMA at the start with the first stage of the
+// ring; thread 0 keeps the next streamed stage in flight while the
+// warpgroup computes the current one. L and delta are read as the CUDA-core
+// kernels read them; the order scale * s + bias - L, then the exponential,
+// is theirs too (a row whose keys are all padded has bias -1e9, where fp32
+// steps are 64 apart, so another order would change P).
+
+// dQ = scale * sum_j dS K, dS = P o (dP o mask - delta), P = exp(scale S +
+// bias - L), S = Q K^T, dP = dO V^T. Q and dO resident, K and V streamed.
+template <typename T>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+             const float* __restrict__ bias, const float* __restrict__ lse,
+             const float* __restrict__ delta, T* __restrict__ dq, int H, int Tq, int Tk,
+             float scale, Drop dr) {
+  extern __shared__ uint8_t tc_smem[];
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(tc_smem) + 1023u) & ~1023u;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * tc::ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad = lane & 3;
+  const int n_tiles = (Tk + tc::KEYS - 1) / tc::KEYS;
+  const uint32_t bar = base + tc::BBAR;  // stage st: bar + 8 st
+  const auto k_at = [&](int st) { return base + tc::BR0 + st * tc::TILE_BYTES; };
+  const auto v_at = [&](int st) { return base + tc::BR1 + st * tc::TILE_BYTES; };
+  if (threadIdx.x == 0) {
+    tc::mbar_init(bar);
+    tc::mbar_init(bar + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q and dO ride on stage 0's barrier: one arrival, four copies
+    tc::mbar_expect(bar, 4 * tc::TILE_BYTES);
+    tc::tma_tile(base + tc::BA, &tm_q, bar, h, q0, b);
+    tc::tma_tile(base + tc::BB, &tm_do, bar, h, q0, b);
+    tc::tma_tile(k_at(0), &tm_k, bar, h, 0, b);
+    tc::tma_tile(v_at(0), &tm_v, bar, h, 0, b);
+  }
+
+  // this thread's two query rows: L, delta and the hash's terms of its rows
+  const int row[2] = {q0 + 16 * warp + (lane >> 2), q0 + 16 * warp + (lane >> 2) + 8};
+  float L[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    L[i] = row[i] < Tq ? lse[(size_t)bh * Tq + row[i]] : 0.f;
+    dl[i] = row[i] < Tq ? delta[(size_t)bh * Tq + row[i]] : 0.f;
+  }
+  uint32_t hq = 0, rq = 0;
+  if (dr.on) tc::hash_terms(row[0], dr.q_tile, H_QT, H_ROW, hq, rq);
+  hq ^= tc::head_term(dr, bh);
+  const float keep = dr.on ? dr.inv_keep : 1.f;
+  const float* biasb = bias == nullptr ? nullptr : bias + (size_t)b * Tk;
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (threadIdx.x == 0 && t + 1 < n_tiles) {  // stage st^1 was freed at the end of t-1
+      const uint32_t nb = bar + 8 * (st ^ 1);
+      tc::mbar_expect(nb, 2 * tc::TILE_BYTES);
+      tc::tma_tile(k_at(st ^ 1), &tm_k, nb, h, (t + 1) * tc::KEYS, b);
+      tc::tma_tile(v_at(st ^ 1), &tm_v, nb, h, (t + 1) * tc::KEYS, b);
+    }
+    // the additive term of this thread's 16 keys while the tiles land; keys
+    // past Tk get -inf
+    const int k0 = t * tc::KEYS;
+    float add[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + 2 * quad + c;
+        add[2 * j + c] = key >= Tk ? -INFINITY : (biasb != nullptr ? __ldg(biasb + key) : 0.f);
+      }
+
+    // S = Q K^T and dP = dO V^T, one group
+    float s[32], dp[32];
+    tc::mbar_wait(bar + 8 * st, (t >> 1) & 1);
+    __syncwarp();
+    tc::fence_all(s);
+    tc::fence_all(dp);
+    tc::wg_fence();
+    tc::mma_ss<T>(s, base + tc::BA, k_at(st));
+    tc::mma_ss<T>(dp, base + tc::BB, v_at(st));
+    tc::wg_commit();
+    tc::wg_wait0();
+    tc::fence_all(s);
+    tc::fence_all(dp);
+
+    uint32_t bits = ~0u;
+    if (dr.on) {
+      uint32_t hk, ck;
+      tc::hash_terms(k0, dr.k_tile, H_KT, H_COL, hk, ck);
+      bits = tc::keep_bits(dr, hq ^ hk, rq, H_ROW, ck + 2u * quad * H_COL, H_COL);
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int j = e >> 2, i = (e >> 1) & 1, c = e & 1;
+      const float p = tc::ex2((scale * s[e] + add[2 * j + c] - L[i]) * tc::LOG2E);
+      const float dpd = (bits >> e) & 1u ? dp[e] * keep : 0.f;
+      s[e] = p * (dpd - dl[i]);  // dS
+    }
+    uint32_t a[16];
+    tc::pack_all<T>(a, s);
+
+    // dQ += dS K, K read MN-major
+    tc::fence_all(acc);
+    tc::fence_all(a);
+    tc::wg_fence();
+    tc::mma_rs<T>(acc, a, k_at(st));
+    tc::wg_commit();
+    tc::wg_wait0();
+    tc::fence_all(acc);
+    __syncthreads();  // every warp is done with stage st: it may be refilled
+  }
+
+  // epilogue: dQ * scale in place in (B, Tq, H, Dh)
+  const size_t rs = (size_t)H * tc::DH;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Tq) continue;
+    T* orow = dq + ((size_t)b * Tq + row[i]) * rs + (size_t)h * tc::DH + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          tc::Mma<T>::pack(scale * acc[4 * j + 2 * i], scale * acc[4 * j + 2 * i + 1]);
+  }
+}
+
+// dV = sum_i (P o mask)^T dO, dK = scale * sum_i dS^T Q, in the key-major
+// orientation: the accumulators' rows are this block's 64 keys, their
+// columns a streamed tile's 64 queries. So the bias is per row (key) and
+// L, delta per column (query); the hash's row argument is the query, i.e.
+// the accumulator's column. K and V resident, Q and dO streamed; L and
+// delta of the next tile go through a two-stage buffer of their own.
+template <typename T>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+              const float* __restrict__ bias, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
+              int Tq, int Tk, float scale, Drop dr) {
+  extern __shared__ uint8_t tc_smem[];
+  __shared__ float2 ld_s[2][tc::ROWS];  // (L, delta) of a query tile, two stages
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(tc_smem) + 1023u) & ~1023u;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * tc::KEYS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad = lane & 3;
+  const int n_tiles = (Tq + tc::ROWS - 1) / tc::ROWS;
+  const uint32_t bar = base + tc::BBAR;  // stage st: bar + 8 st
+  const auto q_at = [&](int st) { return base + tc::BR0 + st * tc::TILE_BYTES; };
+  const auto do_at = [&](int st) { return base + tc::BR1 + st * tc::TILE_BYTES; };
+  // (L, delta) of query i; a query past Tq gets L = +inf, so its P is exactly 0
+  const auto l_delta = [&](int i) {
+    return i < Tq ? make_float2(lse[(size_t)bh * Tq + i], delta[(size_t)bh * Tq + i])
+                  : make_float2(INFINITY, 0.f);
+  };
+  if (threadIdx.x == 0) {
+    tc::mbar_init(bar);
+    tc::mbar_init(bar + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (threadIdx.x < tc::ROWS) ld_s[0][threadIdx.x] = l_delta(threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x == 0) {  // K and V ride on stage 0's barrier: one arrival, four copies
+    tc::mbar_expect(bar, 4 * tc::TILE_BYTES);
+    tc::tma_tile(base + tc::BA, &tm_k, bar, h, k0, b);
+    tc::tma_tile(base + tc::BB, &tm_v, bar, h, k0, b);
+    tc::tma_tile(q_at(0), &tm_q, bar, h, 0, b);
+    tc::tma_tile(do_at(0), &tm_do, bar, h, 0, b);
+  }
+
+  // this thread's two keys: their additive term (-inf past Tk) and the
+  // hash's terms of its rows (the key axis)
+  const int key[2] = {k0 + 16 * warp + (lane >> 2), k0 + 16 * warp + (lane >> 2) + 8};
+  float add[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    add[i] = key[i] >= Tk ? -INFINITY : (bias != nullptr ? bias[(size_t)b * Tk + key[i]] : 0.f);
+  uint32_t hk = 0, rk = 0;
+  if (dr.on) tc::hash_terms(key[0], dr.k_tile, H_KT, H_COL, hk, rk);
+  hk ^= tc::head_term(dr, bh);
+  const float keep = dr.on ? dr.inv_keep : 1.f;
+  float gk[32], gv[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) gk[e] = gv[e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int i0 = t * tc::ROWS;
+    if (threadIdx.x == 0 && t + 1 < n_tiles) {  // stage st^1 was freed at the end of t-1
+      const uint32_t nb = bar + 8 * (st ^ 1);
+      tc::mbar_expect(nb, 2 * tc::TILE_BYTES);
+      tc::tma_tile(q_at(st ^ 1), &tm_q, nb, h, i0 + tc::ROWS, b);
+      tc::tma_tile(do_at(st ^ 1), &tm_do, nb, h, i0 + tc::ROWS, b);
+    }
+    // L and delta of the next tile, loaded now, stored at the end of this one
+    const bool loads_next = threadIdx.x < tc::ROWS && t + 1 < n_tiles;
+    const float2 next = loads_next ? l_delta(i0 + tc::ROWS + threadIdx.x) : make_float2(0.f, 0.f);
+
+    // S^T = K Q^T and dP^T = V dO^T, one group
+    float s[32], dp[32];
+    tc::mbar_wait(bar + 8 * st, (t >> 1) & 1);
+    __syncwarp();
+    tc::fence_all(s);
+    tc::fence_all(dp);
+    tc::wg_fence();
+    tc::mma_ss<T>(s, base + tc::BA, q_at(st));
+    tc::mma_ss<T>(dp, base + tc::BB, do_at(st));
+    tc::wg_commit();
+    tc::wg_wait0();
+    tc::fence_all(s);
+    tc::fence_all(dp);
+
+    uint32_t bits = ~0u;
+    if (dr.on) {  // rows are keys (H_COL), columns queries (H_ROW)
+      uint32_t hq, cq;
+      tc::hash_terms(i0, dr.q_tile, H_QT, H_ROW, hq, cq);
+      bits = tc::keep_bits(dr, hk ^ hq, rk, H_COL, cq + 2u * quad * H_ROW, H_ROW);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float2 ld = ld_s[st][8 * j + 2 * quad + c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * j + 2 * i + c;
+          const float p = tc::ex2((scale * s[e] + add[i] - ld.x) * tc::LOG2E);
+          const float m = (bits >> e) & 1u ? keep : 0.f;
+          s[e] = p * m;                    // P o mask
+          dp[e] = p * (dp[e] * m - ld.y);  // dS
+        }
+      }
+    uint32_t a_v[16], a_k[16];
+    tc::pack_all<T>(a_v, s);
+    tc::pack_all<T>(a_k, dp);
+
+    // dV += (P o mask)^T dO and dK += dS^T Q, dO and Q read MN-major
+    tc::fence_all(gv);
+    tc::fence_all(gk);
+    tc::fence_all(a_v);
+    tc::fence_all(a_k);
+    tc::wg_fence();
+    tc::mma_rs<T>(gv, a_v, do_at(st));
+    tc::mma_rs<T>(gk, a_k, q_at(st));
+    tc::wg_commit();
+    tc::wg_wait0();
+    tc::fence_all(gv);
+    tc::fence_all(gk);
+    if (loads_next) ld_s[st ^ 1][threadIdx.x] = next;
+    __syncthreads();  // stage st is consumed and stage st^1's L and delta are written
+  }
+
+  // epilogue: dK * scale and dV in place in (B, Tk, H, Dh)
+  const size_t rs = (size_t)H * tc::DH;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= Tk) continue;
+    const size_t off = ((size_t)b * Tk + key[i]) * rs + (size_t)h * tc::DH + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+          tc::Mma<T>::pack(scale * gk[4 * j + 2 * i], scale * gk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+          tc::Mma<T>::pack(gv[4 * j + 2 * i], gv[4 * j + 2 * i + 1]);
+    }
   }
 }
 
@@ -807,10 +1145,10 @@ cudaError_t launch_fwd_simt(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
-// Codes beside cudaError_t's for the tensor-map set-up of fwd_tc_kernel.
+// Codes beside cudaError_t's for the tensor-core kernels' set-up.
 constexpr int ERR_NO_ENCODE = 10001;  // libcuda has no cuTensorMapEncodeTiled
 constexpr int ERR_ENCODE = 10002;     // it refused a map (e.g. a pointer not 16-B aligned)
-constexpr int ERR_TC_ARGS = 10003;    // fwd_tc_kernel asked for other than bf16/fp16 at Dh 64
+constexpr int ERR_TC_ARGS = 10003;    // a tensor-core kernel asked for other than bf16/fp16 at Dh 64
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -849,27 +1187,72 @@ bool tile_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, CUtensorMapDat
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The maps hold the tensors' pointers, so they are built for every call.
+// The maps of q, k, v and (dout != nullptr) dout: m[0 .. 3]. They hold the
+// tensors' pointers, so they are built for every call. 0 or an ERR_* code.
 template <typename T>
-int launch_fwd_tc(const void* q, const void* k, const void* v, const void* bias, void* out,
-                  void* lse, int B, int H, int Tq, int Tk, float scale, Drop dr,
-                  cudaStream_t st) {
+int tc_maps(CUtensorMap* m, const void* q, const void* k, const void* v, const void* dout,
+            int B, int H, int Tq, int Tk) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return ERR_NO_ENCODE;
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap mq, mk, mv;
-  if (!tile_map(enc, &mq, q, type, B, H, Tq) || !tile_map(enc, &mk, k, type, B, H, Tk) ||
-      !tile_map(enc, &mv, v, type, B, H, Tk))
+  if (!tile_map(enc, &m[0], q, type, B, H, Tq) || !tile_map(enc, &m[1], k, type, B, H, Tk) ||
+      !tile_map(enc, &m[2], v, type, B, H, Tk) ||
+      (dout != nullptr && !tile_map(enc, &m[3], dout, type, B, H, Tq)))
     return ERR_ENCODE;
-  const dim3 grid((unsigned)(B * H), (unsigned)((Tq + tc::ROWS - 1) / tc::ROWS));
+  return 0;
+}
+
+inline dim3 tc_grid(int B, int H, int T) {
+  return dim3((unsigned)(B * H), (unsigned)((T + tc::ROWS - 1) / tc::ROWS));
+}
+
+template <typename T>
+int launch_fwd_tc(const void* q, const void* k, const void* v, const void* bias, void* out,
+                  void* lse, int B, int H, int Tq, int Tk, float scale, Drop dr,
+                  cudaStream_t st) {
+  CUtensorMap m[3];
+  const int e = tc_maps<T>(m, q, k, v, nullptr, B, H, Tq, Tk);
+  if (e != 0) return e;
   if (lse != nullptr)
-    fwd_tc_kernel<T, true><<<grid, tc::THREADS, tc::SMEM, st>>>(
-        mq, mk, mv, (const float*)bias, (T*)out, (float*)lse, H, Tq, Tk, scale, dr);
+    fwd_tc_kernel<T, true><<<tc_grid(B, H, Tq), tc::THREADS, tc::SMEM, st>>>(
+        m[0], m[1], m[2], (const float*)bias, (T*)out, (float*)lse, H, Tq, Tk, scale, dr);
   else
-    fwd_tc_kernel<T, false><<<grid, tc::THREADS, tc::SMEM, st>>>(
-        mq, mk, mv, (const float*)bias, (T*)out, nullptr, H, Tq, Tk, scale, dr);
+    fwd_tc_kernel<T, false><<<tc_grid(B, H, Tq), tc::THREADS, tc::SMEM, st>>>(
+        m[0], m[1], m[2], (const float*)bias, (T*)out, nullptr, H, Tq, Tk, scale, dr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* bias,
+                 const void* dout, const void* lse, const void* delta, void* dq, int B, int H,
+                 int Tq, int Tk, float scale, Drop dr, cudaStream_t st) {
+  CUtensorMap m[4];
+  int e = tc_maps<T>(m, q, k, v, dout, B, H, Tq, Tk);
+  if (e != 0) return e;
+  static size_t allowed = 0;
+  e = (int)allow_smem(dq_tc_kernel<T>, tc::BWD_SMEM, &allowed);
+  if (e != 0) return e;
+  dq_tc_kernel<T><<<tc_grid(B, H, Tq), tc::THREADS, tc::BWD_SMEM, st>>>(
+      m[0], m[1], m[2], m[3], (const float*)bias, (const float*)lse, (const float*)delta,
+      (T*)dq, H, Tq, Tk, scale, dr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv_tc(const void* q, const void* k, const void* v, const void* bias,
+                  const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                  int B, int H, int Tq, int Tk, float scale, Drop dr, cudaStream_t st) {
+  CUtensorMap m[4];
+  int e = tc_maps<T>(m, q, k, v, dout, B, H, Tq, Tk);
+  if (e != 0) return e;
+  static size_t allowed = 0;
+  e = (int)allow_smem(dkv_tc_kernel<T>, tc::BWD_SMEM, &allowed);
+  if (e != 0) return e;
+  dkv_tc_kernel<T><<<tc_grid(B, H, Tk), tc::THREADS, tc::BWD_SMEM, st>>>(
+      m[0], m[1], m[2], m[3], (const float*)bias, (const float*)lse, (const float*)delta,
+      (T*)dk, (T*)dv, H, Tq, Tk, scale, dr);
   return (int)cudaGetLastError();
 }
 
@@ -925,12 +1308,13 @@ int stac_flash_max_head_dim() { return MAX_DH; }
 const char* stac_flash_error_string(int code) {
   if (code == ERR_NO_ENCODE) return "libcuda has no cuTensorMapEncodeTiled";
   if (code == ERR_ENCODE) return "cuTensorMapEncodeTiled refused a q/k/v tensor map";
-  if (code == ERR_TC_ARGS) return "fwd_tc_kernel serves bf16 and fp16 at head dim 64 only";
+  if (code == ERR_TC_ARGS) return "the tensor-core kernels serve bf16 and fp16 at head dim 64 only";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// lse == nullptr: the inference kernel (no L, no dropout). use_tc != 0
-// launches fwd_tc_kernel (bf16 and fp16 at Dh 64 only), use_tc == 0 fwd_kernel.
+// lse == nullptr: the inference kernel (no L, no dropout). In all three
+// entry points use_tc != 0 launches the tensor-core kernel (bf16 and fp16 at
+// Dh 64 only, else ERR_TC_ARGS), use_tc == 0 the CUDA-core one.
 int stac_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
                    void* lse, int B, int H, int Tq, int Tk, int Dh, float scale,
                    unsigned seed, unsigned thresh, float inv_keep, int q_tile, int k_tile,
@@ -960,9 +1344,11 @@ int stac_flash_fwd(const void* q, const void* k, const void* v, const void* bias
 int stac_flash_dq(const void* q, const void* k, const void* v, const void* bias,
                   const void* dout, const void* lse, const void* delta, void* dq, int B,
                   int H, int Tq, int Tk, int Dh, float scale, unsigned seed, unsigned thresh,
-                  float inv_keep, int q_tile, int k_tile, int drop, int dtype, void* stream) {
+                  float inv_keep, int q_tile, int k_tile, int drop, int dtype, void* stream,
+                  int use_tc) {
   if (Dh <= 0 || Dh > MAX_DH || B * H <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
+  if (use_tc && !((dtype == BF16 || dtype == F16) && Dh == tc::DH)) return ERR_TC_ARGS;
   const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
@@ -970,9 +1356,15 @@ int stac_flash_dq(const void* q, const void* k, const void* v, const void* bias,
       return launch_dq<float>(q, k, v, bias, dout, lse, delta, dq, B, H, Tq, Tk, Dh, scale,
                               dr, st);
     case BF16:
+      if (use_tc)
+        return launch_dq_tc<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dq, B, H, Tq, Tk,
+                                           scale, dr, st);
       return launch_dq<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dq, B, H, Tq, Tk, Dh,
                                       scale, dr, st);
     case F16:
+      if (use_tc)
+        return launch_dq_tc<__half>(q, k, v, bias, dout, lse, delta, dq, B, H, Tq, Tk, scale,
+                                    dr, st);
       return launch_dq<__half>(q, k, v, bias, dout, lse, delta, dq, B, H, Tq, Tk, Dh, scale,
                                dr, st);
   }
@@ -983,9 +1375,10 @@ int stac_flash_dkv(const void* q, const void* k, const void* v, const void* bias
                    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                    int B, int H, int Tq, int Tk, int Dh, float scale, unsigned seed,
                    unsigned thresh, float inv_keep, int q_tile, int k_tile, int drop,
-                   int dtype, void* stream) {
+                   int dtype, void* stream, int use_tc) {
   if (Dh <= 0 || Dh > MAX_DH || B * H <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
+  if (use_tc && !((dtype == BF16 || dtype == F16) && Dh == tc::DH)) return ERR_TC_ARGS;
   const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
@@ -993,9 +1386,15 @@ int stac_flash_dkv(const void* q, const void* k, const void* v, const void* bias
       return launch_dkv<float>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Tq, Tk, Dh,
                                scale, dr, st);
     case BF16:
+      if (use_tc)
+        return launch_dkv_tc<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Tq,
+                                            Tk, scale, dr, st);
       return launch_dkv<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Tq,
                                        Tk, Dh, scale, dr, st);
     case F16:
+      if (use_tc)
+        return launch_dkv_tc<__half>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Tq, Tk,
+                                     scale, dr, st);
       return launch_dkv<__half>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Tq, Tk, Dh,
                                 scale, dr, st);
   }

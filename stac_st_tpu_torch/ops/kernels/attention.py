@@ -6,7 +6,7 @@ additive key-padding bias (B, Tk) fp32 or None. As in the reference, q is
 scaled in its own dtype before the kernel (attention.py:84) and the
 running max starts at −1e9. The kernels are the training forward's of
 ``csrc/train_attention.cu`` without L and without dropout, chosen by
-dtype and head dim alone (:func:`.train_attention.fwd_variant`): bf16 and
+dtype and head dim alone (:func:`.train_attention.flash_variant`): bf16 and
 fp16 at Dh 64 run ``fwd_tc_kernel`` (``wgmma``: one warpgroup per 64
 query rows, K/V tiles by TMA, both products on the tensor cores, P
 rounded to the input type before P·V); fp32 and other head dims run

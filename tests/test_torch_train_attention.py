@@ -9,17 +9,21 @@ padded key row, dropout off and at p 0.25 with the same seed; the hash
 itself bit for bit; and the autograd function's backward against autograd
 of dense attention.
 
-On the CPU too: the forward's dispatch rule as a pure function of (dtype,
-head dim).
+On the CPU too: the dispatch rule of the three training kernels as a pure
+function of (dtype, head dim), and that each launcher passes it to the
+library and counts its launch by it (a stand-in library records the
+calls).
 
 On a card (marked ``cuda``, skipped without one): each CUDA kernel against
 its plain version on the same inputs, fp32 with TF32 off (atol 5e-5: sums
 of a few hundred products in another order) and bf16 (atol 2e-2: both
-store in bf16, one step is 2^-7 near 1, P is rounded to bf16 before P·V in
-the tensor-core forward, and the backward sums bf16-rounded inputs), with
-a batch row whose keys are all masked and query counts around the 64-row
-tile of the tensor-core forward; and which forward kernel each (dtype,
-head dim) launched. The card tests need no JAX:
+store in bf16, one step is 2^-7 near 1, P and dS are rounded to bf16
+before the products that take them in the tensor-core kernels, and the
+backward sums bf16-rounded inputs), with a batch row whose keys are all
+masked and query and key counts around the 64-row tiles of the
+tensor-core kernels; which kernel each (dtype, head dim) launched, for
+the forward, dQ and dK/dV; and that two launches of the backward on the
+same inputs give bitwise-equal gradients. The card tests need no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_train_attention.py
 """
@@ -188,15 +192,53 @@ def test_wrappers_reject_unsupported_inputs():
         K.check("x", q, q, q, torch.zeros(1, 4, dtype=torch.float64))
 
 
-def test_forward_dispatch_rule():
-    """bf16 and fp16 at Dh 64 go to the tensor-core forward; fp32 (held to
-    the CPU at 1e-5) and every other head dim to the CUDA-core one."""
+class _Library:
+    """Stands in for the kernel library: records each entry point's last
+    ``use_tc`` argument and reports success."""
+
+    def __init__(self):
+        self.use_tc = {}
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.use_tc[entry] = args[-1]
+            return 0
+        return call
+
+
+def test_forward_dispatch_rule(monkeypatch):
+    """bf16 and fp16 at Dh 64 go to the tensor-core kernels; fp32 (held to
+    the CPU at 1e-5) and every other head dim to the CUDA-core ones. The
+    forward, dQ and dK/dV launchers all ask the library for the kernel of
+    that one rule and count the launch under it."""
     for dtype in (torch.bfloat16, torch.float16):
-        assert K.fwd_variant(dtype, 64) == "wgmma"
+        assert K.flash_variant(dtype, 64) == "wgmma"
         for dh in (8, 32, 56, 72, 128):
-            assert K.fwd_variant(dtype, dh) == "simt"
+            assert K.flash_variant(dtype, dh) == "simt"
     for dh in (8, 32, 64, 128):
-        assert K.fwd_variant(torch.float32, dh) == "simt"
+        assert K.flash_variant(torch.float32, dh) == "simt"
+    fake = _Library()
+    monkeypatch.setattr(K, "lib", lambda: fake)
+    monkeypatch.setattr(K, "stream", lambda: 0)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for dh in (32, 64):
+            q = torch.zeros(1, 3, 2, dh, dtype=dtype)
+            stats = torch.zeros(1, 2, 3)
+            kernels.reset_launches()
+            K.launch_fwd("flash_attention_train_fwd", q, q, q, None, True,
+                         1.0, SEED, 0.1)
+            K.launch_dq(q, q, q, None, SEED, 0.1, q, stats, stats)
+            K.launch_dkv(q, q, q, None, SEED, 0.1, q, stats, stats)
+            variant = K.flash_variant(dtype, dh)
+            want = int(variant == "wgmma")
+            assert fake.use_tc == {"stac_flash_fwd": want,
+                                   "stac_flash_dq": want,
+                                   "stac_flash_dkv": want}
+            names = ("flash_attention_train_fwd", "flash_attention_train_dq",
+                     "flash_attention_train_dkv")
+            assert kernels.launches == {
+                **{n: 1 for n in names},
+                **{f"{n}/{variant}": 1 for n in names}}
 
 
 # ---------------------------------------------- CUDA kernels vs plain ones
@@ -254,39 +296,75 @@ def test_train_kernels_match_plain_on_card(card, dtype, p_drop, Tq, Tk):
         q, k, v, bias).float(), atol=tol, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("Dh", [32, 64])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-def test_forward_dispatch_on_card(card, dtype, Dh):
-    """Each forward launch went through the kernel the rule names, and
-    that kernel matches the plain version (fp16: one step is 2^-10 near 1,
-    P rounded to fp16 before P·V)."""
-    dt, tol = {"float32": (torch.float32, 5e-5),
-               "bfloat16": (torch.bfloat16, 2e-2),
-               "float16": (torch.float16, 1e-2)}[dtype]
-    rng = np.random.default_rng(6)
-    B, H, Tq, Tk = 2, 4, 97, 130
-    q = torch.from_numpy(rng.standard_normal((B, Tq, H, Dh),
-                                             dtype=np.float32)).to(card, dt)
+def _card_inputs(card, dt, B, H, Tq, Tk, Dh, seed):
+    rng = np.random.default_rng(seed)
+    q, g = (torch.from_numpy(rng.standard_normal((B, Tq, H, Dh),
+                                                 dtype=np.float32)).to(card, dt)
+            for _ in range(2))
     k, v = (torch.from_numpy(rng.standard_normal((B, Tk, H, Dh),
                                                  dtype=np.float32)).to(card, dt)
             for _ in range(2))
     bias = torch.where(torch.arange(Tk, device=card)[None, :]
                        < torch.tensor([Tk, 50], device=card)[:, None],
                        0.0, NEG_INF).float()
-    variant = K.fwd_variant(dt, Dh)
+    return q, k, v, bias, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_forward_dispatch_on_card(card, dtype, Dh):
+    """Each launch of the forward, dQ and dK/dV went through the kernel the
+    rule names, and that kernel matches the plain version (fp16: one step
+    is 2^-10 near 1, P and dS rounded to fp16 before the products that take
+    them; gradients relative to max(1, |plain|), as above)."""
+    dt, tol = {"float32": (torch.float32, 5e-5),
+               "bfloat16": (torch.bfloat16, 2e-2),
+               "float16": (torch.float16, 1e-2)}[dtype]
+    q, k, v, bias, g = _card_inputs(card, dt, 2, 4, 97, 130, Dh, 6)
+    variant = K.flash_variant(dt, Dh)
     assert variant == ("wgmma" if dt != torch.float32 and Dh == 64
                        else "simt")
     kernels.reset_launches()
     out, lse = K.flash_attention_train_fwd(q, k, v, bias, SEED, 0.1)
     o = A.flash_attention(q, k, v, bias)
-    torch.cuda.synchronize()
-    assert kernels.launches == {
-        "flash_attention_train_fwd": 1,
-        f"flash_attention_train_fwd/{variant}": 1,
-        "flash_attention": 1, f"flash_attention/{variant}": 1}
     ref, lse_ref = K.flash_attention_train_fwd_ref(q, k, v, bias, SEED, 0.1)
+    args = (q, k, v, bias, SEED, 0.1, g, lse_ref, K.row_delta(g, ref))
+    dq = K.flash_attention_train_dq(*args)
+    dk, dv = K.flash_attention_train_dkv(*args)
+    torch.cuda.synchronize()
+    names = ("flash_attention_train_fwd", "flash_attention",
+             "flash_attention_train_dq", "flash_attention_train_dkv")
+    assert kernels.launches == {**{n: 1 for n in names},
+                                **{f"{n}/{variant}": 1 for n in names}}
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=1e-5)
     torch.testing.assert_close(o.float(), A.flash_attention_ref(
         q, k, v, bias).float(), atol=tol, rtol=0)
+    dk_r, dv_r = K.flash_attention_train_dkv_ref(*args)
+    for got, want in ((dq, K.flash_attention_train_dq_ref(*args)),
+                      (dk, dk_r), (dv, dv_r)):
+        scale = max(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=tol * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_backward_kernels_are_deterministic_on_card(card, dtype):
+    """Each block owns its output rows (no atomics): two launches of dQ and
+    of dK/dV on the same inputs give bitwise-equal gradients."""
+    dt = getattr(torch, dtype)
+    q, k, v, bias, g = _card_inputs(card, dt, 2, 4, 301, 260, 64, 7)
+    out, lse = K.flash_attention_train_fwd(q, k, v, bias, SEED, 0.1)
+    args = (q, k, v, bias, SEED, 0.1, g, lse, K.row_delta(g, out))
+    kernels.reset_launches()
+    first = (K.flash_attention_train_dq(*args),
+             *K.flash_attention_train_dkv(*args))
+    second = (K.flash_attention_train_dq(*args),
+              *K.flash_attention_train_dkv(*args))
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attention_train_dq/wgmma"] == 2
+    assert kernels.launches["flash_attention_train_dkv/wgmma"] == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
