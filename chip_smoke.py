@@ -14,13 +14,22 @@ Phases, each printed as one JSON line:
    source of stac_st_tpu_torch/csrc built in parallel into
    build/torch_kernels/); ptxas must report no spills for the
    tensor-core kernels (fwd_tc_kernel, four instantiations; dq_tc_kernel
-   and dkv_tc_kernel, two each);
+   and dkv_tc_kernel, two each) and for the split decode kernels
+   (cross_split_kernel and anc_split_kernel, two each), whose registers
+   are reported;
 2. kernel: each decode-attention kernel against its plain PyTorch version
    at the serving path's shapes (B 16 x 10 s, beam 10: 160 rows, 4 heads of
    64, self cache 3 + 192 positions, 251 encoder frames), in fp32 with TF32
    off and in bf16, with the times of the kernel, the plain version, one
    library call computing the same function (timed here only; the port
-   never calls it) and the least time the card could take;
+   never calls it), the least time the card could take, the wrapper's
+   host time a call, and the timer's floor (one tiny kernel); cross also
+   with a padding bias that masks whole position splits and one whole
+   row; anc and cross in bf16 go through their "split" kernels (ptxas
+   must report no spills for them), which must give bitwise-equal outputs
+   over two launches and are also timed at a second main-path shape each
+   (anc mid-decode, idx 97 of a 131-position cache segment; cross at the
+   dual search's B32);
 3. train_kernel: the four flash-attention kernels (inference forward,
    training forward, dQ, dK/dV) against their plain versions at the
    training path's shapes (encoder self-attention B32 x 376 frames with
@@ -39,7 +48,10 @@ Phases, each printed as one JSON line:
    layers, FFN 1024, vocab 5000, CNN (256, 256); bf16, seeded random
    weights) serving B 16 x 10 s of PCM16 through translate,
    transcribe_and_translate and speaker_turns, plus one short beam-1 call;
-   the kernels' launch counts are zeroed just before and read just after;
+   the kernels' launch counts are zeroed just before and read just after
+   and must be exactly 2 x 1170 anc, 3 x 1170 cross and 1170 self launches
+   (6 decoder layers x 195 steps per search), every bf16 anc and cross
+   launch on its split kernel;
 5. train: the flagship training configuration as bench_train.py builds it
    (dropout 0.1, CTC 0.3, label smoothing 0.1, batchmean, AdamW 1e-3,
    WarmCoolDecay, clip 5.0, bf16 compute, B32 x 15 s, U128, seeded
@@ -56,7 +68,8 @@ Phases, each printed as one JSON line:
    parameters, card against CPU.
 
 Then the card's name and power limit, a {"kernels": [...]} line (the four
-flash kernels name the variant their main-path launches went through),
+flash kernels and the anc and cross kernels name the variant their
+main-path launches went through),
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
@@ -177,6 +190,8 @@ def kernel_phase(torch, K, timer):
     """Each kernel vs its plain version at the serving shapes."""
     import torch.nn.functional as F
 
+    from stac_st_tpu_torch.ops import kernels
+
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def randn(*shape):
@@ -185,6 +200,7 @@ def kernel_phase(torch, K, timer):
     BB = B * BEAM
     idx = S_SELF - 1
     n = idx + 1
+    floor_buf = torch.empty(16, device="cuda")
     anc_cpu = torch.randint(0, BEAM, (B, BEAM, S_SELF), generator=g,
                             dtype=torch.int32)
     # the positions the ancestor table makes the anc kernel read
@@ -234,32 +250,115 @@ def kernel_phase(torch, K, timer):
                               k.transpose(-1, -2), v, scale=1.0)
                 nbytes = (2 * BB * H * DH + 2 * B * H * S_ENC * DH) * es
                 flops = 4.0 * BB * H * S_ENC * DH
-                # the padding-bias variant is checked too (not timed)
+                # the padding-bias variant is checked too (not timed): key
+                # lengths that leave whole 32-key splits masked, and 0,
+                # a row whose every key is masked (uniform softmax)
                 bias = torch.where(
                     torch.arange(S_ENC, device="cuda")[None, :]
-                    < torch.tensor([S_ENC, 200, 31] * 5 + [100],
+                    < torch.tensor([S_ENC, 200, 31, 0] * 4,
                                    device="cuda")[:, None], 0.0, -1e9)
                 err_b = (K.decode_cross_attention(q, k, v, bias, BEAM).float()
                          - K.decode_cross_attention_ref(q, k, v, bias, BEAM)
                          .float()).abs().max().item()
                 check(err_b <= TOL[dtype],
                       f"{name} {dtype} with bias: err {err_b}")
+            before = dict(kernels.launches)
             out = run()
             torch.cuda.synchronize()
+            if key != "self":  # the kernel the dispatch rule names
+                want = SPLIT if dtype == "bfloat16" else "simt"
+                got = {kn: c - before.get(kn, 0)
+                       for kn, c in kernels.launches.items()}
+                check(got.get(f"{name}/{want}") == 1, f"{name} {dtype}: "
+                      f"launched {got}, want {want}")
             err = (out.float() - plain().float()).abs().max().item()
             check(bool(torch.isfinite(out).all()), f"{name} {dtype} finite")
             check(err <= TOL[dtype],
                   f"{name} {dtype}: max abs err {err} > {TOL[dtype]}")
+            if key != "self" and dtype == "bfloat16":
+                # split kernels: the splits are combined in rank order, so
+                # two launches give the same bits
+                again = run()
+                torch.cuda.synchronize()
+                check(torch.equal(out, again), f"{name} not repeatable")
+                rec["bitwise_repeatable"] = True
             b_ms, b_by = bound_ms(nbytes, flops, dtype)
             rec[dtype] = {
                 "max_abs_err": err, "tol": TOL[dtype],
                 "ms": timer.ms(run), "plain_ms": timer.ms(plain),
                 "library_ms": None if lib is None else timer.ms(lib),
                 "bound_ms": b_ms, "bound_by": b_by,
+                # the wrapper's own cost a call: checks, ctypes, the launch
+                # (a cluster launch for split, <<<>>> for simt and self)
+                "host_us": host_us(torch, run),
             }
+        # the timer's floor: one tiny kernel, timed as every call above is
+        rec["timer_floor_ms"] = timer.ms(partial(floor_buf.zero_))
+        if key == "anc":
+            rec["bfloat16_idx97"] = _anc_mid(torch, K, timer, g)
+        elif key == "cross":
+            rec["bfloat16_b32"] = _cross_b32(torch, K, timer, g)
         emit(rec)
         rows.append(rec)
     return rows
+
+
+def _timed_case(torch, K, timer, name, run, plain, nbytes, flops, lib=None):
+    """A bf16 case of a split kernel: error, repeatability, times."""
+    out = run()
+    torch.cuda.synchronize()
+    err = (out.float() - plain().float()).abs().max().item()
+    check(err <= TOL["bfloat16"], f"{name}: max abs err {err}")
+    check(torch.equal(out, run()), f"{name} not repeatable")
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    return {"max_abs_err": err, "tol": TOL["bfloat16"], "ms": timer.ms(run),
+            "plain_ms": timer.ms(plain),
+            "library_ms": None if lib is None else timer.ms(lib),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _anc_mid(torch, K, timer, g):
+    """anc mid-decode: idx 97 (the main path's mean over 195 steps) sits in
+    the second cache segment, 3 + 128 = 131 positions."""
+    S, idx, BB = 131, 97, B * BEAM
+    n = idx + 1
+    bf = torch.bfloat16
+    q, k, v = ((torch.randn(shape, generator=g) * sc).to("cuda", bf)
+               for shape, sc in (((BB, H, DH), 1 / 8), ((BB, H, S, DH), 1),
+                                 ((BB, H, S, DH), 1)))
+    anc = torch.randint(0, BEAM, (B, BEAM, S), generator=g,
+                        dtype=torch.int32)
+    uniq = sum(int(torch.unique(anc[b, :, s]).numel())
+               for b in range(B) for s in range(n))
+    anc = anc.to("cuda")
+    nbytes = (2 * BB * H * DH + 2 * uniq * H * DH) * 2 + B * BEAM * n * 4
+    return _timed_case(
+        torch, K, timer, "anc idx 97",
+        partial(K.decode_self_attention_anc, q, k, v, anc, idx, BEAM),
+        partial(K.decode_self_attention_anc_ref, q, k, v, anc, idx, BEAM),
+        nbytes, 4.0 * BB * H * n * DH)
+
+
+def _cross_b32(torch, K, timer, g):
+    """cross at the dual search's shape: call_multi tiles the encoder
+    output, so B 32 utterance rows of 251 frames."""
+    import torch.nn.functional as F
+
+    B2 = 2 * B
+    bf = torch.bfloat16
+    q, kT, v = ((torch.randn(shape, generator=g) * sc).to("cuda", bf)
+                for shape, sc in (((B2 * BEAM, H, DH), 1 / 8),
+                                  ((B2, H, DH, S_ENC), 1),
+                                  ((B2, H, S_ENC, DH), 1)))
+    nbytes = (2 * B2 * BEAM * H * DH + 2 * B2 * H * S_ENC * DH) * 2
+    return _timed_case(
+        torch, K, timer, "cross B32",
+        partial(K.decode_cross_attention, q, kT, v, None, BEAM),
+        partial(K.decode_cross_attention_ref, q, kT, v, None, BEAM),
+        nbytes, 4.0 * B2 * BEAM * H * S_ENC * DH,
+        lib=partial(F.scaled_dot_product_attention,
+                    q.reshape(B2, BEAM, H, DH).transpose(1, 2),
+                    kT.transpose(-1, -2), v, scale=1.0))
 
 
 def _flash_bounds(name, B, Tq, Tk, es):
@@ -277,6 +376,10 @@ def _flash_bounds(name, B, Tq, Tk, es):
     return 2 * qo + 4 * kv + bias + 2 * rows, 4 * mm  # -> dk, dv
 
 
+SPLIT = "split"  # the decode kernels' variant for bf16 / fp16
+DECODE_SPLIT = ("decode_self_attention_anc", "decode_cross_attention")
+# the split decode kernels and their instantiations (ptxas: no spills)
+SPLIT_KERNELS = {"cross_split_kernel": 2, "anc_split_kernel": 2}
 FLASH = ("flash_attention", "flash_attention_train_fwd",
          "flash_attention_train_dq", "flash_attention_train_dkv")
 TC = "wgmma"     # the tensor-core kernels' variant (bf16 / fp16, Dh 64)
@@ -297,6 +400,20 @@ def spills(log: str, kernel: str):
                 nums = [int(w) for w in ln.replace(",", " ").split()
                         if w.isdigit()]
                 out[name] = (nums[1], nums[2])  # stack, stores, loads
+            name = None
+    return out
+
+
+def registers(log: str, kernel: str):
+    """{mangled name: registers} of every instantiation of ``kernel`` in
+    an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            name = ln.split("'")[1]
+        elif name is not None and "Used " in ln and " registers" in ln:
+            if kernel in name:
+                out[name] = int(ln.split("Used ", 1)[1].split()[0])
             name = None
     return out
 
@@ -545,9 +662,20 @@ def main_path_phase(torch, kernels, profile: bool):
     check(all(isinstance(x, str) and x for x in st + asr + st2),
           "non-empty texts")
     check(len(st1) == 2 and all(st1), "beam-1 texts")
-    for name in ("decode_self_attention", "decode_self_attention_anc",
-                 "decode_cross_attention"):
-        check(launches.get(name, 0) > 0, f"{name} launched on the main path")
+    # 6 decoder layers x (3 prompt + 192) steps per search: anc in translate
+    # and the dual search, cross in those and the beam-1 call, self in the
+    # beam-1 call only; the serving dtype is bf16, so every anc and cross
+    # launch is a split kernel's
+    per_search = 6 * S_SELF
+    want = {"decode_self_attention": per_search,
+            "decode_self_attention_anc": 2 * per_search,
+            "decode_cross_attention": 3 * per_search}
+    for name, n in want.items():
+        check(launches.get(name, 0) == n,
+              f"{name}: {launches.get(name, 0)} launches, want {n}")
+    for name in DECODE_SPLIT:
+        check(launches.get(f"{name}/{SPLIT}", 0) == want[name],
+              f"{name} on the split kernel: {launches}")
     rec.update({
         "translate_s": t1 - t0, "translate_rtfx": audio_s / (t1 - t0),
         "dual_s": t2 - t1, "dual_rtfx": audio_s / (t2 - t1),
@@ -870,17 +998,22 @@ def main() -> int:
     ptxas = [ln.strip() for log in kernels.build_logs.values()
              for ln in log.splitlines() if "registers" in ln
              or "wgmma" in ln]
-    tc_spills = {}
-    for kern, n in TC_KERNELS.items():
-        found = spills(kernels.build_logs["train_attention"], kern)
-        check(len(found) == n and not any(sum(v) for v in found.values()),
-              f"{kern} spills: {found}")
-        tc_spills.update(found)
+    tc_spills, split_regs = {}, {}
+    for lib_name, kerns in (("train_attention", TC_KERNELS),
+                            ("decode_attention", SPLIT_KERNELS)):
+        for kern, n in kerns.items():
+            found = spills(kernels.build_logs[lib_name], kern)
+            check(len(found) == n and not any(sum(v) for v in found.values()),
+                  f"{kern} spills: {found}")
+            tc_spills.update(found)
+            if lib_name == "decode_attention":
+                split_regs.update(registers(kernels.build_logs[lib_name],
+                                            kern))
     emit({"phase": "environment", "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_count": torch.cuda.device_count(),
           "kernel_build_s": build_s, "built": built, "ptxas": ptxas,
-          "tc_kernel_spills": tc_spills})
+          "tc_kernel_spills": tc_spills, "split_kernel_registers": split_regs})
 
     timer = Timer(torch)
     rows = kernel_phase(torch, K, timer)
@@ -902,6 +1035,10 @@ def main() -> int:
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
         })
+        if rec["name"] in DECODE_SPLIT:
+            kernel_line[-1]["variant"] = "/".join(
+                v for v in (SPLIT, "simt")
+                if main_rec["launches"].get(f"{rec['name']}/{v}"))
     flash_kernels = {**A.KERNELS, **TA.KERNELS}
     for rec in train_rows:
         enc = rec["encoder_self"]  # the shape of 12 of the 18 launches

@@ -1,4 +1,4 @@
-// Single-step decode attention for Hopper (sm_90a): three kernels, one design.
+// Single-step decode attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of stac_st_tpu/ops/pallas/decode_attention.py:
 //   decode_self_attention      <- _self_kernel  (:30, wrapper :53)
@@ -10,31 +10,77 @@
 // The three differ only in their mask / key source:
 //   self:  positions 0..idx of the row's own cache, K^T (BB,H,Dh,S), V (BB,H,S,Dh);
 //   anc:   position s of hypothesis r is read from cache row b*beam + anc[b,r,s]
-//          (K and V both (BB,H,S,Dh)); the caches are never reordered;
+//          (K and V both (BB,H,S,Dh)); the caches are never reordered; an
+//          ancestor outside [0, beam) selects no key and scores -1e9;
 //   cross: the beam queries of one utterance against that utterance's encoder
 //          K^T (B,H,Dh,S) / V (B,H,S,Dh), stored once, plus an additive (B,S) bias.
 //
 // Bound: device memory. One decode step reads every cached key and value once
 // and does 4*Dh flops per (query, position); at the serving shapes (bf16,
-// Dh 64) that is ~1 flop per byte, far below the ~295 flop/byte where the
-// tensor cores would become the limit. So the design only has to read each
-// byte once: one block per (row, head) -- per (utterance, head) for cross,
-// so the encoder K/V is read once for all beam queries -- scores for all
-// positions kept in shared memory, an exact two-pass softmax, and no padding
-// of S (the TPU kernels padded S to 128 lanes and stored fp32 only; neither
-// is needed here). Launch overhead, not bandwidth, dominates the small cross
-// call; making these fast (several rows per block, cp.async/TMA pipelines)
-// is later work.
+// Dh 64) that is ~1 flop per byte (cross: ~10, the beam shares K/V), far
+// below the ~295 flop/byte where the tensor cores would become the limit.
+// At those shapes the bytes take 1.3 us (cross, B16 x beam 10 x 251 keys)
+// and 6.3 us (anc, 195 positions, each row once), so what holds a kernel
+// back is latency: how many blocks run, how many bytes each has in flight,
+// how many passes.
+//
+// Two designs; which one serves a call is fixed by dtype alone (the
+// wrapper's decode_variant names it in the `split` argument):
+//
+// * split -- bf16 and fp16 (every serving configuration), anc and cross.
+//   Each (utterance, head) is split over positions into a thread-block
+//   cluster of up to 8 blocks, sized at launch from n, the positions read
+//   (cross: n = S, 32-position tiles; anc: n = idx + 1, 4-position tiles),
+//   so the 64 (b, h) of the main path become 512 blocks on 132 SMs. Each
+//   block reads its share with 16-byte loads, all of a tile's in flight at
+//   once, runs an online softmax in fp32 (one pass: no score buffer, no
+//   second walk over V), and sends its partial (max, sum, unnormalised
+//   output) for each query row to the block that owns the row, through
+//   distributed shared memory; after one cluster barrier each block
+//   combines its rows from every block's partial, always in rank order.
+//   One launch per call, no global scratch, no atomics, and two launches
+//   give bitwise-equal outputs. (cp.async rings and copy-engine bulk
+//   copies were tried for these gathers and were slower than plain 16-byte
+//   loads into registers; PERF.md.)
+//   - cross_split_kernel: one warp per block, all beam queries of the
+//     utterance as the 16 rows of mma.sync.m16n8k16 (beam padded to 16
+//     with zero queries), so each encoder key and value is read once per
+//     utterance and the beam's reuse happens in the tensor cores. S = Q K^T
+//     takes its B fragments from the K^T tile staged in shared memory (each
+//     K^T row is read as the 16-byte-aligned chunks that cover it, since S
+//     need not be a multiple of 8); O += P V takes P from the score
+//     accumulators as two terms of the input type (hi + lo, ~16 bits of
+//     P) and V through ldmatrix.trans from a swizzled tile. Positions past
+//     S score -inf and the bias is added as the reference adds it, so a row
+//     whose every key the bias masks (-1e9) still gets the reference's
+//     uniform softmax.
+//   - anc_split_kernel: all hypotheses of the utterance in one block, eight
+//     threads per hypothesis (eight head dims each). Each thread reads the
+//     16 bytes of the K and V rows its hypothesis's ancestors name straight
+//     into registers, the next tile's while it computes on this one (rows
+//     that hypotheses share come from L2, not HBM); its keys are its own,
+//     so the dot products run on the CUDA cores, each 16-byte chunk
+//     unpacked to fp32 pairs and reduced over the eight threads with three
+//     shuffles. An ancestor outside [0, beam) never becomes an address: its
+//     rows are zeros and its score -1e9.
+// * simt -- fp32 anc and cross, and self in every dtype: one block of 256
+//   threads per (row, head) -- per (utterance, head) for cross -- scores
+//   for all positions in shared memory, an exact two-pass softmax.
+//   card_vs_cpu holds fp32 decoding to the CPU at 1e-3.
 //
 // Plain C interface, loaded with ctypes; every launcher returns the
-// cudaError_t of the launch (0 = success). Kernels run on the caller's
-// stream, allocate nothing and never synchronise.
+// cudaError_t of the launch (0 = success) or one of the ERR_* codes below.
+// Kernels run on the caller's stream, allocate nothing and never
+// synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -42,7 +88,7 @@ constexpr int DH = 64;          // head dim of every preset (d_model / nhead)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int GROUPS = THREADS / DH;  // position groups in the P.V pass
-constexpr int MAX_BEAM = 16;    // cross kernel: queries per utterance
+constexpr int MAX_BEAM = 16;    // hypotheses (queries) per utterance
 constexpr float NEG_INF = -1e9f;  // additive mask value of the reference
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -268,6 +314,458 @@ cross_kernel(const T* __restrict__ q, const T* __restrict__ kT,
   }
 }
 
+// ==== split kernels: bf16 / fp16, position splits in a cluster =============
+namespace split {
+
+constexpr int MAX_SPLIT = 8;     // blocks per cluster (the portable maximum)
+constexpr int CROSS_TILE = 32;   // cross: positions per tile, one per lane
+constexpr int KROW = CROSS_TILE + 8;  // a staged K^T row: the tile + its misalignment
+constexpr int ANC_TILE = 4;      // anc: positions per tile, all reads in flight
+constexpr int GROUP = 8;         // anc: threads per hypothesis, 8 dims each
+constexpr int SLOTS = MAX_BEAM + MAX_SPLIT - 1;  // inbox rows, see Inbox
+
+// The partial results (running max m, sum of exponentials l, unnormalised
+// output o) that the cluster's blocks send to the block owning a row. Block
+// `rank` owns rows j = lr*cs + rank; the partial of row j from block `src`
+// lands in slot src*own + lr, own = ceil(rows / cs) <= SLOTS / cs.
+struct __align__(16) Inbox {
+  float o[SLOTS][DH];
+  float m[SLOTS];
+  float l[SLOTS];
+};
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+// The address of the same shared variable in block `rank` of the cluster.
+template <typename U>
+__device__ __forceinline__ U* peer(U* p, int rank) {
+  uint64_t r;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(p), "r"(rank));
+  return reinterpret_cast<U*>(r);
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {  // release
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {  // acquire
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 x = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t w);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t w) {
+  return __half22float2(*reinterpret_cast<__half2*>(&w));
+}
+
+// 16 bytes of a read-only tensor, or zeros when !ok (nothing is read).
+__device__ __forceinline__ uint4 ld16(const void* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// c += a . b on the tensor cores, fp32 accumulators (m16n8k16, A row-major,
+// B column-major, fragments as the PTX ISA lays them out).
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// Row j's partial goes to its owner's inbox (distributed shared memory).
+// The cluster barrier's first phase, arrived at (relaxed) when the block
+// started, is waited for by the caller before the first send: every block
+// of the cluster is then running and its inbox exists.
+struct Sender {
+  Inbox* inbox;  // this block's own, mapped to the owner's per row
+  int cs, rank, own;
+  __device__ Inbox* box(int j) const { return peer(inbox, j % cs); }
+  __device__ int slot(int j) const { return rank * own + j / cs; }
+};
+
+// After every block has sent (second barrier phase: release on arrive,
+// acquire on wait), block `rank` combines the rows it owns from its own
+// inbox, sources in rank order (the result does not depend on timing), and
+// stores row j of utterance b, head h at out[((b*beam + j)*H + h)*DH].
+// Nothing reads this block's memory afterwards, so it may exit.
+template <typename T>
+__device__ void combine_own(const Sender& snd, int rows, T* out, int b, int beam, int H,
+                            int h) {
+  cluster_arrive();
+  cluster_wait();
+  const Inbox& in = *snd.inbox;
+  const int cs = snd.cs, own = snd.own;
+  for (int e = threadIdx.x; e < own * (DH / 2); e += blockDim.x) {
+    const int lr = e / (DH / 2), d = (e % (DH / 2)) * 2;
+    const int j = lr * cs + snd.rank;
+    if (j >= rows) continue;
+    float M = -INFINITY;
+    for (int src = 0; src < cs; ++src) M = fmaxf(M, in.m[src * own + lr]);
+    float l = 0.f, o0 = 0.f, o1 = 0.f;
+    for (int src = 0; src < cs; ++src) {
+      const int sl = src * own + lr;
+      const float w = __expf(in.m[sl] - M);
+      l += w * in.l[sl];
+      o0 += w * in.o[sl][d];
+      o1 += w * in.o[sl][d + 1];
+    }
+    *reinterpret_cast<uint32_t*>(out + (((size_t)b * beam + j) * H + h) * DH + d) =
+        pack2<T>(o0 / l, o1 / l);
+  }
+}
+
+struct CrossTile {
+  __align__(16) uint16_t k[DH * KROW];        // K^T rows, as read
+  __align__(16) uint16_t v[CROSS_TILE * DH];  // V rows, 16-byte chunks swizzled
+  float bias[CROSS_TILE];
+};
+
+// ---- decode_cross_attention, split: one warp per (utterance, head, split) --
+// `tiles` = ceil(S / CROSS_TILE); the cluster's blocks share them in order.
+template <typename T>
+__global__ void __launch_bounds__(32)
+cross_split_kernel(const T* __restrict__ q, const T* __restrict__ kT,
+                   const T* __restrict__ v, const float* __restrict__ bias,
+                   T* __restrict__ out, int H, int S, int beam, int tiles) {
+  __shared__ Inbox inbox;
+  __shared__ CrossTile tile;
+  cluster_arrive_relaxed();
+  const int cs = cluster_size(), rank = cluster_rank();
+  const int bh = blockIdx.x / cs, b = bh / H, h = bh % H;
+  const int t0 = rank * tiles / cs, t1 = (rank + 1) * tiles / cs;
+  const int lane = threadIdx.x;
+  const int g = lane >> 2, qd = lane & 3;  // fragment row group, thread in quad
+  const T* kp = kT + (size_t)bh * DH * S;  // this (b, h)'s K^T, 16-byte aligned
+  const T* vp = v + (size_t)bh * S * DH;
+  const float* bp = bias == nullptr ? nullptr : bias + (size_t)b * S;
+
+  // Q as the A operand: rows are the beam queries, zero past beam
+  uint32_t qa[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + (e & 1) * 8, dim = ks * 16 + qd * 2 + (e >> 1) * 8;
+      qa[ks][e] = row < beam ? *reinterpret_cast<const uint32_t*>(
+                                   q + (((size_t)b * beam + row) * H + h) * DH + dim)
+                             : 0u;
+    }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    const int p0 = t * CROSS_TILE, pend = min(p0 + CROSS_TILE, S);
+    // Every read of the tile in flight at once. K^T row d holds the tile at
+    // elements [d*S + p0, d*S + pend) of the (b, h) slab: read the five
+    // aligned 16-byte chunks from floor8 of the first (a chunk with none
+    // of the row's elements is zeros); V rows past S are zeros.
+    uint4 kr[DH * 5 / 32], vr[CROSS_TILE * 8 / 32];
+#pragma unroll
+    for (int i = 0; i < DH * 5 / 32; ++i) {
+      const int idx = lane + 32 * i, d = idx / 5, c = idx % 5;
+      const int a = ((d * S + p0) & ~7) + 8 * c;
+      kr[i] = ld16(kp + a, a < d * S + pend);
+    }
+#pragma unroll
+    for (int i = 0; i < CROSS_TILE * 8 / 32; ++i) {
+      const int r = (lane >> 3) + 4 * i, c = lane & 7;  // position in tile, chunk
+      vr[i] = ld16(vp + (size_t)(p0 + r) * DH + 8 * c, p0 + r < S);
+    }
+    const float br = bp != nullptr && p0 + lane < S ? __ldg(bp + p0 + lane) : 0.f;
+    __syncwarp();  // the previous tile's reads of shared memory are done
+#pragma unroll
+    for (int i = 0; i < DH * 5 / 32; ++i) {
+      const int idx = lane + 32 * i, d = idx / 5, c = idx % 5;
+      *reinterpret_cast<uint4*>(&tile.k[d * KROW + 8 * c]) = kr[i];
+    }
+#pragma unroll
+    for (int i = 0; i < CROSS_TILE * 8 / 32; ++i) {
+      const int r = (lane >> 3) + 4 * i, c = lane & 7;
+      *reinterpret_cast<uint4*>(&tile.v[r * DH + 8 * (c ^ (r & 7))]) = vr[i];
+    }
+    tile.bias[lane] = br;
+    __syncwarp();
+    // S = Q K^T over four 8-position n-tiles
+    float s[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      const int p = nt * 8 + g;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t kb[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // dims d0, d0+1, d0+8, d0+9
+          const int d = ks * 16 + qd * 2 + (e & 1) + (e >> 1) * 8;
+          kb[e] = tile.k[d * KROW + ((d * S + p0) & 7) + p];
+        }
+        mma16816<T>(s[nt], qa[ks], kb[0] | (kb[1] << 16), kb[2] | (kb[3] << 16));
+      }
+    }
+    // bias and the ragged edge, then the online softmax (rows g and g + 8;
+    // the four threads of a quad share a row)
+    float tm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + qd * 2 + (e & 1);
+        float x = s[nt][e];
+        if (bp != nullptr) x += tile.bias[c];
+        s[nt][e] = p0 + c < S ? x : -INFINITY;
+        tm[e >> 1] = fmaxf(tm[e >> 1], s[nt][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+      const float mn = fmaxf(m[r], tm[r]);  // finite: every tile has a key
+      alpha[r] = __expf(m[r] - mn);
+      m[r] = mn;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = __expf(s[nt][e] - m[e >> 1]);
+        l[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e >> 1];
+    // O += P V: P from the score accumulators as two terms of the input
+    // type, hi + lo (about 16 bits of P, where one term would keep 8 and
+    // put one rounding of up to 2^-9 into every weight), V through
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* pe = &s[2 * kk + (e >> 1)][(e & 1) * 2];
+        ph[e] = pack2<T>(pe[0], pe[1]);
+        const float2 hi = unpack2<T>(ph[e]);
+        pl[e] = pack2<T>(pe[0] - hi.x, pe[1] - hi.y);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const int mat = lane >> 3, row = lane & 7;
+        const int pos = kk * 16 + (mat & 1) * 8 + row, chunk = 2 * np + (mat >> 1);
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, &tile.v[pos * DH + 8 * (chunk ^ (pos & 7))]);
+        mma16816<T>(o[2 * np], ph, vb[0], vb[1]);
+        mma16816<T>(o[2 * np], pl, vb[0], vb[1]);
+        mma16816<T>(o[2 * np + 1], ph, vb[2], vb[3]);
+        mma16816<T>(o[2 * np + 1], pl, vb[2], vb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const Sender snd{&inbox, cs, rank, (beam + cs - 1) / cs};
+  cluster_wait();  // every block of the cluster has started
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = g + 8 * r;
+    if (j >= beam) continue;
+    Inbox* box = snd.box(j);
+    const int sl = snd.slot(j);
+    if (qd == 0) {
+      box->m[sl] = m[r];
+      box->l[sl] = l[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<float2*>(&box->o[sl][nt * 8 + qd * 2]) =
+          make_float2(o[nt][2 * r], o[nt][2 * r + 1]);
+  }
+  combine_own<T>(snd, beam, out, b, beam, H, h);
+}
+
+// ---- decode_self_attention_anc, split: one block per (utterance, head,
+// split), GROUP threads per hypothesis. `tiles` = ceil(n / ANC_TILE); `span`
+// = positions of the longest split (sizes the ancestor table in dynamic
+// shared memory, rows[beam][span]). Each thread reads the 16 bytes of each
+// K and V row it needs (the row its hypothesis's ancestor names) straight
+// into registers, the next tile's while it computes on this one.
+template <typename T>
+__global__ void __launch_bounds__(GROUP * MAX_BEAM)
+anc_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int32_t* __restrict__ anc,
+                 T* __restrict__ out, int H, int S, int beam, int n, int tiles, int span) {
+  __shared__ Inbox inbox;
+  extern __shared__ int srow[];  // source cache row per (hypothesis, position), or -1
+  cluster_arrive_relaxed();
+  const int cs = cluster_size(), rank = cluster_rank();
+  const int bh = blockIdx.x / cs, b = bh / H, h = bh % H;
+  const int t0 = rank * tiles / cs, t1 = (rank + 1) * tiles / cs;
+  const int P0 = t0 * ANC_TILE, P1 = min(t1 * ANC_TILE, n);
+  const int tid = threadIdx.x, nthr = blockDim.x, items = beam * span;
+
+  // the ancestor table of this split, PRE reads in flight per thread
+  constexpr int PRE = 8;
+  for (int base = tid; base < items; base += PRE * nthr) {
+    int a[PRE];
+#pragma unroll
+    for (int u = 0; u < PRE; ++u) {
+      const int i = base + u * nthr, j = i / span, p = P0 + i % span;
+      a[u] = i < items && p < P1 ? anc[((size_t)b * beam + j) * S + p] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < PRE; ++u) {
+      const int i = base + u * nthr;
+      // an ancestor outside [0, beam) never becomes an address
+      if (i < items) srow[i] = a[u] >= 0 && a[u] < beam ? b * beam + a[u] : -1;
+    }
+  }
+
+  const int j = tid / GROUP, sub = tid % GROUP;
+  const int jr = min(j, beam - 1);  // a padding group mirrors the last hypothesis
+  float qf[8];
+  {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(
+        q + (((size_t)b * beam + jr) * H + h) * DH + sub * 8));
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack2<T>(ws[i]);
+      qf[2 * i] = f.x;
+      qf[2 * i + 1] = f.y;
+    }
+  }
+  __syncthreads();  // srow complete
+
+  struct Tile {
+    uint4 k[ANC_TILE], v[ANC_TILE];
+    int row[ANC_TILE];  // source cache row, -1 (no key) or -2 (past the split)
+  };
+  auto fetch = [&](int t, Tile& x) {
+#pragma unroll
+    for (int i = 0; i < ANC_TILE; ++i) {
+      const int p = t * ANC_TILE + i;
+      const int r = p < P1 ? srow[jr * span + p - P0] : -1;
+      const size_t off = (((size_t)max(r, 0) * H + h) * S + p) * DH + sub * 8;
+      x.row[i] = p < P1 ? r : -2;
+      x.k[i] = ld16(k + off, r >= 0);
+      x.v[i] = ld16(v + off, r >= 0);
+    }
+  };
+
+  float m = -INFINITY, l = 0.f, o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = 0.f;
+  Tile cur, nxt;
+  fetch(t0, cur);
+  for (int t = t0; t < t1; ++t) {
+    if (t + 1 < t1) fetch(t + 1, nxt);
+    float s[ANC_TILE];
+    float tm = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < ANC_TILE; ++i) {
+      const uint32_t ws[4] = {cur.k[i].x, cur.k[i].y, cur.k[i].z, cur.k[i].w};
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float2 f = unpack2<T>(ws[c]);
+        acc = fmaf(qf[2 * c], f.x, acc);
+        acc = fmaf(qf[2 * c + 1], f.y, acc);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      s[i] = cur.row[i] == -2 ? -INFINITY : (cur.row[i] >= 0 ? acc : NEG_INF);
+      tm = fmaxf(tm, s[i]);
+    }
+    const float mn = fmaxf(m, tm);  // finite: every tile has a position < n
+    const float alpha = __expf(m - mn);
+    m = mn;
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) o[d] *= alpha;
+#pragma unroll
+    for (int i = 0; i < ANC_TILE; ++i) {  // rows not read are zeros
+      const float w = __expf(s[i] - m);
+      l += w;
+      const uint32_t ws[4] = {cur.v[i].x, cur.v[i].y, cur.v[i].z, cur.v[i].w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float2 f = unpack2<T>(ws[c]);
+        o[2 * c] = fmaf(w, f.x, o[2 * c]);
+        o[2 * c + 1] = fmaf(w, f.y, o[2 * c + 1]);
+      }
+    }
+    cur = nxt;
+  }
+
+  const Sender snd{&inbox, cs, rank, (beam + cs - 1) / cs};
+  cluster_wait();  // every block of the cluster has started
+  if (j < beam) {
+    Inbox* box = snd.box(j);
+    const int sl = snd.slot(j);
+    if (sub == 0) {
+      box->m[sl] = m;
+      box->l[sl] = l;
+    }
+    float4* po = reinterpret_cast<float4*>(&box->o[sl][sub * 8]);
+    po[0] = make_float4(o[0], o[1], o[2], o[3]);
+    po[1] = make_float4(o[4], o[5], o[6], o[7]);
+  }
+  combine_own<T>(snd, beam, out, b, beam, H, h);
+}
+
+}  // namespace split
+
 // dtype codes shared with the Python wrapper
 enum DType { F32 = 0, BF16 = 1, F16 = 2 };
 
@@ -320,6 +818,63 @@ cudaError_t launch_cross(const void* q, const void* kT, const void* v, const voi
   return cudaGetLastError();
 }
 
+// A launch of `blocks` blocks in clusters of `cs` along x.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int blocks, int cs, int threads, size_t smem, cudaStream_t st) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename T>
+cudaError_t launch_anc_split(const void* q, const void* k, const void* v, const void* anc,
+                             void* out, int BB, int H, int S, int beam, int idx,
+                             cudaStream_t st) {
+  using namespace split;
+  const int n = idx + 1;
+  const int tiles = (n + ANC_TILE - 1) / ANC_TILE;
+  const int cs = tiles < MAX_SPLIT ? tiles : MAX_SPLIT;
+  const int span = (tiles + cs - 1) / cs * ANC_TILE;
+  const int threads = GROUP * ((beam + 3) / 4 * 4);  // whole warps
+  const size_t smem = (size_t)beam * span * sizeof(int);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(anc_split_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch L(BB / beam * H * cs, cs, threads, smem, st);
+  e = cudaLaunchKernelEx(&L.cfg, anc_split_kernel<T>, (const T*)q, (const T*)k, (const T*)v,
+                         (const int32_t*)anc, (T*)out, H, S, beam, n, tiles, span);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_cross_split(const void* q, const void* kT, const void* v,
+                               const void* bias, void* out, int B, int H, int S, int beam,
+                               cudaStream_t st) {
+  using namespace split;
+  const int tiles = (S + CROSS_TILE - 1) / CROSS_TILE;
+  const int cs = tiles < MAX_SPLIT ? tiles : MAX_SPLIT;
+  ClusterLaunch L(B * H * cs, cs, 32, 0, st);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&L.cfg, cross_split_kernel<T>, (const T*)q, (const T*)kT,
+                         (const T*)v, (const float*)bias, (T*)out, H, S, beam, tiles);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+constexpr int ERR_VARIANT = 10001;  // anc/cross: split asked for fp32, or simt for bf16/fp16
+constexpr int ERR_ALIGN = 10002;    // a split kernel's tensor not 16-byte aligned
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 }  // namespace
 
 extern "C" {
@@ -328,6 +883,9 @@ int stac_decode_head_dim() { return DH; }
 int stac_decode_max_beam() { return MAX_BEAM; }
 
 const char* stac_cuda_error_string(int code) {
+  if (code == ERR_VARIANT)
+    return "anc and cross attention run split for bf16 and fp16, simt for fp32";
+  if (code == ERR_ALIGN) return "the split kernels need 16-byte aligned tensors";
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -342,30 +900,36 @@ int stac_decode_self_attention(const void* q, const void* kT, const void* v, voi
   return (int)cudaErrorInvalidValue;
 }
 
+// split != 0 launches the split kernel (bf16 and fp16), split == 0 the
+// two-pass one (fp32); any other pairing is ERR_VARIANT.
 int stac_decode_self_attention_anc(const void* q, const void* k, const void* v,
                                    const void* anc, void* out, int BB, int H, int S,
-                                   int beam, int idx, int dtype, void* stream) {
+                                   int beam, int idx, int dtype, int split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case F32: return launch_anc<float>(q, k, v, anc, out, BB, H, S, beam, idx, st);
-    case BF16:
-      return launch_anc<__nv_bfloat16>(q, k, v, anc, out, BB, H, S, beam, idx, st);
-    case F16: return launch_anc<__half>(q, k, v, anc, out, BB, H, S, beam, idx, st);
+  if (!split) {
+    if (dtype != F32) return ERR_VARIANT;
+    return launch_anc<float>(q, k, v, anc, out, BB, H, S, beam, idx, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (dtype != BF16 && dtype != F16) return ERR_VARIANT;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v)) return ERR_ALIGN;
+  return dtype == BF16
+             ? launch_anc_split<__nv_bfloat16>(q, k, v, anc, out, BB, H, S, beam, idx, st)
+             : launch_anc_split<__half>(q, k, v, anc, out, BB, H, S, beam, idx, st);
 }
 
 int stac_decode_cross_attention(const void* q, const void* kT, const void* v,
                                 const void* bias, void* out, int B, int H, int S,
-                                int beam, int dtype, void* stream) {
+                                int beam, int dtype, int split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case F32: return launch_cross<float>(q, kT, v, bias, out, B, H, S, beam, st);
-    case BF16:
-      return launch_cross<__nv_bfloat16>(q, kT, v, bias, out, B, H, S, beam, st);
-    case F16: return launch_cross<__half>(q, kT, v, bias, out, B, H, S, beam, st);
+  if (!split) {
+    if (dtype != F32) return ERR_VARIANT;
+    return launch_cross<float>(q, kT, v, bias, out, B, H, S, beam, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (dtype != BF16 && dtype != F16) return ERR_VARIANT;
+  if (!aligned16(kT) || !aligned16(v)) return ERR_ALIGN;
+  return dtype == BF16
+             ? launch_cross_split<__nv_bfloat16>(q, kT, v, bias, out, B, H, S, beam, st)
+             : launch_cross_split<__half>(q, kT, v, bias, out, B, H, S, beam, st);
 }
 
 }  // extern "C"

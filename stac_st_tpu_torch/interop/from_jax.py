@@ -13,7 +13,10 @@ changes:
 * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``.
 
 Strict: a key of the tree that nothing consumed, or a port parameter that
-nothing set, raises.
+nothing set, raises. A transformer tree carries neither its head count nor
+its layer-norm placement (a post-LN and a pre-LN model have the same keys),
+so loading one also takes the JAX module's settings and refuses any that
+the port cannot run (``PORT_SETTINGS``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,19 @@ from ..models import ConvolutionFrontEnd, LinearHead, TransformerMultiTask
 from ..models.transformer import MultiHeadAttention
 from ..ops.cmvn import CmvnState
 
-__all__ = ["load_jax_params", "cmvn_from_jax"]
+__all__ = ["load_jax_params", "cmvn_from_jax", "PORT_SETTINGS"]
+
+# The JAX ``TransformerMultiTask`` settings the port's model computes; any
+# other value loads the same keys into another network. ``nhead`` must
+# also equal the port module's own.
+PORT_SETTINGS = {
+    "normalize_before": True,
+    "causal": False,
+    "encoder_module": "transformer",
+    "attention_type": "regularMHA",
+    "positional_encoding": "fixed_abs_sine",
+}
+_MISSING = object()
 
 
 def _flatten(node: Any, prefix: str, out: Dict[str, Any]) -> None:
@@ -88,9 +103,18 @@ def load_jax_params(params: Mapping,
                     cnn: Optional[ConvolutionFrontEnd] = None,
                     transformer: Optional[TransformerMultiTask] = None,
                     seq_lin: Optional[LinearHead] = None,
-                    ctc_lin: Optional[LinearHead] = None) -> None:
+                    ctc_lin: Optional[LinearHead] = None,
+                    settings: Any = None) -> None:
     """Copy the JAX engine's parameter tree into the given port modules.
-    Every key of ``params`` must land in one of them."""
+    Every key of ``params`` must land in one of them.
+
+    ``settings`` describes the JAX transformer the tree came from: the flax
+    ``TransformerMultiTask`` itself (read by attribute) or a mapping with
+    the same field names. It is required with ``transformer``; a field that
+    differs from ``PORT_SETTINGS``, or an ``nhead`` other than the port
+    module's, raises ``ValueError`` naming the field."""
+    if transformer is not None:
+        check_settings(settings, transformer)
     flat: Dict[str, Any] = {}
     _flatten(params, "", flat)
     ld = _Loader(flat)
@@ -112,6 +136,24 @@ def load_jax_params(params: Mapping,
              if id(p) not in ld.assigned]
     if unset:
         raise KeyError(f"port parameters left unset: {unset}")
+
+
+def check_settings(settings: Any, transformer: TransformerMultiTask) -> None:
+    """Raise unless the JAX transformer described by ``settings`` is one
+    the port's ``transformer`` computes."""
+    if settings is None:
+        raise ValueError("load_jax_params: a transformer tree needs the JAX "
+                         "module's settings (settings=...)")
+    want = {**PORT_SETTINGS, "nhead": transformer.nhead}
+    get = (settings.get if isinstance(settings, Mapping)
+           else lambda f, d: getattr(settings, f, d))
+    for field, value in want.items():
+        got = get(field, _MISSING)
+        if got is _MISSING:
+            raise ValueError(f"JAX transformer settings lack {field!r}")
+        if got != value:
+            raise ValueError(f"JAX transformer {field}={got!r}: the port "
+                             f"runs only {field}={value!r}")
 
 
 def _load_cnn(ld: _Loader, cnn: ConvolutionFrontEnd) -> None:

@@ -1,9 +1,9 @@
 """Single-step decode attention: CUDA kernels and their plain versions.
 
-Port of ``stac_st_tpu/ops/pallas/decode_attention.py``. Three kernels, one
-design (``csrc/decode_attention.cu``): per (query row, head),
-softmax(q · Kᵀ + mask) · V with a pre-scaled query, fp32 accumulation and
-the output in the query's dtype.
+Port of ``stac_st_tpu/ops/pallas/decode_attention.py``. Per (query row,
+head), softmax(q · Kᵀ + mask) · V with a pre-scaled query, fp32
+accumulation and the output in the query's dtype
+(``csrc/decode_attention.cu``).
 
 Each wrapper replaces one TPU kernel (``KERNELS`` below names it):
 
@@ -13,12 +13,20 @@ Each wrapper replaces one TPU kernel (``KERNELS`` below names it):
 
 All three are bound by device memory: one step reads each cached key and
 value once for 4·Dh flops per (query, position), about one flop per byte
-in bf16. The design reads each needed byte once (see the source note).
+in bf16. The anc and cross wrappers each have two CUDA kernels, chosen by
+:func:`decode_variant` (the only copy of the rule) from the dtype alone:
+``split`` for bf16 and fp16 (each (utterance, head) split over positions
+into a thread-block cluster, one pass, the splits combined in the launch)
+and ``simt`` for fp32 (one block per (row, head), two passes), which
+``card_vs_cpu`` holds to the CPU at 1e-3. ``decode_self_attention`` has
+one kernel.
 
 A wrapper given CPU tensors returns its ``*_ref`` plain version. Given CUDA
 tensors it checks dtype, shape and contiguity, launches the kernel on the
-current stream, raises if the launch failed, and counts the launch. There
-is no fallback from a CUDA tensor to the plain version.
+current stream, raises if the launch failed, and counts the launch under
+``<name>`` (anc and cross also under ``<name>/<variant>``, the kernel it
+asked the library to launch). There is no fallback from a CUDA tensor to
+the plain version, nor from one kernel to the other.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ __all__ = [
     "decode_self_attention", "decode_self_attention_ref",
     "decode_self_attention_anc", "decode_self_attention_anc_ref",
     "decode_cross_attention", "decode_cross_attention_ref",
-    "KERNELS",
+    "decode_variant", "KERNELS",
 ]
 
 NEG_INF = -1e9
@@ -113,9 +121,9 @@ def _lib():
         lib.stac_decode_self_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I,
                                                    _I, _I, _P]
         lib.stac_decode_self_attention_anc.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.stac_decode_cross_attention.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         for fn in (lib.stac_decode_self_attention,
                    lib.stac_decode_self_attention_anc,
                    lib.stac_decode_cross_attention,
@@ -159,6 +167,12 @@ def _check(lib, name: str, q, tensors, shapes):
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
+def _check_beam(lib, name: str, beam: int) -> None:
+    if not 1 <= beam <= lib.stac_decode_max_beam():
+        raise ValueError(f"{name}: beam {beam} outside "
+                         f"[1, {lib.stac_decode_max_beam()}]")
+
+
 def _raise_on(lib, name: str, rc: int) -> None:
     if rc != 0:
         msg = lib.stac_cuda_error_string(rc).decode()
@@ -167,6 +181,24 @@ def _raise_on(lib, name: str, rc: int) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def decode_variant(dtype: torch.dtype) -> str:
+    """The kernel that serves anc and cross attention for ``dtype`` on the
+    card: ``split`` (position splits in a cluster) for bf16 and fp16,
+    ``simt`` (the two-pass kernels) for fp32."""
+    return "split" if dtype in (torch.bfloat16, torch.float16) else "simt"
+
+
+def _launch(lib, name: str, fn, dtype: torch.dtype, *args) -> None:
+    """Call library entry point ``fn`` with ``args``, the dtype code and
+    the variant of :func:`decode_variant`; raise if it failed, else count
+    the launch."""
+    variant = decode_variant(dtype)
+    _raise_on(lib, name, fn(*args, _DTYPES[dtype], int(variant == "split"),
+                            _stream()))
+    count_launch(name)
+    count_launch(f"{name}/{variant}")
 
 
 def decode_self_attention(q, kT, v, idx: int):
@@ -198,6 +230,7 @@ def decode_self_attention_anc(q, k, v, anc, idx: int, beam: int):
     lib = _lib()
     BB, H, Dh = q.shape
     S = k.shape[2]
+    _check_beam(lib, name, beam)
     if BB % beam:
         raise ValueError(f"{name}: {BB} rows not a multiple of beam {beam}")
     _check(lib, name, q, {"q": q, "k": k, "v": v, "anc": anc},
@@ -206,11 +239,9 @@ def decode_self_attention_anc(q, k, v, anc, idx: int, beam: int):
     if not 0 <= idx < S:
         raise ValueError(f"{name}: idx {idx} outside [0, {S})")
     out = torch.empty_like(q)
-    rc = lib.stac_decode_self_attention_anc(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), anc.data_ptr(),
-        out.data_ptr(), BB, H, S, beam, int(idx), _DTYPES[q.dtype], _stream())
-    _raise_on(lib, name, rc)
-    count_launch(name)
+    _launch(lib, name, lib.stac_decode_self_attention_anc, q.dtype,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), anc.data_ptr(),
+            out.data_ptr(), BB, H, S, beam, int(idx))
     return out
 
 
@@ -225,19 +256,15 @@ def decode_cross_attention(q, kT, v, bias: Optional[torch.Tensor],
     B, S = kT.shape[0], kT.shape[-1]
     if BB != B * beam:
         raise ValueError(f"{name}: {BB} query rows != {B} x beam {beam}")
-    if not 1 <= beam <= lib.stac_decode_max_beam():
-        raise ValueError(f"{name}: beam {beam} outside "
-                         f"[1, {lib.stac_decode_max_beam()}]")
+    _check_beam(lib, name, beam)
     tensors = {"q": q, "kT": kT, "v": v}
     shapes = {"q": (BB, H, Dh), "kT": (B, H, Dh, S), "v": (B, H, S, Dh)}
     if bias is not None:
         tensors["bias"], shapes["bias"] = bias, (B, S)
     _check(lib, name, q, tensors, shapes)
     out = torch.empty_like(q)
-    rc = lib.stac_decode_cross_attention(
-        q.data_ptr(), kT.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        B, H, S, beam, _DTYPES[q.dtype], _stream())
-    _raise_on(lib, name, rc)
-    count_launch(name)
+    _launch(lib, name, lib.stac_decode_cross_attention, q.dtype,
+            q.data_ptr(), kT.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            B, H, S, beam)
     return out

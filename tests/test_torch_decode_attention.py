@@ -8,8 +8,15 @@ with a non-identity ancestor table.
 On a card (marked ``cuda``, skipped without one): each CUDA kernel against
 its plain version on the same inputs, in fp32 (TF32 off; atol 5e-5: the
 kernel sums up to 251 products in another order, ~n·2^-24) and bf16 (atol
-1e-2: both store in bf16, whose step is 2^-7 for |x| in [1, 2)). The card tests need no JAX,
-so they also run where JAX is absent:
+1e-2: both store in bf16, whose step is 2^-7 for |x| in [1, 2)); the anc
+and cross ``split`` kernels (bf16 and fp16) also at beam 1, 4, 10 and 16,
+over 1, 63, 64, 65 and 195 positions and S not a multiple of their tiles
+(cross up to 751 keys, several tiles a block), with biases that mask whole
+splits or a whole row, an out-of-range ancestor, the dual search's B32,
+and two launches bitwise equal. fp16 is held to the bf16 tolerance (1e-2:
+its outputs differ from the plain version's by the store's rounding and,
+in cross, P's as two fp16 terms, both finer than bf16's). The card tests
+need no JAX, so they also run where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_decode_attention.py
 """
@@ -119,6 +126,31 @@ def test_cross_ref_matches_pallas(rng, beam, pad):
                                rtol=0)
 
 
+def test_decode_variant_rule(monkeypatch):
+    """One rule picks the anc and cross kernel, from the dtype alone; the
+    launcher hands it to the library and counts the launch by variant
+    (driven here with a stand-in for the library)."""
+    assert K.decode_variant(torch.bfloat16) == "split"
+    assert K.decode_variant(torch.float16) == "split"
+    assert K.decode_variant(torch.float32) == "simt"
+    monkeypatch.setattr(K, "_stream", lambda: 0)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    kernels.reset_launches()
+    for dt, split in ((torch.bfloat16, 1), (torch.float16, 1),
+                      (torch.float32, 0)):
+        K._launch(None, "decode_cross_attention", entry, dt, 7)
+        assert calls[-1] == (7, K._DTYPES[dt], split, 0)
+    assert kernels.launches == {"decode_cross_attention": 3,
+                                "decode_cross_attention/split": 2,
+                                "decode_cross_attention/simt": 1}
+    kernels.reset_launches()
+
+
 def test_wrappers_take_the_plain_version_on_cpu_tensors(rng):
     """CPU tensors go to the plain version, and that is no kernel launch."""
     kernels.reset_launches()
@@ -189,3 +221,118 @@ def test_cross_kernel_matches_plain_on_card(card, rng, dtype):
         ref = K.decode_cross_attention_ref(q, kT, v, b, 10)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=0)
+
+
+# ------------------------------------------- split kernels (bf16 / fp16)
+_SPLIT = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+_SPLIT_TOL = 1e-2
+
+
+def _launched(name, fn):
+    """fn's result, and the launches it added under name and its split
+    variant (the kernel must have gone through ``split``)."""
+    before = dict(kernels.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    added = {k: n - before.get(k, 0) for k, n in kernels.launches.items()
+             if n != before.get(k, 0)}
+    assert added == {name: 1, f"{name}/split": 1}, added
+    return out
+
+
+def _close(got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=_SPLIT_TOL,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_SPLIT))
+@pytest.mark.parametrize("beam", [1, 4, 10, 16])
+def test_split_cross_kernel_matches_plain_on_card(card, rng, dtype, beam):
+    dt = _SPLIT[dtype]
+    for S in (1, 63, 64, 65, 195, 251, 300, 751):  # 751: 3 tiles a block
+        q, kT, v, _ = _cross_inputs(rng, B=3, beam=beam, S=S, pad=False)
+        q, kT, v = _on(card, dt, q, kT, v)
+        ar = torch.arange(S, device=card)[None, :]
+        biases = {
+            "none": None,
+            # keys 0..39 only: every 32-key split past the second is masked
+            "splits": torch.where(ar < torch.tensor([[S], [40], [7]],
+                                                    device=card), 0.0, -1e9),
+            # row 1 has no key at all: the plain version's uniform softmax
+            "row": torch.where(ar < torch.tensor([[S], [0], [S // 2 + 1]],
+                                                 device=card), 0.0, -1e9),
+        }
+        for label, bias in biases.items():
+            bias = None if bias is None else bias.float().contiguous()
+            out = _launched("decode_cross_attention", lambda: (
+                K.decode_cross_attention(q, kT, v, bias, beam)))
+            ref = K.decode_cross_attention_ref(q, kT, v, bias, beam)
+            assert torch.isfinite(out).all(), (S, label)
+            _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_SPLIT))
+@pytest.mark.parametrize("beam", [1, 4, 10, 16])
+def test_split_anc_kernel_matches_plain_on_card(card, rng, dtype, beam):
+    dt = _SPLIT[dtype]
+    S = 200  # a cache not a multiple of the 8-position tile
+    q, k, v, anc = _anc_inputs(rng, B=3, beam=beam, S=S)
+    q, k, v = _on(card, dt, q, k, v)
+    anc = torch.from_numpy(anc).to(card)
+    for n in (1, 63, 64, 65, 195, S):
+        idx = n - 1
+        out = _launched("decode_self_attention_anc", lambda: (
+            K.decode_self_attention_anc(q, k, v, anc, idx, beam)))
+        _close(out, K.decode_self_attention_anc_ref(q, k, v, anc, idx, beam))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_SPLIT))
+def test_split_anc_out_of_range_ancestor_on_card(card, rng, dtype):
+    """An ancestor outside [0, beam) selects no key: at the last position
+    that is attention over positions 0..idx-1."""
+    dt, beam, S, idx = _SPLIT[dtype], 10, 131, 97
+    q, k, v, anc = _anc_inputs(rng, B=2, beam=beam, S=S)
+    q, k, v = _on(card, dt, q, k, v)
+    anc = torch.from_numpy(anc).to(card)
+    bad = anc.clone()
+    bad[0, 3, idx], bad[1, 0, idx], bad[1, 9, idx] = beam, -1, 1 << 30
+    out = _launched("decode_self_attention_anc", lambda: (
+        K.decode_self_attention_anc(q, k, v, bad, idx, beam)))
+    hit = torch.zeros(2 * beam, dtype=torch.bool, device=card)
+    hit[[3, beam, 2 * beam - 1]] = True
+    _close(out[~hit], K.decode_self_attention_anc_ref(q, k, v, anc, idx,
+                                                      beam)[~hit])
+    _close(out[hit], K.decode_self_attention_anc_ref(q, k, v, anc, idx - 1,
+                                                     beam)[hit])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_SPLIT))
+def test_split_kernels_dual_search_shape_and_repeatable_on_card(card, rng,
+                                                                 dtype):
+    """B32 x beam 10 (the dual search tiles the encoder output), 251 frames
+    and a 195-position cache; two launches give the same bits."""
+    dt, B, beam = _SPLIT[dtype], 32, 10
+    lens = rng.integers(1, 252, B)
+    bias = np.where(np.arange(251)[None, :] < lens[:, None], 0.0,
+                    NEG_INF).astype(np.float32)
+    q = _randn(rng, B * beam, 2, 64) / 8.0
+    kT, v = _randn(rng, B, 2, 64, 251), _randn(rng, B, 2, 251, 64)
+    q, kT, v = _on(card, dt, q, kT, v)
+    bias = torch.from_numpy(bias).to(card)
+    cross = [_launched("decode_cross_attention", lambda: (
+        K.decode_cross_attention(q, kT, v, bias, beam))) for _ in range(2)]
+    _close(cross[0], K.decode_cross_attention_ref(q, kT, v, bias, beam))
+    assert torch.equal(cross[0], cross[1])
+    qa, ka, va, anc = _anc_inputs(rng, B=B, beam=beam, S=195)
+    qa, ka, va = _on(card, dt, qa, ka, va)
+    anc = torch.from_numpy(anc).to(card)
+    outs = [_launched("decode_self_attention_anc", lambda: (
+        K.decode_self_attention_anc(qa, ka, va, anc, 194, beam)))
+        for _ in range(2)]
+    _close(outs[0], K.decode_self_attention_anc_ref(qa, ka, va, anc, 194,
+                                                    beam))
+    assert torch.equal(outs[0], outs[1])

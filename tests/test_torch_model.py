@@ -97,7 +97,8 @@ def new_port_modules():
 def build_port_twin(jx):
     """The port's modules, loaded from the JAX params (fp32, CPU)."""
     mods = new_port_modules()
-    load_jax_params(jax.tree_util.tree_map(np.asarray, jx["params"]), **mods)
+    load_jax_params(jax.tree_util.tree_map(np.asarray, jx["params"]), **mods,
+                    settings=jx["transformer"])
     return mods
 
 
@@ -138,12 +139,27 @@ def test_from_jax_covers_every_parameter(pair):
     stray = {**tree, "ctc_lin": {"params": {
         **tree["ctc_lin"]["params"], "stray": np.zeros(3, np.float32)}}}
     with pytest.raises(KeyError, match="not consumed"):
-        load_jax_params(stray, **new_port_modules())
+        load_jax_params(stray, **new_port_modules(),
+                        settings=jx["transformer"])
     # ... and so does a port parameter the tree does not reach
     mods = new_port_modules()
     mods["seq_lin"].extra = torch.nn.Parameter(torch.zeros(2))
     with pytest.raises(KeyError, match="left unset"):
-        load_jax_params(tree, **mods)
+        load_jax_params(tree, **mods, settings=jx["transformer"])
+
+
+@pytest.mark.parametrize("field,value", [
+    ("normalize_before", False), ("causal", True),
+    ("encoder_module", "conformer"), ("attention_type", "RelPosMHAXL"),
+    ("positional_encoding", "fixed_rel"), ("nhead", NHEAD // 2)])
+def test_from_jax_refuses_settings_the_port_cannot_run(pair, field, value):
+    """A tree's keys do not say pre-LN or post-LN, nor the head count: the
+    loader reads the JAX module's settings and names the one it refuses."""
+    jx, _ = pair
+    tree = jax.tree_util.tree_map(np.asarray, jx["params"])
+    with pytest.raises(ValueError, match=field):
+        load_jax_params(tree, **new_port_modules(),
+                        settings=jx["transformer"].clone(**{field: value}))
 
 
 def test_encoder_matches_jax(encoded):

@@ -251,7 +251,8 @@ def _port_modules(jparams=None):
             dropout=0.0),
         seq_lin=P.LinearHead(D, VOCAB), ctc_lin=P.LinearHead(D, VOCAB))
     if jparams is not None:
-        load_jax_params(jax.tree_util.tree_map(np.asarray, jparams), **mods)
+        load_jax_params(jax.tree_util.tree_map(np.asarray, jparams), **mods,
+                        settings=_jax_cfg().transformer)
     return mods
 
 
