@@ -15,21 +15,25 @@ Phases, each printed as one JSON line:
    build/torch_kernels/); ptxas must report no spills for the
    tensor-core kernels (fwd_tc_kernel, four instantiations; dq_tc_kernel
    and dkv_tc_kernel, two each) and for the split decode kernels
-   (cross_split_kernel and anc_split_kernel, two each), whose registers
-   are reported;
+   (self_split_kernel, cross_split_kernel and anc_split_kernel, two
+   each), whose registers are reported;
 2. kernel: each decode-attention kernel against its plain PyTorch version
    at the serving path's shapes (B 16 x 10 s, beam 10: 160 rows, 4 heads of
    64, self cache 3 + 192 positions, 251 encoder frames), in fp32 with TF32
    off and in bf16, with the times of the kernel, the plain version, one
    library call computing the same function (timed here only; the port
-   never calls it), the least time the card could take, the wrapper's
-   host time a call, and the timer's floor (one tiny kernel); cross also
-   with a padding bias that masks whole position splits and one whole
-   row; anc and cross in bf16 go through their "split" kernels (ptxas
-   must report no spills for them), which must give bitwise-equal outputs
-   over two launches and are also timed at a second main-path shape each
-   (anc mid-decode, idx 97 of a 131-position cache segment; cross at the
-   dual search's B32);
+   never calls it: scaled_dot_product_attention on K and V laid out
+   contiguous, built outside the timed call, the fastest of its fused
+   backends that accepts the call, named), the least time the card could
+   take, the wrapper's host time a call, and the timer's floor (one tiny
+   kernel); cross also with a padding bias that masks whole position
+   splits and one whole row; all three in bf16 go through their "split"
+   kernels (ptxas must report no spills for them), which must give
+   bitwise-equal outputs over two launches and are also timed at the
+   other shapes of the main path (self at B16 greedy decoding, 16 rows,
+   idx 194 of the 195-position cache segment and idx 97 of the
+   131-position one; anc mid-decode, idx 97 of 131; cross at the dual
+   search's B32);
 3. train_kernel: the four flash-attention kernels (inference forward,
    training forward, dQ, dK/dV) against their plain versions at the
    training path's shapes (encoder self-attention B32 x 376 frames with
@@ -50,8 +54,9 @@ Phases, each printed as one JSON line:
    transcribe_and_translate and speaker_turns, plus one short beam-1 call;
    the kernels' launch counts are zeroed just before and read just after
    and must be exactly 2 x 1170 anc, 3 x 1170 cross and 1170 self launches
-   (6 decoder layers x 195 steps per search), every bf16 anc and cross
-   launch on its split kernel;
+   (6 decoder layers x 195 steps per search), every bf16 decode launch on
+   its split kernel; --profile also traces one warm beam-1 translate of
+   the 2 utterances (the self kernel's device µs a launch in the loop);
 5. train: the flagship training configuration as bench_train.py builds it
    (dropout 0.1, CTC 0.3, label smoothing 0.1, batchmean, AdamW 1e-3,
    WarmCoolDecay, clip 5.0, bf16 compute, B32 x 15 s, U128, seeded
@@ -67,9 +72,8 @@ Phases, each printed as one JSON line:
    B2 x 2 s, fp32 (TF32 off), dropout 0: loss, gradients and updated
    parameters, card against CPU.
 
-Then the card's name and power limit, a {"kernels": [...]} line (the four
-flash kernels and the anc and cross kernels name the variant their
-main-path launches went through),
+Then the card's name and power limit, a {"kernels": [...]} line (every
+kernel names the variant its main-path launches went through),
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
@@ -145,6 +149,7 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.float32,
                                  device="cuda")
+        self.tiny = torch.empty(16, device="cuda")
 
     def ms(self, fn, n: int = 30) -> float:
         torch = self.torch
@@ -152,7 +157,7 @@ class Timer:
             fn()
         pairs = []
         for _ in range(n):
-            self.flush.zero_()
+            self.flush_l2()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -161,6 +166,13 @@ class Timer:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+
+    def flush_l2(self) -> None:
+        self.flush.zero_()
+
+    def floor_ms(self) -> float:
+        """The timer's floor: one tiny kernel, timed as every call is."""
+        return self.ms(self.tiny.zero_)
 
 
 def host_us(torch, fn, n: int = 40, rounds: int = 5) -> float:
@@ -186,10 +198,62 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
                                        else "operations")
 
 
+# SDPA's fused backends, each tried for the library yardstick
+SDPA_FUSED = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_yardstick(torch, timer, q, k, v, want):
+    """The library time of one attention call: scaled_dot_product_attention
+    of q (..., Lq, Dh) against k, v (..., n, Dh), at scale 1, all three laid
+    out contiguous as its fused backends take them (built by the caller,
+    outside the timed call). Every fused backend that accepts the call is
+    checked against ``want`` (the plain version's output in SDPA's layout;
+    within bf16's step, since a backend may compute in bf16) and timed; the
+    fastest is kept, with its name. The math path is timed only where no
+    fused backend accepts the call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    call = partial(F.scaled_dot_product_attention, q, k, v, scale=1.0)
+    best = None
+    for name in (*SDPA_FUSED, "MATH"):
+        if name == "MATH" and best is not None:
+            break
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            try:
+                out = call()
+                torch.cuda.synchronize()
+            except RuntimeError:  # this backend refuses the call
+                continue
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= TOL["bfloat16"], f"SDPA {name}: err {err}")
+            ms = timer.ms(call)
+        if best is None or ms < best["library_ms"]:
+            best = {"library_ms": ms, "library_backend": name.lower()}
+    return best
+
+
+def _self_lib(q, k, v, idx, want):
+    """SDPA's inputs for self attention over positions 0..idx, and the
+    plain version's output in its layout."""
+    n = idx + 1
+    return (q[:, :, None], k[..., :n].transpose(-1, -2).contiguous(),
+            v[:, :, :n].contiguous(), want[:, :, None])
+
+
+def _cross_lib(q, kT, v, beam, want):
+    """SDPA's inputs for the beam queries of each utterance against its
+    K/V, and the plain version's output in its layout."""
+    BB, H, Dh = q.shape
+
+    def lay(t):
+        return t.reshape(BB // beam, beam, H, Dh).transpose(1, 2).contiguous()
+
+    return lay(q), kT.transpose(-1, -2).contiguous(), v, lay(want)
+
+
 def kernel_phase(torch, K, timer):
     """Each kernel vs its plain version at the serving shapes."""
-    import torch.nn.functional as F
-
     from stac_st_tpu_torch.ops import kernels
 
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -200,7 +264,6 @@ def kernel_phase(torch, K, timer):
     BB = B * BEAM
     idx = S_SELF - 1
     n = idx + 1
-    floor_buf = torch.empty(16, device="cuda")
     anc_cpu = torch.randint(0, BEAM, (B, BEAM, S_SELF), generator=g,
                             dtype=torch.int32)
     # the positions the ancestor table makes the anc kernel read
@@ -227,9 +290,7 @@ def kernel_phase(torch, K, timer):
             if key == "self":
                 run = partial(K.decode_self_attention, q, k, v, idx)
                 plain = partial(K.decode_self_attention_ref, q, k, v, idx)
-                lib = partial(F.scaled_dot_product_attention, q[:, :, None],
-                              k[..., :n].transpose(-1, -2), v[:, :, :n],
-                              scale=1.0)
+                lib = partial(_self_lib, q, k, v, idx)
                 nbytes = (2 * BB * H * DH + 2 * BB * H * n * DH) * es
                 flops = 4.0 * BB * H * n * DH
             elif key == "anc":
@@ -245,9 +306,7 @@ def kernel_phase(torch, K, timer):
                 run = partial(K.decode_cross_attention, q, k, v, None, BEAM)
                 plain = partial(K.decode_cross_attention_ref, q, k, v, None,
                                 BEAM)
-                lib = partial(F.scaled_dot_product_attention,
-                              q.reshape(B, BEAM, H, DH).transpose(1, 2),
-                              k.transpose(-1, -2), v, scale=1.0)
+                lib = partial(_cross_lib, q, k, v, BEAM)
                 nbytes = (2 * BB * H * DH + 2 * B * H * S_ENC * DH) * es
                 flops = 4.0 * BB * H * S_ENC * DH
                 # the padding-bias variant is checked too (not timed): key
@@ -265,17 +324,18 @@ def kernel_phase(torch, K, timer):
             before = dict(kernels.launches)
             out = run()
             torch.cuda.synchronize()
-            if key != "self":  # the kernel the dispatch rule names
-                want = SPLIT if dtype == "bfloat16" else "simt"
-                got = {kn: c - before.get(kn, 0)
-                       for kn, c in kernels.launches.items()}
-                check(got.get(f"{name}/{want}") == 1, f"{name} {dtype}: "
-                      f"launched {got}, want {want}")
-            err = (out.float() - plain().float()).abs().max().item()
+            # the kernel the dispatch rule names
+            want = SPLIT if dtype == "bfloat16" else "simt"
+            got = {kn: c - before.get(kn, 0)
+                   for kn, c in kernels.launches.items()}
+            check(got.get(f"{name}/{want}") == 1, f"{name} {dtype}: "
+                  f"launched {got}, want {want}")
+            want_out = plain()
+            err = (out.float() - want_out.float()).abs().max().item()
             check(bool(torch.isfinite(out).all()), f"{name} {dtype} finite")
             check(err <= TOL[dtype],
                   f"{name} {dtype}: max abs err {err} > {TOL[dtype]}")
-            if key != "self" and dtype == "bfloat16":
+            if dtype == "bfloat16":
                 # split kernels: the splits are combined in rank order, so
                 # two launches give the same bits
                 again = run()
@@ -284,17 +344,22 @@ def kernel_phase(torch, K, timer):
                 rec["bitwise_repeatable"] = True
             b_ms, b_by = bound_ms(nbytes, flops, dtype)
             rec[dtype] = {
-                "max_abs_err": err, "tol": TOL[dtype],
+                "max_abs_err": err, "tol": TOL[dtype], "variant": want,
                 "ms": timer.ms(run), "plain_ms": timer.ms(plain),
-                "library_ms": None if lib is None else timer.ms(lib),
-                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                 # the wrapper's own cost a call: checks, ctypes, the launch
-                # (a cluster launch for split, <<<>>> for simt and self)
+                # (a cluster launch for split, <<<>>> for simt)
                 "host_us": host_us(torch, run),
             }
-        # the timer's floor: one tiny kernel, timed as every call above is
-        rec["timer_floor_ms"] = timer.ms(partial(floor_buf.zero_))
-        if key == "anc":
+            if lib is not None:
+                rec[dtype].update(sdpa_yardstick(torch, timer,
+                                                 *lib(want_out)))
+        rec["timer_floor_ms"] = timer.floor_ms()
+        if key == "self":
+            for S, i in ((S_SELF, S_SELF - 1), (131, 97)):
+                rec[f"bfloat16_rows16_idx{i}"] = _self_greedy(torch, K, timer,
+                                                               g, S, i)
+        elif key == "anc":
             rec["bfloat16_idx97"] = _anc_mid(torch, K, timer, g)
         elif key == "cross":
             rec["bfloat16_b32"] = _cross_b32(torch, K, timer, g)
@@ -303,18 +368,50 @@ def kernel_phase(torch, K, timer):
     return rows
 
 
-def _timed_case(torch, K, timer, name, run, plain, nbytes, flops, lib=None):
-    """A bf16 case of a split kernel: error, repeatability, times."""
+def _timed_case(torch, timer, name, label, run, plain, nbytes, flops,
+                lib=None):
+    """A bf16 case of kernel ``name``: error, the split variant launched,
+    repeatability, times, the timer's floor; ``lib`` makes the SDPA
+    yardstick from the plain version's output, or is None."""
+    from stac_st_tpu_torch.ops import kernels
+
+    before = dict(kernels.launches)
     out = run()
     torch.cuda.synchronize()
-    err = (out.float() - plain().float()).abs().max().item()
-    check(err <= TOL["bfloat16"], f"{name}: max abs err {err}")
-    check(torch.equal(out, run()), f"{name} not repeatable")
+    added = {kn: c - before.get(kn, 0) for kn, c in kernels.launches.items()
+             if c != before.get(kn, 0)}
+    check(added == {name: 1, f"{name}/{SPLIT}": 1},
+          f"{label}: launched {added}")
+    want = plain()
+    err = (out.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(out).all()), f"{label} finite")
+    check(err <= TOL["bfloat16"], f"{label}: max abs err {err}")
+    check(torch.equal(out, run()), f"{label} not repeatable")
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    return {"max_abs_err": err, "tol": TOL["bfloat16"], "ms": timer.ms(run),
-            "plain_ms": timer.ms(plain),
-            "library_ms": None if lib is None else timer.ms(lib),
-            "bound_ms": b_ms, "bound_by": b_by}
+    rec = {"max_abs_err": err, "tol": TOL["bfloat16"], "variant": SPLIT,
+           "bitwise_repeatable": True, "ms": timer.ms(run),
+           "plain_ms": timer.ms(plain), "library_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "timer_floor_ms": timer.floor_ms()}
+    if lib is not None:
+        rec.update(sdpa_yardstick(torch, timer, *lib(want)))
+    return rec
+
+
+def _self_greedy(torch, K, timer, g, S, idx):
+    """self at a shape greedy serving gives it: B16 beam 1, 16 rows, at
+    position idx of an S-position cache segment."""
+    n = idx + 1
+    bf = torch.bfloat16
+    q, kT, v = ((torch.randn(shape, generator=g) * sc).to("cuda", bf)
+                for shape, sc in (((B, H, DH), 1 / 8), ((B, H, DH, S), 1),
+                                  ((B, H, S, DH), 1)))
+    return _timed_case(
+        torch, timer, "decode_self_attention", f"self 16 rows idx {idx}",
+        partial(K.decode_self_attention, q, kT, v, idx),
+        partial(K.decode_self_attention_ref, q, kT, v, idx),
+        (2 * B * H * DH + 2 * B * H * n * DH) * 2, 4.0 * B * H * n * DH,
+        lib=partial(_self_lib, q, kT, v, idx))
 
 
 def _anc_mid(torch, K, timer, g):
@@ -333,7 +430,7 @@ def _anc_mid(torch, K, timer, g):
     anc = anc.to("cuda")
     nbytes = (2 * BB * H * DH + 2 * uniq * H * DH) * 2 + B * BEAM * n * 4
     return _timed_case(
-        torch, K, timer, "anc idx 97",
+        torch, timer, "decode_self_attention_anc", "anc idx 97",
         partial(K.decode_self_attention_anc, q, k, v, anc, idx, BEAM),
         partial(K.decode_self_attention_anc_ref, q, k, v, anc, idx, BEAM),
         nbytes, 4.0 * BB * H * n * DH)
@@ -342,8 +439,6 @@ def _anc_mid(torch, K, timer, g):
 def _cross_b32(torch, K, timer, g):
     """cross at the dual search's shape: call_multi tiles the encoder
     output, so B 32 utterance rows of 251 frames."""
-    import torch.nn.functional as F
-
     B2 = 2 * B
     bf = torch.bfloat16
     q, kT, v = ((torch.randn(shape, generator=g) * sc).to("cuda", bf)
@@ -352,13 +447,11 @@ def _cross_b32(torch, K, timer, g):
                                   ((B2, H, S_ENC, DH), 1)))
     nbytes = (2 * B2 * BEAM * H * DH + 2 * B2 * H * S_ENC * DH) * 2
     return _timed_case(
-        torch, K, timer, "cross B32",
+        torch, timer, "decode_cross_attention", "cross B32",
         partial(K.decode_cross_attention, q, kT, v, None, BEAM),
         partial(K.decode_cross_attention_ref, q, kT, v, None, BEAM),
         nbytes, 4.0 * B2 * BEAM * H * S_ENC * DH,
-        lib=partial(F.scaled_dot_product_attention,
-                    q.reshape(B2, BEAM, H, DH).transpose(1, 2),
-                    kT.transpose(-1, -2), v, scale=1.0))
+        lib=partial(_cross_lib, q, kT, v, BEAM))
 
 
 def _flash_bounds(name, B, Tq, Tk, es):
@@ -377,9 +470,11 @@ def _flash_bounds(name, B, Tq, Tk, es):
 
 
 SPLIT = "split"  # the decode kernels' variant for bf16 / fp16
-DECODE_SPLIT = ("decode_self_attention_anc", "decode_cross_attention")
+DECODE_SPLIT = ("decode_self_attention", "decode_self_attention_anc",
+                "decode_cross_attention")
 # the split decode kernels and their instantiations (ptxas: no spills)
-SPLIT_KERNELS = {"cross_split_kernel": 2, "anc_split_kernel": 2}
+SPLIT_KERNELS = {"self_split_kernel": 2, "cross_split_kernel": 2,
+                 "anc_split_kernel": 2}
 FLASH = ("flash_attention", "flash_attention_train_fwd",
          "flash_attention_train_dq", "flash_attention_train_dkv")
 TC = "wgmma"     # the tensor-core kernels' variant (bf16 / fp16, Dh 64)
@@ -630,16 +725,27 @@ def engine(mods, device, **kw):
                     device=device, **kw)
 
 
-def main_path_phase(torch, kernels, profile: bool):
+def serving_wavs():
+    """B PCM16 inputs of SECONDS each, seeded noise."""
     rng = np.random.default_rng(0)
-    wavs = [(rng.standard_normal(int(SECONDS * SR)) * 3000)
+    return [(rng.standard_normal(int(SECONDS * SR)) * 3000)
             .clip(-32768, 32767).astype(np.int16) for _ in range(B)]
+
+
+def beam1_engine(mods):
+    """Greedy serving at the main path's settings: bf16, at most 192
+    tokens, PCM16 transfer."""
+    return engine(mods, "cuda", bf16=True, beam_size=1,
+                  max_decode_tokens=192, transfer_dtype="int16")
+
+
+def main_path_phase(torch, kernels, profile: bool):
+    wavs = serving_wavs()
     audio_s = B * SECONDS
     mods = flagship(0)
     eng = engine(mods, "cuda", bf16=True, beam_size=BEAM,
                  max_decode_tokens=192, transfer_dtype="int16")
-    eng1 = engine(mods, "cuda", bf16=True, beam_size=1,
-                  max_decode_tokens=192, transfer_dtype="int16")
+    eng1 = beam1_engine(mods)
     rec = {"phase": "main_path", "batch": B, "seconds": SECONDS,
            "beam": BEAM}
     kernels.reset_launches()
@@ -664,8 +770,8 @@ def main_path_phase(torch, kernels, profile: bool):
     check(len(st1) == 2 and all(st1), "beam-1 texts")
     # 6 decoder layers x (3 prompt + 192) steps per search: anc in translate
     # and the dual search, cross in those and the beam-1 call, self in the
-    # beam-1 call only; the serving dtype is bf16, so every anc and cross
-    # launch is a split kernel's
+    # beam-1 call only; the serving dtype is bf16, so every decode launch is
+    # a split kernel's
     per_search = 6 * S_SELF
     want = {"decode_self_attention": per_search,
             "decode_self_attention_anc": 2 * per_search,
@@ -695,17 +801,41 @@ def main_path_phase(torch, kernels, profile: bool):
     rec["translate_warm_s"] = t6 - t5
     rec["translate_warm_rtfx"] = audio_s / (t6 - t5)
     if profile:
-        rec["profile"] = profile_call(torch, lambda: eng.translate(wavs),
-                                      t6 - t5, "translate")
+        rec["profile"] = profile_call(
+            torch, lambda: eng.translate(wavs), t6 - t5, "translate",
+            watch=("anc_split_kernel", "cross_split_kernel"))
+        rec["profile_beam1"] = profile_beam1(torch, eng1, wavs[:2],
+                                             "translate_beam1")
     emit(rec)
     return rec
 
 
-def profile_call(torch, fn, wall_unprofiled: float, name: str):
+# the self kernel's names in a trace: split (bf16/fp16) and the two-pass one
+# (fp32; every dtype in trees before the split kernel)
+SELF_KERNELS = ("self_split_kernel<", "self_kernel<")
+
+
+def profile_beam1(torch, eng1, wavs, name: str):
+    """One warm beam-1 translate of ``wavs`` traced, after one call that
+    warms the caches and one timed without the profiler: the self and
+    cross kernels' device µs a launch in the decode loop."""
+    eng1.translate(wavs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng1.translate(wavs)
+    torch.cuda.synchronize()
+    return profile_call(torch, lambda: eng1.translate(wavs),
+                        time.perf_counter() - t0, name,
+                        watch=(*SELF_KERNELS, "cross_split_kernel"))
+
+
+def profile_call(torch, fn, wall_unprofiled: float, name: str,
+                 watch=()):
     """Device time by kernel over one call of ``fn`` (the union of kernel
     and copy intervals is the busy time; the idle share is taken against
     the same call's wall time without the profiler). The table goes to
-    chiprun_out/profile_<name>.txt."""
+    chiprun_out/profile_<name>.txt. ``watch``: name fragments whose kernels
+    are summed into device µs, launches and µs a launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -719,7 +849,7 @@ def profile_call(torch, fn, wall_unprofiled: float, name: str):
     with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=40))
-    spans, by_name = [], {}
+    spans, by_name, launches = [], {}, {}
     for ev in prof.events():
         # device work only; CUPTI's own buffer requests are not the program's
         if ev.device_type != DeviceType.CUDA or \
@@ -728,15 +858,26 @@ def profile_call(torch, fn, wall_unprofiled: float, name: str):
         spans.append((ev.time_range.start, ev.time_range.end))
         by_name[ev.name] = by_name.get(ev.name, 0.0) + \
             ev.time_range.elapsed_us()
+        launches[ev.name] = launches.get(ev.name, 0) + 1
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"wall_profiled_s": wall, "device_busy_s": busy_us / 1e6,
+    watched = {}
+    for frag in watch:
+        names = [k for k in by_name if frag in k]
+        us, count = sum(by_name[k] for k in names), sum(launches[k]
+                                                         for k in names)
+        if count:
+            watched[frag.rstrip("<")] = {"device_us": us, "launches": count,
+                                         "us_per_launch": us / count}
+    return {"wall_profiled_s": wall, "wall_unprofiled_s": wall_unprofiled,
+            "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall_unprofiled,
-            "top_device_us": [[k[:60], v] for k, v in top]}
+            "top_device_us": [[k[:60], v, launches[k]] for k, v in top],
+            "watched": watched}
 
 
 def _train_batch(rng, B, samples, U):

@@ -19,29 +19,31 @@
 // and does 4*Dh flops per (query, position); at the serving shapes (bf16,
 // Dh 64) that is ~1 flop per byte (cross: ~10, the beam shares K/V), far
 // below the ~295 flop/byte where the tensor cores would become the limit.
-// At those shapes the bytes take 1.3 us (cross, B16 x beam 10 x 251 keys)
-// and 6.3 us (anc, 195 positions, each row once), so what holds a kernel
-// back is latency: how many blocks run, how many bytes each has in flight,
-// how many passes.
+// At those shapes the bytes take 1.3 us (cross, B16 x beam 10 x 251 keys),
+// 6.3 us (anc, 195 positions, each row once) and 1.0 us (self, B16 greedy:
+// 16 rows x 195 positions), so what holds a kernel back is latency: how
+// many blocks run, how many bytes each has in flight, how many passes.
 //
 // Two designs; which one serves a call is fixed by dtype alone (the
 // wrapper's decode_variant names it in the `split` argument):
 //
-// * split -- bf16 and fp16 (every serving configuration), anc and cross.
-//   Each (utterance, head) is split over positions into a thread-block
-//   cluster of up to 8 blocks, sized at launch from n, the positions read
-//   (cross: n = S, 32-position tiles; anc: n = idx + 1, 4-position tiles),
-//   so the 64 (b, h) of the main path become 512 blocks on 132 SMs. Each
-//   block reads its share with 16-byte loads, all of a tile's in flight at
-//   once, runs an online softmax in fp32 (one pass: no score buffer, no
-//   second walk over V), and sends its partial (max, sum, unnormalised
-//   output) for each query row to the block that owns the row, through
-//   distributed shared memory; after one cluster barrier each block
-//   combines its rows from every block's partial, always in rank order.
-//   One launch per call, no global scratch, no atomics, and two launches
-//   give bitwise-equal outputs. (cp.async rings and copy-engine bulk
-//   copies were tried for these gathers and were slower than plain 16-byte
-//   loads into registers; PERF.md.)
+// * split -- bf16 and fp16 (every serving configuration), self, anc and
+//   cross. Each (utterance, head) -- each (row, head) for self -- is split
+//   over positions into a thread-block cluster of up to 8 blocks, sized at
+//   launch from n, the positions read (cross: n = S, 32-position tiles;
+//   anc: n = idx + 1, 4-position tiles; self: n = idx + 1, 32-position
+//   tiles), so the 64 (b, h) of the main path become 512 blocks (self at
+//   B16 greedy: 128 blocks of four warps) on 132 SMs. Each block reads its
+//   share with 16-byte loads, all of a tile's in flight at once, runs an
+//   online softmax in fp32 (one pass: no score buffer, no second walk over
+//   V), and sends its partial (max, sum, unnormalised output) for each
+//   query row to the block that owns the row, through distributed shared
+//   memory; after one cluster barrier each block combines its rows from
+//   every block's partial, always in rank order. One launch per call, no
+//   global scratch, no atomics, and two launches give bitwise-equal
+//   outputs. (cp.async rings and copy-engine bulk copies were tried for
+//   these gathers and were slower than plain 16-byte loads into registers;
+//   PERF.md.)
 //   - cross_split_kernel: one warp per block, all beam queries of the
 //     utterance as the 16 rows of mma.sync.m16n8k16 (beam padded to 16
 //     with zero queries), so each encoder key and value is read once per
@@ -63,10 +65,25 @@
 //     unpacked to fp32 pairs and reduced over the eight threads with three
 //     shuffles. An ancestor outside [0, beam) never becomes an address: its
 //     rows are zeros and its score -1e9.
-// * simt -- fp32 anc and cross, and self in every dtype: one block of 256
-//   threads per (row, head) -- per (utterance, head) for cross -- scores
-//   for all positions in shared memory, an exact two-pass softmax.
-//   card_vs_cpu holds fp32 decoding to the CPU at 1e-3.
+//   - self_split_kernel: beam 1, one query per (row, head), so a tensor-core
+//     product would waste 15 of its 16 rows: the CUDA cores, one 32-position
+//     tile per warp, up to four warps a block (cluster of ceil(tiles / 4)
+//     blocks; the (row, head)s are many at large batch, and fewer, fatter
+//     blocks were faster there than one warp a block). K^T is read as cross
+//     reads it (the aligned 16-byte chunks that cover each row; the cache
+//     segments hold S = 67, 131, 195 positions) and staged in the warp's
+//     shared memory, where lane p takes the 64 elements of position p0 + p
+//     for its dot product; each lane reads whole 16-byte chunks of V rows
+//     straight into registers and weights them by the probability of their
+//     position (one shuffle each), so V never passes through shared memory.
+//     Every warp sends its partial to the cluster's first block. The row
+//     stride S and the positions read n are separate: positions p >= n
+//     score -inf (a select, so stale K^T elements in a chunk never reach
+//     the sums) and their V rows are never read.
+// * simt -- fp32 self, anc and cross: one block of 256 threads per (row,
+//   head) -- per (utterance, head) for cross -- scores for all positions in
+//   shared memory, an exact two-pass softmax. card_vs_cpu holds fp32
+//   decoding to the CPU at 1e-3.
 //
 // Plain C interface, loaded with ctypes; every launcher returns the
 // cudaError_t of the launch (0 = success) or one of the ERR_* codes below.
@@ -170,7 +187,7 @@ __device__ void block_pv(const float* p, int n, VRow vrow, float* part, T* out) 
   }
 }
 
-// ---- decode_self_attention: one block per (row, head) --------------------
+// ---- decode_self_attention, simt (fp32): one block per (row, head) -------
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 self_kernel(const T* __restrict__ q, const T* __restrict__ kT,
@@ -322,6 +339,8 @@ constexpr int CROSS_TILE = 32;   // cross: positions per tile, one per lane
 constexpr int KROW = CROSS_TILE + 8;  // a staged K^T row: the tile + its misalignment
 constexpr int ANC_TILE = 4;      // anc: positions per tile, all reads in flight
 constexpr int GROUP = 8;         // anc: threads per hypothesis, 8 dims each
+constexpr int SELF_TILE = 32;    // self: positions per tile, one per lane
+constexpr int SELF_WARPS = 4;    // self: warps per block, at most
 constexpr int SLOTS = MAX_BEAM + MAX_SPLIT - 1;  // inbox rows, see Inbox
 
 // The partial results (running max m, sum of exponentials l, unnormalised
@@ -377,6 +396,14 @@ template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t w)
 }
 template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t w) {
   return __half22float2(*reinterpret_cast<__half2*>(&w));
+}
+
+template <typename T> __device__ __forceinline__ float unpack1(uint16_t w);
+template <> __device__ __forceinline__ float unpack1<__nv_bfloat16>(uint16_t w) {
+  return __uint_as_float((uint32_t)w << 16);
+}
+template <> __device__ __forceinline__ float unpack1<__half>(uint16_t w) {
+  return __half2float(__ushort_as_half(w));
 }
 
 // 16 bytes of a read-only tensor, or zeros when !ok (nothing is read).
@@ -764,6 +791,138 @@ anc_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   combine_own<T>(snd, beam, out, b, beam, H, h);
 }
 
+// self_split_kernel's dynamic shared memory: per warp, q in fp32 and its
+// staged K^T tile; then, read in the owner block (rank 0), the partials of
+// the `units` = cluster size x warps that share the (row, head).
+constexpr size_t SELF_WARP_BYTES = DH * sizeof(float) + DH * KROW * sizeof(uint16_t);
+size_t self_smem(int warps, int units) {
+  return warps * SELF_WARP_BYTES + (size_t)units * (DH + 2) * sizeof(float);
+}
+
+// ---- decode_self_attention, split: a cluster of blocks per (row, head) ----
+// Positions 0..n-1 (n = idx + 1) of the row's S-position cache, in `tiles`
+// = ceil(n / SELF_TILE) tiles; the cluster's blocks and their warps (unit
+// u = rank * warps + warp) share them in order, one online softmax per
+// warp. Each warp sends its partial to slot u of rank 0, which combines the
+// slots in order after one cluster barrier and stores out[(row*H + h)*DH].
+// Four blocks an SM (at most 128 registers a thread): with 140, three fit
+// and the 160-row case read about a microsecond slower.
+template <typename T>
+__global__ void __launch_bounds__(32 * SELF_WARPS, 4)
+self_split_kernel(const T* __restrict__ q, const T* __restrict__ kT,
+                  const T* __restrict__ v, T* __restrict__ out, int S, int n, int tiles) {
+  extern __shared__ __align__(16) unsigned char self_smem_raw[];
+  cluster_arrive_relaxed();
+  const int cs = cluster_size(), rank = cluster_rank();
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = cs * warps, u = rank * warps + warp;
+  float* qs = reinterpret_cast<float*>(self_smem_raw + warp * SELF_WARP_BYTES);
+  uint16_t* kt = reinterpret_cast<uint16_t*>(qs + DH);  // K^T rows, as read
+  float* po = reinterpret_cast<float*>(self_smem_raw + warps * SELF_WARP_BYTES);
+  float* pm = po + units * DH;  // slot maxima
+  float* pl = pm + units;       // slot sums
+  const int bh = blockIdx.x / cs;  // row * H + head
+  const int t0 = u * tiles / units, t1 = (u + 1) * tiles / units;
+  const int c = lane & 7, r0 = lane >> 3;  // V: chunk (dims 8c..8c+7), first row
+  const T* kp = kT + (size_t)bh * DH * S;  // this (row, head)'s K^T, 16-byte aligned
+  const T* vp = v + (size_t)bh * S * DH;
+  // q's two elements of this lane; stored to qs once the first tile's reads
+  // are in flight, so the two loads overlap
+  const uint32_t qw = __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)bh * DH) + lane);
+
+  float m = -INFINITY, l = 0.f, o[8];  // l: this lane's share of the sum
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    const int p0 = t * SELF_TILE, pend = min(p0 + SELF_TILE, n);
+    // Every read of the tile in flight at once: K^T as cross reads it (a
+    // chunk with none of the row's first pend - p0 elements is zeros), and
+    // V rows r0 + 4i, never a row past n.
+    uint4 kr[DH * 5 / 32], vr[SELF_TILE * 8 / 32];
+#pragma unroll
+    for (int i = 0; i < DH * 5 / 32; ++i) {
+      const int idx = lane + 32 * i, d = idx / 5, cc = idx % 5;
+      const int a = ((d * S + p0) & ~7) + 8 * cc;
+      kr[i] = ld16(kp + a, a < d * S + pend);
+    }
+#pragma unroll
+    for (int i = 0; i < SELF_TILE * 8 / 32; ++i) {
+      const int p = p0 + r0 + 4 * i;
+      vr[i] = ld16(vp + (size_t)p * DH + 8 * c, p < n);
+    }
+    __syncwarp();  // the previous tile's reads of shared memory are done
+    if (t == t0) {
+      const float2 f = unpack2<T>(qw);
+      qs[2 * lane] = f.x;
+      qs[2 * lane + 1] = f.y;
+    }
+#pragma unroll
+    for (int i = 0; i < DH * 5 / 32; ++i) {
+      const int idx = lane + 32 * i, d = idx / 5, cc = idx % 5;
+      *reinterpret_cast<uint4*>(&kt[d * KROW + 8 * cc]) = kr[i];
+    }
+    __syncwarp();
+    // the score of position p0 + lane, four chains
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int d = 0; d < DH; ++d)
+      acc[d & 3] = fmaf(qs[d], unpack1<T>(kt[d * KROW + ((d * S + p0) & 7) + lane]), acc[d & 3]);
+    const float s = p0 + lane < n ? (acc[0] + acc[1]) + (acc[2] + acc[3]) : -INFINITY;
+    const float mn = fmaxf(m, warp_max(s));  // finite: every tile has a position < n
+    const float alpha = __expf(m - mn);
+    m = mn;
+    const float w = __expf(s - m);  // 0 past n
+    l = l * alpha + w;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] *= alpha;
+#pragma unroll
+    for (int i = 0; i < SELF_TILE * 8 / 32; ++i) {  // rows not read are zeros
+      const float wr = __shfl_sync(0xffffffffu, w, r0 + 4 * i);
+      const uint32_t ws[4] = {vr[i].x, vr[i].y, vr[i].z, vr[i].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack2<T>(ws[e]);
+        o[2 * e] = fmaf(wr, f.x, o[2 * e]);
+        o[2 * e + 1] = fmaf(wr, f.y, o[2 * e + 1]);
+      }
+    }
+  }
+
+  // lanes c, c + 8, c + 16, c + 24 hold the same eight dims
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    o[i] += __shfl_xor_sync(0xffffffffu, o[i], 8);
+    o[i] += __shfl_xor_sync(0xffffffffu, o[i], 16);
+  }
+  l = warp_sum(l);
+  cluster_wait();  // every block of the cluster has started
+  // a unit with no tile sends m = -inf, l = 0, o = 0: weight 0 below
+  float* box = peer(po, 0);
+  if (lane == 0) {
+    peer(pm, 0)[u] = m;
+    peer(pl, 0)[u] = l;
+  }
+  if (lane < 8) {
+    float4* dst = reinterpret_cast<float4*>(box + u * DH + 8 * lane);
+    dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+    dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+  }
+  cluster_arrive();  // release: the partials are sent
+  cluster_wait();    // acquire: every partial has arrived
+  if (rank != 0 || warp != 0) return;
+  float M = -INFINITY;
+  for (int k = 0; k < units; ++k) M = fmaxf(M, pm[k]);
+  float L = 0.f, o0 = 0.f, o1 = 0.f;
+  for (int k = 0; k < units; ++k) {  // in slot order: bitwise repeatable
+    const float wk = __expf(pm[k] - M);
+    L += wk * pl[k];
+    o0 += wk * po[k * DH + 2 * lane];
+    o1 += wk * po[k * DH + 2 * lane + 1];
+  }
+  *reinterpret_cast<uint32_t*>(out + (size_t)bh * DH + 2 * lane) = pack2<T>(o0 / L, o1 / L);
+}
+
 }  // namespace split
 
 // dtype codes shared with the Python wrapper
@@ -856,6 +1015,36 @@ cudaError_t launch_anc_split(const void* q, const void* k, const void* v, const 
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// The shape of a self launch: a cluster of `cs` blocks of `warps` warps per
+// (row, head), one unit (warp) per tile as far as 8 blocks of SELF_WARPS
+// allow. The rule, from the tiles alone, was the fastest or within 0.35 us
+// of it at every main-path shape of tools/probe_self_split.py (PERF.md).
+struct SelfShape {
+  int cs, warps;
+};
+SelfShape self_shape(int tiles) {
+  const int warps = tiles < split::SELF_WARPS ? tiles : split::SELF_WARPS;
+  const int cs = (tiles + warps - 1) / warps;
+  return {cs < split::MAX_SPLIT ? cs : split::MAX_SPLIT, warps};
+}
+
+template <typename T>
+cudaError_t launch_self_split(const void* q, const void* kT, const void* v, void* out,
+                              int BB, int H, int S, int idx, SelfShape sh,
+                              cudaStream_t st) {
+  using namespace split;
+  const int n = idx + 1;
+  const int tiles = (n + SELF_TILE - 1) / SELF_TILE;
+  const size_t smem = self_smem(sh.warps, sh.cs * sh.warps);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(self_split_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch L(BB * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
+  e = cudaLaunchKernelEx(&L.cfg, self_split_kernel<T>, (const T*)q, (const T*)kT,
+                         (const T*)v, (T*)out, S, n, tiles);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_cross_split(const void* q, const void* kT, const void* v,
                                const void* bias, void* out, int B, int H, int S, int beam,
@@ -870,7 +1059,7 @@ cudaError_t launch_cross_split(const void* q, const void* kT, const void* v,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-constexpr int ERR_VARIANT = 10001;  // anc/cross: split asked for fp32, or simt for bf16/fp16
+constexpr int ERR_VARIANT = 10001;  // split asked for fp32, or simt for bf16/fp16
 constexpr int ERR_ALIGN = 10002;    // a split kernel's tensor not 16-byte aligned
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -884,24 +1073,30 @@ int stac_decode_max_beam() { return MAX_BEAM; }
 
 const char* stac_cuda_error_string(int code) {
   if (code == ERR_VARIANT)
-    return "anc and cross attention run split for bf16 and fp16, simt for fp32";
+    return "the decode kernels run split for bf16 and fp16, simt for fp32";
   if (code == ERR_ALIGN) return "the split kernels need 16-byte aligned tensors";
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// In each of the three entry points, split != 0 launches the split kernel
+// (bf16 and fp16), split == 0 the two-pass one (fp32); any other pairing is
+// ERR_VARIANT.
 int stac_decode_self_attention(const void* q, const void* kT, const void* v, void* out,
-                               int BB, int H, int S, int idx, int dtype, void* stream) {
+                               int BB, int H, int S, int idx, int dtype, int split,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case F32: return launch_self<float>(q, kT, v, out, BB, H, S, idx, st);
-    case BF16: return launch_self<__nv_bfloat16>(q, kT, v, out, BB, H, S, idx, st);
-    case F16: return launch_self<__half>(q, kT, v, out, BB, H, S, idx, st);
+  if (!split) {
+    if (dtype != F32) return ERR_VARIANT;
+    return launch_self<float>(q, kT, v, out, BB, H, S, idx, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (dtype != BF16 && dtype != F16) return ERR_VARIANT;
+  if (!aligned16(q) || !aligned16(kT) || !aligned16(v)) return ERR_ALIGN;
+  const SelfShape sh = self_shape((idx + split::SELF_TILE) / split::SELF_TILE);
+  return dtype == BF16
+             ? launch_self_split<__nv_bfloat16>(q, kT, v, out, BB, H, S, idx, sh, st)
+             : launch_self_split<__half>(q, kT, v, out, BB, H, S, idx, sh, st);
 }
 
-// split != 0 launches the split kernel (bf16 and fp16), split == 0 the
-// two-pass one (fp32); any other pairing is ERR_VARIANT.
 int stac_decode_self_attention_anc(const void* q, const void* k, const void* v,
                                    const void* anc, void* out, int BB, int H, int S,
                                    int beam, int idx, int dtype, int split, void* stream) {

@@ -13,20 +13,19 @@ Each wrapper replaces one TPU kernel (``KERNELS`` below names it):
 
 All three are bound by device memory: one step reads each cached key and
 value once for 4·Dh flops per (query, position), about one flop per byte
-in bf16. The anc and cross wrappers each have two CUDA kernels, chosen by
+in bf16. Each wrapper has two CUDA kernels, chosen by
 :func:`decode_variant` (the only copy of the rule) from the dtype alone:
-``split`` for bf16 and fp16 (each (utterance, head) split over positions
-into a thread-block cluster, one pass, the splits combined in the launch)
-and ``simt`` for fp32 (one block per (row, head), two passes), which
-``card_vs_cpu`` holds to the CPU at 1e-3. ``decode_self_attention`` has
-one kernel.
+``split`` for bf16 and fp16 (each (utterance, head), for self each (row,
+head), split over positions into a thread-block cluster, one pass, the
+splits combined in the launch) and ``simt`` for fp32 (one block per (row,
+head), two passes), which ``card_vs_cpu`` holds to the CPU at 1e-3.
 
 A wrapper given CPU tensors returns its ``*_ref`` plain version. Given CUDA
 tensors it checks dtype, shape and contiguity, launches the kernel on the
 current stream, raises if the launch failed, and counts the launch under
-``<name>`` (anc and cross also under ``<name>/<variant>``, the kernel it
-asked the library to launch). There is no fallback from a CUDA tensor to
-the plain version, nor from one kernel to the other.
+``<name>`` and ``<name>/<variant>``, the kernel it asked the library to
+launch. There is no fallback from a CUDA tensor to the plain version, nor
+from one kernel to the other.
 """
 
 from __future__ import annotations
@@ -119,7 +118,7 @@ def _lib():
     lib = load_library(_LIB)
     if not getattr(lib, "_stac_bound", False):
         lib.stac_decode_self_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                                   _I, _I, _P]
+                                                   _I, _I, _I, _P]
         lib.stac_decode_self_attention_anc.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.stac_decode_cross_attention.argtypes = [
@@ -184,9 +183,9 @@ def _stream() -> int:
 
 
 def decode_variant(dtype: torch.dtype) -> str:
-    """The kernel that serves anc and cross attention for ``dtype`` on the
-    card: ``split`` (position splits in a cluster) for bf16 and fp16,
-    ``simt`` (the two-pass kernels) for fp32."""
+    """The kernel that serves self, anc and cross attention for ``dtype``
+    on the card: ``split`` (position splits in a cluster) for bf16 and
+    fp16, ``simt`` (the two-pass kernels) for fp32."""
     return "split" if dtype in (torch.bfloat16, torch.float16) else "simt"
 
 
@@ -205,6 +204,11 @@ def decode_self_attention(q, kT, v, idx: int):
     """See :func:`decode_self_attention_ref`. ``idx`` is a host int."""
     if _on_cpu(q, kT, v):
         return decode_self_attention_ref(q, kT, v, idx)
+    return _launch_self(q, kT, v, idx)
+
+
+def _launch_self(q, kT, v, idx: int):
+    """Launch the self kernel of :func:`decode_variant` on CUDA tensors."""
     name = "decode_self_attention"
     lib = _lib()
     BB, H, Dh = q.shape
@@ -214,11 +218,9 @@ def decode_self_attention(q, kT, v, idx: int):
     if not 0 <= idx < S:
         raise ValueError(f"{name}: idx {idx} outside [0, {S})")
     out = torch.empty_like(q)
-    rc = lib.stac_decode_self_attention(
-        q.data_ptr(), kT.data_ptr(), v.data_ptr(), out.data_ptr(),
-        BB, H, S, int(idx), _DTYPES[q.dtype], _stream())
-    _raise_on(lib, name, rc)
-    count_launch(name)
+    _launch(lib, name, lib.stac_decode_self_attention, q.dtype,
+            q.data_ptr(), kT.data_ptr(), v.data_ptr(), out.data_ptr(),
+            BB, H, S, int(idx))
     return out
 
 

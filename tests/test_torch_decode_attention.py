@@ -8,7 +8,10 @@ with a non-identity ancestor table.
 On a card (marked ``cuda``, skipped without one): each CUDA kernel against
 its plain version on the same inputs, in fp32 (TF32 off; atol 5e-5: the
 kernel sums up to 251 products in another order, ~n·2^-24) and bf16 (atol
-1e-2: both store in bf16, whose step is 2^-7 for |x| in [1, 2)); the anc
+1e-2: both store in bf16, whose step is 2^-7 for |x| in [1, 2)); the
+self kernel at the cache segments' S (67, 131, 195) and a longer cache,
+1, 2 and 16 rows, with NaN past idx, on ``split`` (bf16, fp16) and
+``simt`` (fp32); the anc
 and cross ``split`` kernels (bf16 and fp16) also at beam 1, 4, 10 and 16,
 over 1, 63, 64, 65 and 195 positions and S not a multiple of their tiles
 (cross up to 751 keys, several tiles a block), with biases that mask whole
@@ -20,6 +23,8 @@ need no JAX, so they also run where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_decode_attention.py
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -127,8 +132,8 @@ def test_cross_ref_matches_pallas(rng, beam, pad):
 
 
 def test_decode_variant_rule(monkeypatch):
-    """One rule picks the anc and cross kernel, from the dtype alone; the
-    launcher hands it to the library and counts the launch by variant
+    """One rule picks the self, anc and cross kernel, from the dtype alone;
+    the launchers hand it to the library and count the launch by variant
     (driven here with a stand-in for the library)."""
     assert K.decode_variant(torch.bfloat16) == "split"
     assert K.decode_variant(torch.float16) == "split"
@@ -148,6 +153,23 @@ def test_decode_variant_rule(monkeypatch):
     assert kernels.launches == {"decode_cross_attention": 3,
                                 "decode_cross_attention/split": 2,
                                 "decode_cross_attention/simt": 1}
+    # the self launcher, whole: checks, output, the library call, counts
+    monkeypatch.setattr(K, "_lib", lambda: SimpleNamespace(
+        stac_decode_head_dim=lambda: 64, stac_decode_self_attention=entry))
+    kernels.reset_launches()
+    for dt, split in ((torch.bfloat16, 1), (torch.float16, 1),
+                      (torch.float32, 0)):
+        q = torch.zeros(2, 4, 64, dtype=dt)
+        kT, v = torch.zeros(2, 4, 64, 5, dtype=dt), torch.zeros(2, 4, 5, 64,
+                                                                 dtype=dt)
+        out = K._launch_self(q, kT, v, 3)
+        assert out.shape == q.shape and out.dtype == dt
+        assert calls[-1][:4] == (q.data_ptr(), kT.data_ptr(), v.data_ptr(),
+                                 out.data_ptr())
+        assert calls[-1][4:] == (2, 4, 5, 3, K._DTYPES[dt], split, 0)
+    assert kernels.launches == {"decode_self_attention": 3,
+                                "decode_self_attention/split": 2,
+                                "decode_self_attention/simt": 1}
     kernels.reset_launches()
 
 
@@ -228,15 +250,15 @@ _SPLIT = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 _SPLIT_TOL = 1e-2
 
 
-def _launched(name, fn):
-    """fn's result, and the launches it added under name and its split
-    variant (the kernel must have gone through ``split``)."""
+def _launched(name, fn, variant="split"):
+    """fn's result; the launches it added must be one under name and one
+    under ``variant`` (by default the kernel went through ``split``)."""
     before = dict(kernels.launches)
     out = fn()
     torch.cuda.synchronize()
     added = {k: n - before.get(k, 0) for k, n in kernels.launches.items()
              if n != before.get(k, 0)}
-    assert added == {name: 1, f"{name}/split": 1}, added
+    assert added == {name: 1, f"{name}/{variant}": 1}, added
     return out
 
 
@@ -336,3 +358,33 @@ def test_split_kernels_dual_search_shape_and_repeatable_on_card(card, rng,
     _close(outs[0], K.decode_self_attention_anc_ref(qa, ka, va, anc, 194,
                                                     beam))
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+# the cache segments; 1100: more tiles than 8 blocks of 4 warps, so
+# warps walk several tiles
+@pytest.mark.parametrize("S", [67, 131, 195, 1100])
+def test_split_self_kernel_matches_plain_on_card(card, rng, dtype, S):
+    """bf16 and fp16 on ``split`` (1e-2), fp32 on ``simt`` (5e-5), at 1, 2
+    and 16 rows (beam 1: B1, B2, B16 greedy) and idx 0, 31, 32 (a tile's
+    edge), 97 and S - 1. Positions past idx hold NaN in K and V: they take
+    no weight and their V rows are never read, so the output equals the
+    plain version's on the clean cache. Two launches give the same bits."""
+    dt = getattr(torch, dtype)
+    variant, tol = K.decode_variant(dt), 5e-5 if dtype == "float32" else 1e-2
+    for rows in (1, 2, 16):
+        q, kT, v = _self_inputs(rng, BB=rows, S=S)
+        for idx in (i for i in (0, 31, 32, 97, S - 1) if i < S):
+            kT_nan, v_nan = kT.copy(), v.copy()
+            kT_nan[..., idx + 1:] = np.nan
+            v_nan[:, :, idx + 1:] = np.nan
+            qd, kd, vd = _on(card, dt, q, kT_nan, v_nan)
+            outs = [_launched("decode_self_attention", lambda: (
+                K.decode_self_attention(qd, kd, vd, idx)), variant)
+                for _ in range(2)]
+            ref = K.decode_self_attention_ref(*_on(card, dt, q, kT, v), idx)
+            assert torch.isfinite(outs[0]).all(), (rows, idx)
+            torch.testing.assert_close(outs[0].float(), ref.float(),
+                                       atol=tol, rtol=0)
+            assert torch.equal(outs[0], outs[1]), (rows, idx)
