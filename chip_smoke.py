@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card and nvcc:
 
     python3 chip_smoke.py             # the check
     python3 chip_smoke.py --profile   # also trace one warm translate call
-                                      # and one warm train step
+                                      # and warm train steps
 
 Phases, each printed as one JSON line:
 
@@ -65,12 +65,32 @@ Phases, each printed as one JSON line:
    18 training-forward, 18 dQ and 18 dK/dV launches a step, every one on
    a tensor-core kernel), then one eval forward (exactly 18
    flash_attention launches, all on the tensor-core kernel);
-6. card_vs_cpu: the port on the card against the port on the CPU, full
+6. data_train: training from a manifest on disk, as
+   recipes/train_multitask.py drives it: 128 utterances of 12-15 s of
+   seeded audio at 8 kHz written to a temporary directory (PCM16 WAV,
+   some entries two files, one mu-law SPHERE file; reference-schema
+   manifest, ASR and ST rows with pseudo-word text, some [turn] and
+   [turn] [xt]), a BPE tokenizer trained on its text (vocab >= 500;
+   the model keeps vocab 5000), SpeechDataset at 16 kHz with
+   DeviceSpeedPerturb([90, 100, 110]), the recipe's DynamicBatchSampler
+   (450 s, 50 buckets, at most 128 rows, random order, shuffled) and
+   BatchLoader (4 workers); STTrainer.fit for two epochs at the flagship
+   width in bf16 with speed_perturb set. Checks: every batch as wide as
+   its bucket and with a speed_idx column, the epochs draw different
+   speeds, a second pass over epoch 1 gives identical batches, finite
+   losses, exactly 18 training-forward, 18 dQ and 18 dK/dV launches a
+   step, all on the tensor-core kernels, and the first batch's perturbed
+   signal on the card (TF32 allowed by the caller) against the CPU within
+   1e-5. Prints the loader's rate alone (1 and 4 workers, device and
+   host perturbation) and its stages, a warm step on the largest batch,
+   peak memory, and with --profile the idle share of that step;
+7. card_vs_cpu: the port on the card against the port on the CPU, full
    width, fp32, 2 x 2 s: one decode step's logits and the token agreement
    of a short translate;
-7. card_vs_cpu_train: one train step, full width d256/H4, 2 + 2 layers,
+8. card_vs_cpu_train: one train step, full width d256/H4, 2 + 2 layers,
    B2 x 2 s, fp32 (TF32 off), dropout 0: loss, gradients and updated
-   parameters, card against CPU.
+   parameters, card against CPU; then the same for B3 x 2 s through
+   DeviceSpeedPerturb, one row at each speed.
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through),
@@ -899,7 +919,7 @@ def _train_batch(rng, B, samples, U):
         source_lang=["es"] * B, target_lang=["en"] * B)
 
 
-def _trainer(torch, mods, bf16: bool):
+def _trainer(torch, mods, bf16: bool, speed_perturb=None):
     from stac_st_tpu_torch.ops.cmvn import InputNormalization
     from stac_st_tpu_torch.ops.fbank import Fbank
     from stac_st_tpu_torch.training.optim import AdamW
@@ -914,7 +934,8 @@ def _trainer(torch, mods, bf16: bool):
         loss_reduction="batchmean", auto_mix_prec=bf16, seed=0,
         lr_scheduler=WarmCoolDecayLRSchedule(1e-3, 1000, 1000, 100000,
                                              decay_every=10000),
-        use_grad_clipping=True, max_grad_norm=5.0)
+        use_grad_clipping=True, max_grad_norm=5.0,
+        speed_perturb=speed_perturb)
     return STTrainer(modules, AdamW(lr=1e-3), hparams, device="cuda")
 
 
@@ -996,21 +1017,395 @@ def train_phase(torch, kernels, profile: bool):
     return rec, {**launches, **eval_launches}
 
 
-def card_vs_cpu_train_phase(torch):
-    """One train step at full width (2 + 2 layers), fp32, dropout 0, card
-    against CPU."""
+# the data phase: a telephone-speech corpus written to disk (Fisher /
+# CallHome audio is 8 kHz), read at 16 kHz through the recipe's loader
+# (recipes/hparams/transformer_multitask.yaml:188-190, 214-223)
+N_CORPUS, FILE_SR, SPEEDS = 128, 8000, (90, 100, 110)
+LOADER = dict(max_batch_length=450, num_buckets=50, max_batch_ex=128,
+              batch_ordering="random", shuffle=True)
+# device resample, card vs CPU: fp32 sums of at most 31 taps of O(1)
+# values in another order (JAX runs the same convolution at HIGHEST)
+RESAMPLE_ATOL = 1e-5
+
+
+def ulaw_bytes(pcm: np.ndarray) -> bytes:
+    """G.711 mu-law coding of int16 samples."""
+    x = pcm.astype(np.int32)
+    mag = np.minimum(np.abs(x), 32635) + 0x84
+    exp = np.floor(np.log2(mag)).astype(np.int32) - 7
+    mant = (mag >> (exp + 3)) & 0x0F
+    code = ((x < 0).astype(np.int32) << 7) | (exp << 4) | mant
+    return (~code & 0xFF).astype(np.uint8).tobytes()
+
+
+def write_ulaw_sphere(path: str, wav: np.ndarray, rate: int) -> None:
+    """A NIST SPHERE file of mu-law samples, as LDC ships telephone audio."""
+    pcm = (np.clip(wav, -1, 1) * 32767).astype(np.int16)
+    header = (f"NIST_1A\n   1024\nsample_rate -i {rate}\n"
+              "channel_count -i 1\nsample_n_bytes -i 1\n"
+              "sample_coding -s4 ulaw\nend_head\n").encode()
+    with open(path, "wb") as f:
+        f.write(header + b" " * (1024 - len(header)) + ulaw_bytes(pcm))
+
+
+def write_corpus(root: str, seed: int = 0):
+    """N_CORPUS utterances of 12-15 s of seeded noise-and-tone audio at
+    8 kHz, as PCM16 WAV (every eighth entry two files that the loader
+    concatenates; one entry a mu-law SPHERE file), a training manifest in
+    the reference schema (half ASR rows, half ES->EN rows; pseudo-word
+    text, some rows with [turn] or [turn] [xt]) and the joint text lines
+    for the tokenizer. Returns (manifest path, joint lines, audio s)."""
+    from stac_st_tpu_torch.data.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    syll = ["ba", "ce", "di", "fo", "gu", "la", "me", "ni", "po", "qui",
+            "ra", "se", "ti", "vo", "za", "cha", "lle", "rro", "ñu", "que"]
+
+    def lexicon(n):
+        return ["".join(rng.choice(syll, rng.integers(1, 4)))
+                for _ in range(n)]
+
+    es, en = lexicon(400), [w[::-1] for w in lexicon(400)]
+    os.makedirs(os.path.join(root, "wav"), exist_ok=True)
+    entries, lines, total = {}, [], 0.0
+    for i in range(N_CORPUS):
+        dur = float(rng.uniform(12.0, 15.0))
+        n = int(dur * FILE_SR)
+        t = np.arange(n) / FILE_SR
+        wav = (0.2 * np.sin(2 * np.pi * (150 + 7 * (i % 40)) * t)
+               + 0.05 * rng.standard_normal(n)).astype(np.float32)
+        name = f"{{data_root}}/wav/u{i:03d}"
+        if i == 5:
+            write_ulaw_sphere(os.path.join(root, "wav", f"u{i:03d}.sph"),
+                              wav, FILE_SR)
+            files = [name + ".sph"]
+        elif i % 8 == 3:
+            cut = n // 2
+            for part, piece in (("a", wav[:cut]), ("b", wav[cut:])):
+                write_wav(os.path.join(root, "wav", f"u{i:03d}{part}.wav"),
+                          piece, FILE_SR)
+            files = [name + "a.wav", name + "b.wav"]
+        else:
+            write_wav(os.path.join(root, "wav", f"u{i:03d}.wav"), wav,
+                      FILE_SR)
+            files = [name + ".wav"]
+        k = int(2.5 * dur)
+        idx = rng.integers(0, 400, k)
+        src = [es[j] for j in idx]
+        tgt = [en[j] for j in idx]
+        if i % 5 == 0:
+            src.insert(k // 2, "[turn]")
+            tgt.insert(k // 2, "[turn]")
+        if i % 7 == 0:
+            src.insert(k // 3, "[turn] [xt]")
+            tgt.insert(k // 3, "[turn] [xt]")
+        src, tgt = " ".join(src), " ".join(tgt)
+        asr = i % 2 == 0
+        start = i * 1500
+        uid = f"conv{i % 16:02d}-A-{start:06d}-{start + int(dur * 100):06d}"
+        entries[uid] = {
+            "wav": " ".join(files), "duration": n / FILE_SR,
+            "task": "transcription" if asr else "translation",
+            "source_lang": "es", "target_lang": "es" if asr else "en",
+            "transcription": src, "translation_0": src if asr else tgt,
+            "transcription_and_translation": f"{src} {tgt}"}
+        lines.append(f"{src} {tgt}")
+        total += n / FILE_SR
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(entries, f, indent=1)
+    return path, lines, total
+
+
+def corpus_loader(manifest: str, root: str, tok, perturb, workers: int):
+    """The recipe's loader: SpeechDataset at 16 kHz, the duration-bucket
+    sampler, BatchLoader."""
+    from stac_st_tpu_torch.data import (
+        BatchLoader,
+        DynamicBatchSampler,
+        SpeechDataset,
+    )
+
+    ds = SpeechDataset(manifest, tok, sample_rate=SR,
+                       replacements={"data_root": root},
+                       speed_perturb=perturb)
+    smp = DynamicBatchSampler(ds.durations(), **LOADER)
+    return BatchLoader(ds, smp, sample_rate=SR, num_workers=workers,
+                       token_pad_multiple=32)
+
+
+def loader_rate(loader) -> float:
+    """Source audio-s read, resampled and collated per second over one
+    epoch of ``loader`` with nothing else running."""
+    loader.set_epoch(0)
+    t0, audio_s = time.perf_counter(), 0.0
+    for batch in loader:
+        audio_s += float(np.sum(batch.duration))
+    return audio_s / (time.perf_counter() - t0)
+
+
+def loader_stages(ds, host_perturb, n: int = 24):
+    """Host ms per utterance of each stage of a sample, on one thread:
+    reading and resampling to 16 kHz, tokenizing, the host perturbation
+    at 90% speed, and collating (per row of one batch)."""
+    from stac_st_tpu_torch.data import collate_batch, read_audio, wav_paths
+    from stac_st_tpu_torch.data.text import build_target_ids
+
+    n = min(n, len(ds))
+    acc = {"read_resample": 0.0, "tokenize": 0.0, "host_perturb_90": 0.0}
+    samples = []
+    for i in range(n):
+        entry = ds.entry(i)
+        t0 = time.perf_counter()
+        sig = np.concatenate([read_audio(p, sample_rate=SR)[0]
+                              for p in wav_paths(entry)])
+        t1 = time.perf_counter()
+        build_target_ids(entry, ds.tokenizer)
+        t2 = time.perf_counter()
+        host_perturb(sig, 90)
+        t3 = time.perf_counter()
+        for key, dt in zip(acc, (t1 - t0, t2 - t1, t3 - t2)):
+            acc[key] += dt
+        samples.append(ds[i])
+    t0 = time.perf_counter()
+    collate_batch(samples, audio_pad_samples=int(15.5 * SR),
+                  token_pad_multiple=32)
+    acc["collate"] = time.perf_counter() - t0
+    return {k: v / n * 1e3 for k, v in acc.items()}
+
+
+class Recorder:
+    """Passes a BatchLoader through to STTrainer.fit and keeps each epoch's
+    batches and the host time at each hand-over."""
+
+    def __init__(self, torch, loader):
+        self.torch, self.loader = torch, loader
+        self.seen, self.marks, self.epoch = {}, [], None
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.torch.cuda.synchronize()
+            self.marks.append(time.perf_counter())
+            self.seen.setdefault(self.epoch, []).append(batch)
+            yield batch
+        self.torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+
+
+def tf32_resample_err(torch, perturb, args, want) -> float:
+    """Max abs error, against the fp32 resample ``want``, of the same
+    perturbation with the resample's TF32 guard taken out and TF32
+    allowed: what the guard prevents."""
+    import contextlib
+
+    from stac_st_tpu_torch.ops import speed_perturb as SP
+
+    guard = SP._cudnn_fp32
+    SP._cudnn_fp32 = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got, _ = perturb.apply(*(a.cuda() for a in args))
+    finally:
+        SP._cudnn_fp32 = guard
+        torch.backends.cudnn.allow_tf32 = False
+    return float((got.cpu() - want).abs().max())
+
+
+def same_batch(a, b) -> bool:
+    return (a.id == b.id and a.extras == b.extras
+            and all(np.array_equal(x, y)
+                    for name in ("sig", "tokens", "tokens_bos", "tokens_eos")
+                    for x, y in zip(getattr(a, name), getattr(b, name))))
+
+
+def data_train_phase(torch, kernels, profile: bool):
+    """STTrainer.fit at the flagship width for two epochs over the port's
+    BatchLoader, from 8 kHz files on disk, with DeviceSpeedPerturb."""
+    import tempfile
+
+    from stac_st_tpu_torch.ops.speed_perturb import (
+        DeviceSpeedPerturb,
+        SpeedPerturb,
+    )
+    from stac_st_tpu_torch.tokenizer import SentencePieceProcessor, train_bpe
+
+    rec = {"phase": "data_train", "utterances": N_CORPUS,
+           "file_rate": FILE_SR, "rate": SR, "speeds": list(SPEEDS),
+           "loader": LOADER, "dtype": "bfloat16"}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        manifest, lines, corpus_s = write_corpus(root)
+        rec["corpus_audio_s"] = corpus_s
+        rec["corpus_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = train_bpe(lines, vocab_size=600,
+                          user_defined_symbols=["[es]", "[en]", "[turn]",
+                                                "[xt]"])
+        model.save(os.path.join(root, "bpe.model"))
+        tok = SentencePieceProcessor(os.path.join(root, "bpe.model"))
+        rec["tokenizer_train_s"] = time.perf_counter() - t0
+        rec["tokenizer_vocab"] = tok.get_piece_size()
+        check(tok.get_piece_size() >= 500, f"vocab {tok.get_piece_size()}")
+        check([tok.piece_to_id(s) for s in ("[es]", "[en]", "[turn]", "[xt]")]
+              == [3, 4, 5, 6], "user symbols follow the control pieces")
+
+        def device_perturb():
+            p = DeviceSpeedPerturb(orig_freq=SR, speeds=list(SPEEDS))
+            p.seed(TRAIN_SEED)
+            return p
+
+        def host_perturb():
+            p = SpeedPerturb(orig_freq=SR, speeds=list(SPEEDS))
+            p.seed(TRAIN_SEED)
+            return p
+
+        # the host pipeline alone, no step running, after one untimed
+        # epoch (page cache, filter banks); then its stages, one thread
+        loader_rate(corpus_loader(manifest, root, tok, device_perturb(), 4))
+        rates = {}
+        for kind, make in (("device_perturb", device_perturb),
+                           ("host_perturb", host_perturb)):
+            for workers in (1, 4):
+                rates[f"{kind}_workers{workers}"] = loader_rate(corpus_loader(
+                    manifest, root, tok, make(), workers))
+        rec["loader_audio_s_per_s"] = rates
+        rec["loader_stage_ms_per_utt"] = loader_stages(
+            corpus_loader(manifest, root, tok, None, 1).dataset,
+            host_perturb())
+
+        perturb = device_perturb()
+        loader = corpus_loader(manifest, root, tok, perturb, 4)
+        trainer = _trainer(torch, flagship(0), bf16=True,
+                           speed_perturb=perturb)
+        check(trainer.cfg.device_speed is perturb, "device speed configured")
+        feeds = Recorder(torch, loader)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for epoch in (1, 2):
+            trainer.fit([epoch], feeds)
+            losses += [float(x) for x in trainer.epoch_losses]
+        fit_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        batches = feeds.seen[1] + feeds.seen[2]
+        steps = len(batches)
+        check(steps == 2 * len(loader) and len(losses) == steps,
+              f"{steps} steps, {len(losses)} losses")
+        check(all(np.isfinite(losses)), f"losses {losses}")
+        check(trainer.state.micro_step == steps, "micro steps")
+        for name in FLASH[1:]:
+            check(launches.get(name, 0) == 18 * steps,
+                  f"{name}: {launches.get(name, 0)} launches, want 18 a step")
+            check(launches.get(f"{name}/{TC}", 0) == 18 * steps,
+                  f"{name} on the tensor cores: {launches}")
+        check(launches.get("flash_attention", 0) == 0, "no eval kernel in fit")
+        widths = []
+        for b in batches:
+            spec = loader.sampler.bucket_of(loader.dataset.ids.index(b.id[0]))
+            bucket = int(np.ceil(spec.boundary * SR))
+            check(b.sig.data.shape[1] == bucket,
+                  f"batch width {b.sig.data.shape[1]}, bucket {bucket}")
+            check(len(b.speed_idx) == len(b), "every row has a speed")
+            widths.append(bucket)
+        draws = [{u: s for b in feeds.seen[e] for u, s in zip(b.id,
+                                                                 b.speed_idx)}
+                 for e in (1, 2)]
+        check(draws[0] != draws[1], "the two epochs draw the same speeds")
+        check(set(draws[0].values()) == {0, 1, 2}, "every speed drawn")
+        loader.set_epoch(1)
+        again = list(loader)
+        check(len(again) == len(feeds.seen[1]) and all(
+            same_batch(a, b) for a, b in zip(again, feeds.seen[1])),
+            "a second pass over epoch 1 differs")
+
+        # the first batch's perturbation, card (with TF32 allowed around
+        # it: the resample must turn it off for itself) against the CPU
+        first = feeds.seen[1][0]
+        args = (torch.from_numpy(first.sig.data),
+                torch.from_numpy(first.sig.lengths),
+                torch.tensor(first.speed_idx))
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            sig_c, rel_c = perturb.apply(*(a.cuda() for a in args))
+            check(torch.backends.cudnn.allow_tf32, "caller's TF32 restored")
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        sig_h, rel_h = perturb.apply(*args)
+        perturb_err = float((sig_c.cpu() - sig_h).abs().max())
+        # information only: the same resample without its TF32 guard
+        rec["perturb_tf32_err"] = tf32_resample_err(torch, perturb, args,
+                                                    sig_h)
+        check(perturb_err <= RESAMPLE_ATOL,
+              f"device resample card vs CPU: err {perturb_err}")
+        check(torch.equal(rel_c.cpu(), rel_h), "relative lengths card vs CPU")
+        check(sig_c.shape[1] == perturb.out_width(first.sig.data.shape[1]),
+              "perturbed width")
+
+        # a warm step on the largest batch, alone
+        big = max(batches, key=lambda b: b.sig.data.size)
+        dev_batch = trainer._device_batch(big)
+        state, times = trainer.state, []
+        for _ in range(6):
+            seed = trainer.next_seed()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(state, dev_batch, seed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        warm = float(np.median(times[1:]))
+        big_s = float(np.sum(big.duration))
+        rec.update({
+            "steps": steps, "batches_per_epoch": len(loader),
+            "rows": [len(b) for b in batches],
+            "bucket_widths": widths, "fit_s": fit_s,
+            "fit_audio_s_per_s": 2 * corpus_s / fit_s,
+            "step_wall_ms": [x * 1e3 for x in np.diff(feeds.marks)],
+            "losses": losses, "launches_fit": launches,
+            "launches_per_step": {n: launches.get(n, 0) / steps
+                                  for n in FLASH[1:]},
+            "perturb_card_vs_cpu_err": perturb_err,
+            "perturb_atol": RESAMPLE_ATOL,
+            "warm_step_batch": len(big), "warm_step_audio_s": big_s,
+            "warm_step_width": int(dev_batch["sig"].shape[1]),
+            "warm_step_ms": warm * 1e3, "warm_step_ms_all":
+                [x * 1e3 for x in times],
+            "warm_audio_s_per_s": big_s / warm,
+            "peak_memory_gb": peak / 1e9})
+        if profile:
+            seed = trainer.next_seed()
+            t0 = time.perf_counter()
+            trainer.train_step(state, dev_batch, seed)
+            torch.cuda.synchronize()
+            rec["profile"] = profile_call(
+                torch, lambda: trainer.train_step(state, dev_batch, seed),
+                time.perf_counter() - t0, "data_train_step")
+    emit(rec)
+    return rec
+
+
+def _card_vs_cpu_step(torch, pb, speed_idx=None):
+    """One train step of batch ``pb`` at full width (2 + 2 layers), fp32,
+    dropout 0, on the card and on the CPU; with ``speed_idx``, through
+    DeviceSpeedPerturb. Checks and returns the comparison."""
     from stac_st_tpu_torch.ops.fbank import Fbank
+    from stac_st_tpu_torch.ops.speed_perturb import DeviceSpeedPerturb
     from stac_st_tpu_torch.training import step as S
     from stac_st_tpu_torch.training.optim import AdamW
     from stac_st_tpu_torch.training.schedulers import WarmCoolDecayLRSchedule
 
-    rng = np.random.default_rng(3)
-    pb = _train_batch(rng, 2, 2 * SR, 16)
     arrays = {"sig": pb.sig.data, "sig_len": pb.sig.lengths,
               "tokens": pb.tokens.data, "tokens_len": pb.tokens.lengths,
               "tokens_bos": pb.tokens_bos.data,
               "tokens_eos": pb.tokens_eos.data,
               "tokens_eos_len": pb.tokens_eos.lengths}
+    if speed_idx is not None:
+        arrays["speed_idx"] = np.asarray(speed_idx, np.int64)
     lr = 1e-3
     res = {}
     for dev in ("cuda", "cpu"):
@@ -1019,13 +1414,16 @@ def card_vs_cpu_train_phase(torch):
             fbank=Fbank(), cnn=mods["cnn"], transformer=mods["transformer"],
             seq_lin=mods["seq_lin"], ctc_lin=mods["ctc_lin"],
             specaug_opts=None, ctc_weight=0.3, label_smoothing=0.1,
-            loss_reduction="batchmean", pad_index=0, blank_index=0)
+            loss_reduction="batchmean", pad_index=0, blank_index=0,
+            device_speed=(None if speed_idx is None
+                          else DeviceSpeedPerturb(speeds=list(SPEEDS))))
         tx = S.make_optimizer(
             AdamW(lr=lr), WarmCoolDecayLRSchedule(lr, 1000, 1000, 100000,
                                                   decay_every=10000).value,
             1, 5.0, 100)
         state = S.init_train_state(cfg, tx, dev)
-        batch = {k: torch.from_numpy(v).to(dev).long() if v.dtype == np.int32
+        batch = {k: torch.from_numpy(v).to(dev).long()
+                 if v.dtype in (np.int32, np.int64)
                  else torch.from_numpy(v).to(dev) for k, v in arrays.items()}
         metrics, grad, _ = S.loss_and_grad(cfg, state, batch, 0, True)
         state, _ = S.make_train_step(cfg, tx)(state, batch, 0, True)
@@ -1054,19 +1452,35 @@ def card_vs_cpu_train_phase(torch):
     sure = g_h.abs() > 1e-3 * scale
     d = (p_c - p_h).abs()
     sure_err, any_err = float(d[sure].max()), float(d.max())
-    check(loss_rel <= 1e-5, f"train loss card vs CPU: rel {loss_rel}")
-    check(grad_err <= 1e-4, f"gradients card vs CPU: rel {grad_err}")
-    check(grad_err_cnn <= 1e-3, f"CNN gradients card vs CPU: {grad_err_cnn}")
-    check(sure_err <= 1e-6, f"updated params card vs CPU: {sure_err}")
-    check(any_err <= 2 * lr * 1.001, f"updated params bound: {any_err}")
-    emit({"phase": "card_vs_cpu_train", "batch": 2, "seconds": 2.0,
-          "dtype": "float32", "loss_card": l_c, "loss_cpu": l_h,
-          "loss_rel_err": loss_rel, "loss_rtol": 1e-5,
-          "grad_rel_err": grad_err, "grad_rtol_of_max": 1e-4,
-          "cnn_grad_rel_err": grad_err_cnn, "cnn_grad_rtol_of_max": 1e-3,
-          "param_err_determined": sure_err, "param_atol_determined": 1e-6,
-          "determined_share": float(sure.float().mean()),
-          "param_err_any": any_err, "param_atol_any": 2 * lr})
+    what = "train" if speed_idx is None else "perturbed train"
+    check(loss_rel <= 1e-5, f"{what} loss card vs CPU: rel {loss_rel}")
+    check(grad_err <= 1e-4, f"{what} gradients card vs CPU: rel {grad_err}")
+    check(grad_err_cnn <= 1e-3, f"{what} CNN gradients card vs CPU: "
+          f"{grad_err_cnn}")
+    check(sure_err <= 1e-6, f"{what} updated params card vs CPU: {sure_err}")
+    check(any_err <= 2 * lr * 1.001, f"{what} updated params bound: {any_err}")
+    return {"loss_card": l_c, "loss_cpu": l_h,
+            "loss_rel_err": loss_rel, "loss_rtol": 1e-5,
+            "grad_rel_err": grad_err, "grad_rtol_of_max": 1e-4,
+            "cnn_grad_rel_err": grad_err_cnn, "cnn_grad_rtol_of_max": 1e-3,
+            "param_err_determined": sure_err, "param_atol_determined": 1e-6,
+            "determined_share": float(sure.float().mean()),
+            "param_err_any": any_err, "param_atol_any": 2 * lr}
+
+
+def card_vs_cpu_train_phase(torch):
+    """One train step at full width (2 + 2 layers), fp32, dropout 0, card
+    against CPU; then a step of three rows through DeviceSpeedPerturb,
+    one row at each speed."""
+    rec = {"phase": "card_vs_cpu_train", "batch": 2, "seconds": 2.0,
+           "dtype": "float32"}
+    rec.update(_card_vs_cpu_step(
+        torch, _train_batch(np.random.default_rng(3), 2, 2 * SR, 16)))
+    rec["speed_perturbed"] = {"batch": 3, "speeds": list(SPEEDS),
+                              **_card_vs_cpu_step(
+        torch, _train_batch(np.random.default_rng(4), 3, 2 * SR, 16),
+        speed_idx=[0, 1, 2])}
+    emit(rec)
 
 
 def card_vs_cpu_phase(torch):
@@ -1161,6 +1575,7 @@ def main() -> int:
     train_rows = train_kernel_phase(torch, kernels, timer)
     main_rec = main_path_phase(torch, kernels, args.profile)
     _, train_launches = train_phase(torch, kernels, args.profile)
+    data_train_phase(torch, kernels, args.profile)
     card_vs_cpu_phase(torch)
     card_vs_cpu_train_phase(torch)
 

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the STAC-ST serving path for NVIDIA Hopper.
+"""PyTorch/CUDA port of STAC-ST for NVIDIA Hopper: serving, and training
+from a manifest on disk (data pipeline, tokenizer, train step).
 
 A second package beside :mod:`stac_st_tpu` (the JAX reference). Module
 paths mirror the JAX package so a reader finds each counterpart; the code
@@ -8,9 +9,9 @@ inside is PyTorch idiom. The port imports nothing of JAX and nothing of
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises.
 
-The decode-attention hot loop runs through hand-written CUDA kernels
-(``csrc/decode_attention.cu``, bound in ``ops/kernels``); on CPU tensors
-the same wrappers take their plain PyTorch versions.
+Attention runs through hand-written CUDA kernels (``csrc/*.cu``, bound in
+``ops/kernels``); on CPU tensors the same wrappers take their plain
+PyTorch versions.
 """
 
 from .device import resolve_device

@@ -1,23 +1,33 @@
-"""Padded batches (port of the batch surface of
-``stac_st_tpu/data/dataset.py``).
+"""Datasets and padded batches (port of ``stac_st_tpu/data/dataset.py``).
 
-``PaddedBatch`` mimics the reference's batch (``batch.sig`` ->
-``(data, rel_lengths)``), so the trainer takes the batches the JAX loader
-yields; ``collate_batch`` pads a list of samples to static shapes (audio to
-a bucket boundary, token arrays to a multiple); ``pad_batch_rows`` pads the
-batch dimension with zero-length rows. Host-side numpy throughout. The
-manifest loader, sampler and audio reading are not ported yet.
+* :class:`SpeechDataset` — one sample per manifest entry: the (possibly
+  multi-file) ``wav`` field read and concatenated at the dataset's rate,
+  host speed perturbation or the device one's keyed ``speed_idx``, and the
+  prompt-prefixed token variants (``[src][tgt]`` + BPE ids, bos/eos);
+* :func:`sort_ids` — the ascending/descending/random index orders;
+* :class:`PaddedBatch` — the reference's batch (``batch.sig`` ->
+  ``(data, rel_lengths)``);
+* :func:`collate_batch` pads samples to static shapes (audio to a bucket
+  boundary, token arrays to a multiple); :func:`pad_batch_rows` pads the
+  batch dimension with zero-length rows.
+
+Host-side numpy throughout.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["PaddedBatch", "collate_batch", "pad_batch_rows"]
+from .audio import read_audio
+from .manifest import load_manifest, wav_paths
+from .text import build_target_ids
+
+__all__ = ["SpeechDataset", "PaddedBatch", "collate_batch", "sort_ids",
+           "pad_batch_rows"]
 
 
 class _PaddedPair(tuple):
@@ -58,6 +68,145 @@ class PaddedBatch:
 
     def __len__(self):
         return len(self.id)
+
+
+class SpeechDataset:
+    """Index-addressable dataset over a JSON manifest."""
+
+    def __init__(
+        self,
+        json_path: str,
+        tokenizer,
+        sample_rate: int = 16000,
+        replacements: Optional[Dict[str, str]] = None,
+        speed_perturb=None,
+        bos_index: int = 1,
+        eos_index: int = 2,
+        include_xt: bool = True,
+        include_turn: bool = True,
+        text_keys: Sequence[str] = (
+            "transcription", "translation_0", "translation_1",
+            "translation_2", "translation_3",
+        ),
+    ):
+        self.data = load_manifest(json_path, replacements)
+        self.ids = list(self.data.keys())
+        self.tokenizer = tokenizer
+        self.sample_rate = int(sample_rate)
+        self.speed_perturb = speed_perturb
+        self.bos_index = bos_index
+        self.eos_index = eos_index
+        self.include_xt = include_xt
+        self.include_turn = include_turn
+        self.text_keys = tuple(text_keys)
+        # epoch feeds the per-utterance speed-perturb key (loader
+        # set_epoch keeps it current) so speeds redraw each epoch yet
+        # stay invariant to decode order, worker count, and host count
+        self.epoch = 0
+
+    # ------------------------------------------------------------- protocol
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def durations(self) -> np.ndarray:
+        return np.asarray(
+            [float(self.data[i].get("duration", 0.0)) for i in self.ids]
+        )
+
+    def entry(self, index: int) -> Dict[str, Any]:
+        return self.data[self.ids[index]]
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        return self.sample(index)
+
+    def sample(self, index: int, skip_audio: bool = False,
+               audio_cap: Optional[int] = None) -> Dict[str, Any]:
+        """One sample; ``skip_audio=True`` replaces the (expensive) audio
+        decode with a zero waveform of the manifest-duration length
+        (speed-perturb-scaled when perturb is active, else capped at
+        ``audio_cap`` samples) — used by shard-aware loaders on
+        multi-process runs, where a process only needs real audio for its
+        own row block. Everything else about the sample — tokens, text
+        references, metadata, and the per-utterance speed draw (keyed
+        by (epoch, row), not drawn from a sequential stream) — is
+        computed identically, so batch composition matches the
+        unsharded run regardless of host/worker count."""
+        utt_id = self.ids[index]
+        entry = self.data[utt_id]
+        # per-utterance speed draw, keyed by (epoch, row) so every
+        # process/worker computes the SAME speed for a row whether or
+        # not it decodes the audio (multi-host composition parity)
+        key = (self.epoch, index)
+        host_perturb = self.speed_perturb is not None and not getattr(
+            self.speed_perturb, "device", False
+        )
+        speed = self.speed_perturb.speed_for(key) if host_perturb else None
+        if skip_audio and "duration" in entry:
+            n = int(round(float(entry["duration"]) * self.sample_rate))
+            if speed is not None:
+                # stand-in length must match the owning host's REAL
+                # perturbed length, or padded widths desync across hosts
+                n = self.speed_perturb.perturbed_len(n, speed)
+            elif audio_cap is not None:
+                n = min(n, int(audio_cap))
+            sig = np.zeros((max(n, 1),), np.float32)
+        else:
+            sig = self._load_audio(entry, speed=speed)
+        sample: Dict[str, Any] = {
+            "id": utt_id,
+            "sig": sig,
+            "duration": float(entry.get("duration",
+                                        len(sig) / self.sample_rate)),
+            "task": entry.get("task", ""),
+            "source_lang": entry.get("source_lang", ""),
+            "target_lang": entry.get("target_lang", ""),
+        }
+        if self.speed_perturb is not None and getattr(
+            self.speed_perturb, "device", False
+        ):
+            # device-side perturb: host only samples the speed (keyed,
+            # same order-invariance contract as the host path)
+            sample["speed_idx"] = self.speed_perturb.index_for(key)
+        if self.tokenizer is not None:
+            sample.update(
+                build_target_ids(
+                    entry, self.tokenizer, self.bos_index, self.eos_index,
+                    self.include_xt, self.include_turn,
+                )
+            )
+        for key in self.text_keys:
+            if key in entry:
+                sample[key] = entry[key]
+        return sample
+
+    def _load_audio(self, entry: Dict[str, Any],
+                    speed: Optional[int] = None) -> np.ndarray:
+        parts = [
+            read_audio(p, sample_rate=self.sample_rate)[0]
+            for p in wav_paths(entry)
+        ]
+        sig = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        if self.speed_perturb is not None and not getattr(
+            self.speed_perturb, "device", False
+        ):
+            # speed comes from sample()'s keyed draw; None only on
+            # direct _load_audio calls (legacy sequential draw)
+            sig = self.speed_perturb(sig, speed=speed)
+        return np.asarray(sig, np.float32)
+
+
+def sort_ids(dataset: SpeechDataset, sorting: str) -> List[int]:
+    """ascending/descending/random index order (dataio_and_utils.py:175-200)."""
+    durs = dataset.durations()
+    if sorting == "ascending":
+        return list(np.argsort(durs, kind="stable"))
+    if sorting == "descending":
+        return list(np.argsort(-durs, kind="stable"))
+    if sorting == "random":
+        return list(range(len(dataset)))
+    raise NotImplementedError(
+        "sorting must be random, ascending or descending"
+    )
 
 
 def _pad_to(n: int, multiple: int) -> int:

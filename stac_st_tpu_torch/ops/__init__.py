@@ -1,1 +1,2 @@
-"""Feature extraction, masks and the decode-attention kernels."""
+"""Feature extraction, masks, losses, augmentation (SpecAugment, speed
+perturbation) and the attention kernels."""

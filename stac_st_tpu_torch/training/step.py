@@ -2,10 +2,11 @@
 
 One training step:
 
-  PCM16/float audio -> fbank -> CMVN (running-stats update when asked)
-  -> SpecAugment -> conv front end (dropout) -> teacher-forced
-  encoder-decoder (dropout; key-padding attention through the
-  ``flash_attention_train`` kernels) -> CTC + label-smoothed NLL ->
+  PCM16/float audio -> device speed perturbation (when configured and
+  the batch has a speed_idx column) -> fbank -> CMVN (running-stats
+  update when asked) -> SpecAugment -> conv front end (dropout) ->
+  teacher-forced encoder-decoder (dropout; key-padding attention through
+  the ``flash_attention_train`` kernels) -> CTC + label-smoothed NLL ->
   backward -> the optimizer chain.
 
 Semantics kept from the reference:
@@ -65,6 +66,9 @@ class StepConfig(NamedTuple):
     blank_index: int
     #: network compute dtype (None = fp32), e.g. torch.bfloat16
     compute_dtype: Optional[torch.dtype] = None
+    #: optional ops.speed_perturb.DeviceSpeedPerturb: resample on the
+    #: device in training when the batch carries a speed_idx column
+    device_speed: Any = None
 
     def modules(self) -> Dict[str, nn.Module]:
         return dict(zip(MODULE_KEYS, (self.cnn, self.transformer,
@@ -258,6 +262,10 @@ def _forward(params: FlatParams, flat: torch.Tensor, cmvn: CmvnState,
     wavs, wav_lens = batch["sig"], batch["sig_len"]
     if wavs.dtype == torch.int16:
         wavs = wavs.to(torch.float32) / 32768.0  # exact inverse of the pack
+    if cfg.device_speed is not None and train and "speed_idx" in batch:
+        # the losses keep the batch's own sig_len, as the JAX step does
+        wavs, wav_lens = cfg.device_speed.apply(wavs, wav_lens,
+                                                batch["speed_idx"])
     feats = cfg.fbank(wavs)
     if update_cmvn:
         cmvn = cmvn_update(cmvn, feats, wav_lens)

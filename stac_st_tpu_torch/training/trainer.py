@@ -2,9 +2,12 @@
 ``stac_st_tpu/training/trainer.py``).
 
 ``STTrainer`` builds the step configuration from the modules and hparams
-(precision, losses, SpecAugment, the optimizer chain), creates the train
-state at the first batch, moves each ``PaddedBatch`` to the device (PCM16
-when ``transfer_int16`` is set) and runs ``fit``: per epoch, the CMVN
+(precision, losses, SpecAugment, device speed perturbation, the optimizer
+chain), creates the train state at the first batch, moves each
+``PaddedBatch`` to the device (PCM16 when ``transfer_int16`` is set; the
+``speed_idx`` column when the loader drew one) and runs ``fit`` over a
+``data.loader.BatchLoader`` or any iterable of batches: per epoch,
+``set_epoch`` (which keys the loader's shuffle and speed draw), the CMVN
 update gate, one train step per batch, ``optimizer_step_limit`` and the
 debug limits.
 
@@ -12,8 +15,8 @@ Randomness: one CPU ``torch.Generator`` per trainer, seeded from
 ``hparams["seed"]``; each step draws its integer seed from it.
 
 Not ported yet: meshes and multi-device, pipeline stages, preemption
-handling, checkpoints, validation with beam search, ``evaluate``, speed
-perturbation, and the ``train_attn_kernel`` / ``rng_impl`` run options
+handling, checkpoints, validation with beam search, ``evaluate``, and the
+``train_attn_kernel`` / ``rng_impl`` run options
 (the port always takes its attention kernels).
 """
 
@@ -82,6 +85,9 @@ class STTrainer:
             pad_index=int(h.get("pad_index", 0)),
             blank_index=int(h.get("blank_index", 0)),
             compute_dtype=compute_dtype,
+            device_speed=(h.get("speed_perturb")
+                          if getattr(h.get("speed_perturb"), "device", False)
+                          else None),
         )
         self.normalize = modules.get("normalize")
         scheduler = h.get("lr_scheduler")
@@ -130,7 +136,9 @@ class STTrainer:
         sig = batch.sig.data
         if self._transfer_int16 and sig.dtype == np.float32:
             # ship PCM16 and unpack on the device: half the bytes, and
-            # exact for 16-bit source audio (round(x·32768) inverts /32768)
+            # exact for 16-bit source audio (round(x·32768) inverts /32768);
+            # audio resampled on the host (8 kHz files, host speed
+            # perturbation) is not such audio and is rounded here
             sig = np.clip(np.rint(sig * 32768.0), -32768, 32767).astype(
                 np.int16)
         arrays = {
@@ -142,6 +150,9 @@ class STTrainer:
             "tokens_eos": batch.tokens_eos.data,
             "tokens_eos_len": batch.tokens_eos.lengths,
         }
+        extras = getattr(batch, "extras", {})
+        if "speed_idx" in extras:
+            arrays["speed_idx"] = np.asarray(extras["speed_idx"], np.int64)
         out = {}
         for key, value in arrays.items():
             t = torch.from_numpy(np.ascontiguousarray(value))
@@ -152,9 +163,10 @@ class STTrainer:
 
     # ------------------------------------------------------------------- fit
     def fit(self, epoch_counter, train_set, progress_every: int = 50) -> None:
-        """Train over ``train_set`` (any iterable of ``PaddedBatch``;
-        ``set_epoch(epoch)`` is called where it has one) for each epoch of
-        ``epoch_counter`` (an iterable of epoch numbers)."""
+        """Train over ``train_set`` (a ``BatchLoader`` or any iterable of
+        ``PaddedBatch``; ``set_epoch(epoch)`` is called where it has one,
+        and a ``BatchLoader`` passes it on to its sampler and dataset) for
+        each epoch of ``epoch_counter`` (an iterable of epoch numbers)."""
         for epoch in epoch_counter:
             if hasattr(train_set, "set_epoch"):
                 train_set.set_epoch(epoch)

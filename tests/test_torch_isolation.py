@@ -1,7 +1,9 @@
 """The port stands alone: it pulls in no JAX and nothing of the JAX package,
 and its entry points run on CUDA unless the caller asks for the CPU."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -40,8 +42,60 @@ def test_importing_every_module_pulls_in_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15  # every module of the package was imported
+    assert int(n) >= 49  # every module of the package was imported
     assert bad == "[]", bad
+
+
+# what the port never imports, at module level or inside a function (the
+# import-all check above sees only what importing runs)
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "stac_st_tpu", "_stacnative",
+              "_stacaudio")
+_DYNAMIC = re.compile(r"(import_module|__import__)\(\s*[\"']("
+                      + "|".join(_FORBIDDEN) + r")(\.|[\"'])")
+
+
+def _imports(tree):
+    """(line, module) of every import statement in the tree; a relative
+    import of the JAX package's native loader counts as ``_stacnative``."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level and (node.module or "").split(".")[-1] == "native":
+                yield node.lineno, "_stacnative"
+            elif not node.level:
+                yield node.lineno, node.module or ""
+
+
+def test_no_source_imports_jax_or_the_jax_package_anywhere():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "stac_st_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    found = []
+    for path in files:
+        src = open(path, encoding="utf-8").read()
+        rel = os.path.relpath(path, ROOT)
+        found += [f"{rel}:{line} {mod}" for line, mod in
+                  _imports(ast.parse(src, path))
+                  if mod.split(".")[0] in _FORBIDDEN]
+        found += [f"{rel}: {m.group(0)}" for m in _DYNAMIC.finditer(src)]
+    assert len(files) >= 50
+    assert found == []
+
+
+def test_the_source_check_sees_lazy_imports():
+    src = ("def f():\n    import jax.numpy as jnp\n"
+           "    from stac_st_tpu.data import audio\n"
+           "    from ..native import get_native\n"
+           "    from stac_st_tpu_torch.data import audio\n")
+    assert [m for _, m in _imports(ast.parse(src))] == [
+        "jax.numpy", "stac_st_tpu.data", "_stacnative", "stac_st_tpu_torch.data"]
+    assert [m.split(".")[0] in _FORBIDDEN for _, m in
+            _imports(ast.parse(src))] == [True, True, True, False]
+    assert _DYNAMIC.search('importlib.import_module("jax")')
+    assert _DYNAMIC.search("__import__('stac_st_tpu.ops')")
+    assert not _DYNAMIC.search('import_module("stac_st_tpu_torch.ops")')
 
 
 def _tiny_engine_parts():

@@ -109,30 +109,33 @@ def test_ctc_loss_matches_optax_including_an_infeasible_row():
     tgt[0, 1] = tgt[0, 0]  # a repeat: needs a blank between
     in_len = np.asarray([1.0, 0.75, 4 / 12], np.float32)
     tgt_len = np.asarray([4 / 6, 1.0, 1.0], np.float32)
-    lp = jax.nn.log_softmax(jnp.asarray(logits))
-    per_row = j_ctc_loss(lp, jnp.asarray(tgt), jnp.asarray(in_len),
-                         jnp.asarray(tgt_len), reduction="batch")
-    assert 9e4 < float(per_row[2]) < 1e6
-    for reduction in ("batch", "batchmean", "mean", "sum"):
-        def f(x):
+    reductions = ("batch", "batchmean", "mean", "sum")
+
+    @jax.jit
+    def jax_refs(x):
+        """Every reduction's loss and the batchmean gradient, one compile."""
+        def f(x, reduction):
             return j_ctc_loss(jax.nn.log_softmax(x), jnp.asarray(tgt),
                               jnp.asarray(in_len), jnp.asarray(tgt_len),
                               reduction=reduction)
+        losses = {r: f(x, r) for r in reductions}
+        return losses, jax.grad(f)(x, "batchmean")
+
+    refs, g_want = jax_refs(jnp.asarray(logits))
+    assert 9e4 < float(refs["batch"][2]) < 1e6
+    g_want = np.asarray(g_want)
+    for reduction in reductions:
         x = _t(logits).requires_grad_()
         got = ctc_loss(torch.log_softmax(x, -1), _t(tgt), _t(in_len),
                        _t(tgt_len), reduction=reduction)
-        if reduction != "batchmean":
-            want = f(jnp.asarray(logits))
-        else:
-            want, g_want = jax.jit(jax.value_and_grad(f))(
-                jnp.asarray(logits))
+        if reduction == "batchmean":
             got.backward()
-            g_want = np.asarray(g_want)
             np.testing.assert_allclose(x.grad.numpy()[:2], g_want[:2],
                                        atol=1e-5, rtol=0)
             np.testing.assert_allclose(x.grad.numpy()[2], g_want[2],
                                        atol=1e-2, rtol=0)
-        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   np.asarray(refs[reduction]),
                                    rtol=1e-6, atol=1e-4)
 
 
@@ -164,8 +167,9 @@ def test_specaugment_apply_matches_jax(mode):
                                n_freq_mask=2, freq_mask_width=5,
                                n_time_mask=2, time_mask_width=8)
     c, w = params.warp
-    warped = np.asarray(j_warp_to(jnp.asarray(feats), jnp.int32(c),
-                                  jnp.int32(w), mode))
+    # one compile of the warp (eager, each of its operations compiles)
+    warped = np.asarray(jax.jit(j_warp_to, static_argnums=3)(
+        jnp.asarray(feats), jnp.int32(c), jnp.int32(w), mode))
     np.testing.assert_allclose(warp_to(_t(feats), c, w, mode).numpy(),
                                warped, atol=1e-5, rtol=0)
     want = warped.copy()
