@@ -84,16 +84,42 @@ Phases, each printed as one JSON line:
    1e-5. Prints the loader's rate alone (1 and 4 workers, device and
    host perturbation) and its stages, a warm step on the largest batch,
    peak memory, and with --profile the idle share of that step;
-7. card_vs_cpu: the port on the card against the port on the CPU, full
+7. recipe: the canonical recipe as a user runs it,
+   stac_st_tpu_torch.recipes.train_multitask.main on
+   recipes/hparams/transformer_multitask.yaml at its full width (host
+   SpeedPerturb, SpecAugment, accumulation 16, bf16), overriding only the
+   data and output paths, the splits, 2 epochs, validation search every
+   epoch, 4 loader workers, evaluation on, a 10-step warm-up and the
+   tokenizer's [turn]/[xt] ids. The data_train corpus, 544 utterances,
+   split into train (512), dev (16 ST rows) and a heldout split as ASR
+   and as 4-reference ST manifests. The first run gets a SIGTERM raised
+   in-process after its third batch: it must save a preempted checkpoint,
+   return from fit without validating, chain to and restore the previous
+   handler. The second run must resume from that checkpoint with
+   parameters, Adam's moments and accumulator, the optimizer's counts,
+   the step-seed generator, CMVN and counters bitwise equal to the saved
+   ones, re-run epoch 1 and run epoch 2, validate both with the dual
+   search (every decode launch on the fp32 "simt" kernels, as the JAX
+   trainer searches its fp32 weights), keep 2 ACC checkpoints, evaluate
+   on their average (bitwise) and write the bleu_/wer_ files of both
+   heldout splits; the YAML's references must share the modules. Then
+   STEngine.from_saved_experiment loads weights bitwise equal to that
+   average and translates the heldout audio. Launches of the phase by
+   kernel and variant (kernels 2-7 each at least once), each stage's wall
+   seconds, fit's audio-s/s, the validation stats and search seconds
+   a epoch; the recipe's own output goes to
+   chiprun_out/recipe_log_cuda.txt;
+8. card_vs_cpu: the port on the card against the port on the CPU, full
    width, fp32, 2 x 2 s: one decode step's logits and the token agreement
    of a short translate;
-8. card_vs_cpu_train: one train step, full width d256/H4, 2 + 2 layers,
+9. card_vs_cpu_train: one train step, full width d256/H4, 2 + 2 layers,
    B2 x 2 s, fp32 (TF32 off), dropout 0: loss, gradients and updated
    parameters, card against CPU; then the same for B3 x 2 s through
    DeviceSpeedPerturb, one row at each speed.
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
-kernel names the variant its main-path launches went through),
+kernel names the variant its main-path launches went through, and its
+launches in the recipe phase),
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
@@ -1048,13 +1074,15 @@ def write_ulaw_sphere(path: str, wav: np.ndarray, rate: int) -> None:
         f.write(header + b" " * (1024 - len(header)) + ulaw_bytes(pcm))
 
 
-def write_corpus(root: str, seed: int = 0):
-    """N_CORPUS utterances of 12-15 s of seeded noise-and-tone audio at
-    8 kHz, as PCM16 WAV (every eighth entry two files that the loader
-    concatenates; one entry a mu-law SPHERE file), a training manifest in
-    the reference schema (half ASR rows, half ES->EN rows; pseudo-word
-    text, some rows with [turn] or [turn] [xt]) and the joint text lines
-    for the tokenizer. Returns (manifest path, joint lines, audio s)."""
+def write_corpus(root: str, seed: int = 0, n: int = N_CORPUS,
+                 seconds=(12.0, 15.0)):
+    """``n`` utterances (N_CORPUS) of 12-15 s (``seconds``) of seeded
+    noise-and-tone audio at 8 kHz, as PCM16 WAV (every eighth entry two
+    files that the loader concatenates; one entry a mu-law SPHERE file), a
+    training manifest in the reference schema (half ASR rows, half ES->EN
+    rows; pseudo-word text, some rows with [turn] or [turn] [xt]) and the
+    joint text lines for the tokenizer. Returns (manifest path, joint
+    lines, audio s)."""
     from stac_st_tpu_torch.data.audio import write_wav
 
     rng = np.random.default_rng(seed)
@@ -1068,8 +1096,8 @@ def write_corpus(root: str, seed: int = 0):
     es, en = lexicon(400), [w[::-1] for w in lexicon(400)]
     os.makedirs(os.path.join(root, "wav"), exist_ok=True)
     entries, lines, total = {}, [], 0.0
-    for i in range(N_CORPUS):
-        dur = float(rng.uniform(12.0, 15.0))
+    for i in range(n):
+        dur = float(rng.uniform(*seconds))
         n = int(dur * FILE_SR)
         t = np.arange(n) / FILE_SR
         wav = (0.2 * np.sin(2 * np.pi * (150 + 7 * (i % 40)) * t)
@@ -1389,6 +1417,349 @@ def data_train_phase(torch, kernels, profile: bool):
     return rec
 
 
+# the recipe phase: recipes/hparams/transformer_multitask.yaml as it ships
+# (full width, host SpeedPerturb, SpecAugment, accumulation 16) through the
+# port's recipe entry point, on the data_train corpus split into the
+# recipe's {data_folder}/{split}.json layout
+RECIPE_YAML = os.path.join(ROOT, "recipes", "hparams",
+                           "transformer_multitask.yaml")
+# 512 training utterances give about 17 batches of 450 s an epoch, so the
+# YAML's 16-microbatch accumulation applies an update in each epoch
+N_TRAIN, N_DEV, N_HELDOUT = 512, 16, 16
+SIGTERM_AFTER = 3  # batches of epoch 1 before the in-process SIGTERM
+RECIPE_DECODE = ("decode_self_attention_anc", "decode_cross_attention")
+
+
+def recipe_corpus(root: str, n_train: int, n_dev: int, n_heldout: int,
+                  seconds=(12.0, 15.0)):
+    """write_corpus, split: ``train`` (ASR and ST rows), ``dev`` (ST rows),
+    ``heldout/data-asr`` (transcription rows) and ``heldout/data-st`` (the
+    same utterances' translation rows, four references); a BPE tokenizer
+    trained on the text as data_train trains it ([es] [en] [turn] [xt] are
+    3-6). Returns (tokenizer path, heldout audio paths)."""
+    from stac_st_tpu_torch.tokenizer import train_bpe
+
+    n_tail = n_dev + n_heldout
+    path, lines, _ = write_corpus(root, n=n_train + 2 * n_tail,
+                                  seconds=seconds)
+    with open(path) as f:
+        entries = json.load(f)
+    ids = list(entries)
+    # ST rows (odd rows) carry both texts: transcription and translation_0
+    tail = [u for u in ids[n_train:] if entries[u]["task"] == "translation"]
+    check(len(tail) == n_tail, f"{len(tail)} ST rows for dev and heldout")
+    dev, heldout = tail[:n_dev], tail[n_dev:]
+    train = [u for u in ids if u not in set(tail)]
+    asr = {u: {**entries[u], "task": "transcription", "target_lang": "es",
+               "translation_0": entries[u]["transcription"]} for u in heldout}
+    st = {u: {**entries[u], **{f"translation_{k}": entries[u]["translation_0"]
+                               for k in range(4)}} for u in heldout}
+    os.makedirs(os.path.join(root, "heldout"), exist_ok=True)
+    for name, part in (("train", {u: entries[u] for u in train}),
+                       ("dev", {u: entries[u] for u in dev}),
+                       ("heldout/data-asr", asr), ("heldout/data-st", st)):
+        with open(os.path.join(root, f"{name}.json"), "w") as f:
+            json.dump(part, f, indent=1)
+    model = train_bpe(lines, vocab_size=600,
+                      user_defined_symbols=["[es]", "[en]", "[turn]", "[xt]"])
+    tok = os.path.join(root, "bpe.model")
+    model.save(tok)
+    wavs = [entries[u]["wav"].split()[0].replace("{data_root}", root)
+            for u in heldout]
+    return tok, wavs
+
+
+class _Feed:
+    """Passes the recipe's train loader through: counts the audio seconds
+    it hands over, and in the run it arms raises SIGTERM in-process after
+    the ``after``-th batch of the first epoch (tests/test_e2e.py's
+    deterministic preemption)."""
+
+    def __init__(self, loader, after=None):
+        self.loader, self.after = loader, after
+        self.fired, self.audio_s, self.batches = False, 0.0, 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        import signal
+
+        for i, batch in enumerate(self.loader):
+            self.audio_s += float(np.sum(batch.duration))
+            self.batches += 1
+            yield batch
+            if self.after and not self.fired and i + 1 >= self.after:
+                self.fired = True
+                signal.raise_signal(signal.SIGTERM)
+
+
+def trees_equal(a, b) -> bool:
+    """Nested dicts of arrays and scalars, bitwise (and dtype) equal."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and sorted(a) == sorted(b)
+                and all(trees_equal(a[k], b[k]) for k in a))
+    x, y = np.asarray(a), np.asarray(b)
+    return (x.dtype == y.dtype and x.shape == y.shape
+            and x.tobytes() == y.tobytes())
+
+
+def model_tree(cnn, transformer, seq_lin, ctc_lin):
+    from stac_st_tpu_torch.interop.from_jax import to_jax_params
+
+    return to_jax_params(cnn, transformer, seq_lin, ctc_lin)
+
+
+def resume_check(trainer, ckpt) -> dict:
+    """The trainer's state just after resuming from ``ckpt`` against the
+    trees the checkpoint holds, bitwise: parameters, Adam's moments, the
+    accumulator, the optimizer's counts, the step-seed generator, CMVN and
+    the counters; the epoch counter re-enters the preempted epoch."""
+    st, cfg = trainer.state, trainer.cfg
+    opt, norm = ckpt.load("opt_torch"), ckpt.load("normalizer")
+    counters = ckpt.load("counters")
+    host = {k: getattr(st.opt_state, k).cpu().numpy()
+            for k in ("mu", "nu", "count", "notfinite", "acc")
+            if getattr(st.opt_state, k) is not None}
+    return {
+        "params": trees_equal(model_tree(cfg.cnn, cfg.transformer,
+                                         cfg.seq_lin, cfg.ctc_lin),
+                              ckpt.load("model")),
+        "moments": trees_equal(host, {k: opt[k] for k in host}),
+        "opt_counts": (st.opt_state.sched_count == opt["sched_count"]
+                       and st.opt_state.mini_step == opt["mini_step"]),
+        "generator": trees_equal(trainer.generator.get_state().numpy(),
+                                 opt["generator"]),
+        "cmvn": trees_equal({k: getattr(st.cmvn, k).cpu().numpy()
+                             for k in ("mean", "std", "count")}, norm),
+        "counters": (st.optimizer_step == counters["optimizer_step"]
+                     and st.micro_step == counters["micro_step"]),
+        "epoch_reentered": (trainer.hparams["epoch_counter"].current
+                            == counters["epoch"] - 1),
+    }
+
+
+def recipe_run(torch, kernels, root: str, device: str, extra=(),
+               n_train: int = N_TRAIN, n_dev: int = N_DEV,
+               n_heldout: int = N_HELDOUT, seconds=(12.0, 15.0)) -> dict:
+    """The recipe twice from its YAML (SIGTERM in the first run, resume in
+    the second), then the saved experiment through STEngine; ``extra``
+    overrides (none on the card). Checks as the phase states; returns its
+    record."""
+    import contextlib
+    import signal
+
+    from stac_st_tpu_torch.recipes import train_multitask as R
+    from stac_st_tpu_torch.serving import STEngine
+    from stac_st_tpu_torch.training.checkpoint import (
+        Checkpointer,
+        average_checkpoints,
+    )
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rec = {"yaml": os.path.relpath(RECIPE_YAML, ROOT), "device": device,
+           "train_utterances": n_train, "dev_utterances": n_dev,
+           "heldout_utterances": n_heldout, "sigterm_after": SIGTERM_AFTER}
+    t0 = time.perf_counter()
+    tok, wavs = recipe_corpus(root, n_train, n_dev, n_heldout, seconds)
+    rec["corpus_and_tokenizer_s"] = time.perf_counter() - t0
+    out = os.path.join(root, "exp")
+    args = [RECIPE_YAML, f"--device={device}", f"--data_folder={root}",
+            f"--tokenizer_file={tok}", f"--output_folder={out}",
+            "--train_splits=train", "--dev_splits=dev",
+            "--test_splits_4_translations=[heldout/data-st]",
+            "--test_splits_1_translations=[heldout/data-asr]",
+            "--number_of_epochs=2", "--valid_search_interval=1",
+            "--num_workers=4", "--no_eval=False", "--n_warmup_steps=10",
+            "--turn=5", "--xt=6", *extra]
+    rec["overrides"] = args[1:]
+
+    runs = []
+    base = R.STTrainer
+
+    class Recorded(base):
+        """The recipe's trainer, recording each stage's wall time, the
+        validation stats and launches, and the state just after resume."""
+
+        def load_from_checkpoint(self, ckpt):
+            super().load_from_checkpoint(ckpt)
+            runs[-1]["resumed_from"] = os.path.basename(ckpt.path)
+            runs[-1]["resume"] = resume_check(self, ckpt)
+
+        def fit(self, *a, **kw):
+            t = time.perf_counter()
+            super().fit(*a, **kw)
+            sync()
+            runs[-1]["fit_s"] = time.perf_counter() - t
+
+        def _validate(self, valid_set, epoch):
+            before = dict(kernels.launches)
+            t = time.perf_counter()
+            stats = super()._validate(valid_set, epoch)
+            sync()
+            runs[-1]["valid"].append({
+                "epoch": epoch, **stats,
+                "valid_s": time.perf_counter() - t,
+                "search_s": self.valid_search_s,
+                "launches": {k: v - before.get(k, 0)
+                             for k, v in kernels.launches.items()
+                             if v != before.get(k, 0)}})
+            return stats
+
+        def evaluate(self, test_set, *a, **kw):
+            t = time.perf_counter()
+            stats = super().evaluate(test_set, *a, **kw)
+            sync()
+            runs[-1]["evaluate"].append({
+                "bleu_file": os.path.basename(self.hparams["bleu_file"]),
+                **stats, "s": time.perf_counter() - t})
+            return stats
+
+    prepare = R.dataio_prepare
+    feeds = []
+
+    def prepared(hparams):
+        datasets, loaders = prepare(hparams)
+        loaders["train"] = _Feed(loaders["train"],
+                                 SIGTERM_AFTER if not feeds else None)
+        feeds.append(loaders["train"])
+        return datasets, loaders
+
+    chained = []
+
+    def marker(signum, frame):
+        chained.append(signum)
+
+    outer = signal.signal(signal.SIGTERM, marker)
+    R.STTrainer, R.dataio_prepare = Recorded, prepared
+    kernels.reset_launches()
+    try:
+        with open(os.path.join(OUT_DIR, f"recipe_log_{device}.txt"),
+                  "w") as log, contextlib.redirect_stdout(log):
+            trainers = []
+            for _ in range(2):
+                runs.append({"valid": [], "evaluate": []})
+                t = time.perf_counter()
+                trainers.append(R.main(args))
+                sync()
+                runs[-1]["main_s"] = time.perf_counter() - t
+                if len(trainers) == 1:
+                    check(signal.getsignal(signal.SIGTERM) is marker,
+                          "fit restored the previous SIGTERM handler")
+    finally:
+        R.STTrainer, R.dataio_prepare = base, prepare
+        signal.signal(signal.SIGTERM, outer)
+    first, second = trainers
+
+    # run 1: stopped by SIGTERM after SIGTERM_AFTER batches, a preempted
+    # checkpoint, no validation, the handler chained and restored
+    check(feeds[0].fired and first.preempted, "SIGTERM fired and stopped fit")
+    check(chained == [signal.SIGTERM], f"previous handler called {chained}")
+    # the signal lands while the loader fetches the next batch: that
+    # batch's step runs, then fit checkpoints and returns
+    check(first.state.micro_step == feeds[0].batches == SIGTERM_AFTER + 1,
+          f"run 1 took {first.state.micro_step} steps")
+    check(not runs[0]["valid"] and not runs[0]["evaluate"],
+          "no validation or evaluation after SIGTERM")
+    save = Checkpointer(os.path.join(out, "save"))
+    pre = [c for c in save.list_checkpoints() if c.meta.get("preempted")]
+    check(len(pre) == 1 and pre[0].meta["epoch"] == 1,
+          f"preempted checkpoints {[c.meta for c in pre]}")
+    # run 2: resumed from it, bitwise; re-ran epoch 1, then epoch 2
+    check(runs[1].get("resumed_from") == os.path.basename(pre[0].path),
+          "run 2 resumed from the preempted checkpoint")
+    check(all(runs[1]["resume"].values()), f"resume {runs[1]['resume']}")
+    check([v["epoch"] for v in runs[1]["valid"]] == [1, 2],
+          "validated epochs 1 and 2")
+    check(second.state.micro_step == feeds[0].batches + feeds[1].batches,
+          "micro steps across the resume")
+    check(second.state.optimizer_step
+          == second.state.micro_step // second.tx.accum,
+          f"optimizer steps {second.state.optimizer_step}")
+    for v in runs[1]["valid"]:
+        check(all(np.isfinite(v[k]) for k in ("loss", "ACC", "BLEU", "WER",
+                                              "BLEU_no_turn", "WER_no_turn")),
+              f"valid stats {v}")
+        check(all(v["launches"].get(f"{n}/simt", 0) > 0
+                  and not v["launches"].get(f"{n}/{SPLIT}")
+                  for n in RECIPE_DECODE) or device != "cuda",
+              f"validation searches in fp32 (simt): {v['launches']}")
+    acc = save.find_checkpoints(max_key="ACC")
+    check(1 <= len(acc) <= 5 and sorted(c.meta["epoch"] for c in acc)
+          == [1, 2], f"ACC checkpoints {[c.meta for c in acc]}")
+    avg = average_checkpoints(acc, "model")
+    cfg = second.cfg
+    check(trees_equal(model_tree(cfg.cnn, cfg.transformer, cfg.seq_lin,
+                                 cfg.ctc_lin), avg),
+          "evaluation ran on the average of the kept checkpoints")
+    files = sorted(f for f in os.listdir(out)
+                   if f.startswith(("bleu_", "wer_")))
+    check(files == ["bleu_heldout_data-st.csv", "bleu_heldout_data-st.txt",
+                    "bleu_heldout_data-st_no_turn.csv",
+                    "bleu_heldout_data-st_no_turn.txt",
+                    "wer_heldout_data-asr.csv", "wer_heldout_data-asr.txt",
+                    "wer_heldout_data-asr_no_turn.csv",
+                    "wer_heldout_data-asr_no_turn.txt"], f"files {files}")
+    # YAML objects shared by !ref: one module under every key
+    hp = second.hparams
+    check(hp["valid_search"].model is hp["test_search"].model
+          is hp["modules"]["Transformer"] is cfg.transformer
+          and list(hp["model"]) == [cfg.cnn, cfg.transformer, cfg.seq_lin,
+                                    cfg.ctc_lin]
+          and hp["checkpointer"].recoverables["model"] is hp["model"],
+          "YAML references share the modules")
+
+    # the saved experiment, reloaded from its own config, serves
+    t = time.perf_counter()
+    eng = STEngine.from_saved_experiment(out, device=device, bf16=False)
+    sync()
+    load_s = time.perf_counter() - t
+    check(trees_equal(model_tree(eng._cnn, eng._transformer,
+                                 eng.searcher.seq_lin, eng._ctc_lin), avg),
+          "from_saved_experiment loads the trainer's average")
+    audio = [eng.load_audio(w) for w in wavs]
+    before = dict(kernels.launches)
+    t = time.perf_counter()
+    texts = eng.translate(audio)
+    sync()
+    translate_s = time.perf_counter() - t
+    launches = dict(kernels.launches)
+    check(len(texts) == len(wavs) and all(isinstance(x, str) for x in texts),
+          "translate")
+    rec.update({
+        "run1": runs[0], "run2": runs[1],
+        "fit_audio_s": [f.audio_s for f in feeds],
+        "fit_audio_s_per_s": [
+            f.audio_s / (r["fit_s"] - sum(v["valid_s"] for v in r["valid"]))
+            for f, r in zip(feeds, runs)],
+        "checkpoints_kept": [{"ACC": c.meta["ACC"], "epoch": c.meta["epoch"]}
+                             for c in acc],
+        "optimizer_steps": second.state.optimizer_step,
+        "engine_load_s": load_s, "translate_s": translate_s,
+        "translate_audio_s": sum(len(a) for a in audio) / SR,
+        "translations": texts[:2], "launches": launches,
+        "launches_translate": {k: v - before.get(k, 0)
+                               for k, v in launches.items()
+                               if v != before.get(k, 0)}})
+    return rec
+
+
+def recipe_phase(torch, kernels, smi: str):
+    """The canonical recipe at full width on the card (recipe_run)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rec = recipe_run(torch, kernels, root, "cuda")
+        rec["phase_s"] = time.perf_counter() - t0
+    launches = rec["launches"]
+    for name in RECIPE_DECODE + FLASH:
+        check(launches.get(name, 0) > 0, f"recipe launched no {name}")
+    emit({"phase": "recipe", "gpu": smi, **rec})
+    return rec
+
+
 def _card_vs_cpu_step(torch, pb, speed_idx=None):
     """One train step of batch ``pb`` at full width (2 + 2 layers), fp32,
     dropout 0, on the card and on the CPU; with ``speed_idx``, through
@@ -1576,6 +1947,7 @@ def main() -> int:
     main_rec = main_path_phase(torch, kernels, args.profile)
     _, train_launches = train_phase(torch, kernels, args.profile)
     data_train_phase(torch, kernels, args.profile)
+    recipe = recipe_phase(torch, kernels, smi)
     card_vs_cpu_phase(torch)
     card_vs_cpu_train_phase(torch)
 
@@ -1587,6 +1959,7 @@ def main() -> int:
             "name": rec["name"], "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": main_rec["launches"].get(rec["name"], 0),
+            "recipe_launches": recipe["launches"].get(rec["name"], 0),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
@@ -1603,6 +1976,7 @@ def main() -> int:
             "name": rec["name"], "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": train_launches.get(rec["name"], 0),
+            "recipe_launches": recipe["launches"].get(rec["name"], 0),
             "max_abs_err": max(v for k, v in rec["abs_err"].items()
                                if "bfloat16" in k),
             "ms": enc["ms"], "plain_ms": enc["plain_ms"],

@@ -7,7 +7,16 @@ temperature, the eos threshold gate, length normalization, ONE top-k over
 beam·V (a hypothesis finishes only when eos itself wins a slot), a merged
 finished set, an exact early exit, segmented cache growth and the
 budget-normalized alive fallback. Hypotheses come back without prompt or
-eos. Joint-CTC and LM fusion are not ported (the constructor raises).
+eos. Joint-CTC and LM fusion, ``mask_encoder_padding`` and the int8 cache
+are not ported: the constructor refuses them, naming the field
+(``models.settings.require``).
+
+``MultiTaskBeamSearch`` takes the YAML's form (``modules=[Transformer,
+seq_lin, ctc_lin]``) or ``(model, seq_lin)``, and the reference's prompt
+API (``set_decoder_prefix_tokens`` then ``__call__``), which the trainer's
+validation and ``evaluate`` use. It searches with the modules' own
+weights: the trainer's modules read its flat parameter buffer, so a
+search always sees the current weights, without a bind or a copy.
 
 Cache mode: beam 1 decodes with the Kᵀ/V layout and no reorder (the parent
 of a single hypothesis is itself); beam > 1 always uses anc mode — the
@@ -23,9 +32,11 @@ the host.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from ..models.settings import require
 
 __all__ = ["BeamSearchConfig", "beam_search", "MultiTaskBeamSearch",
            "plan_segments"]
@@ -204,11 +215,11 @@ def beam_search(model, seq_lin, enc_out: torch.Tensor, prompt: torch.Tensor,
 
 
 class MultiTaskBeamSearch:
-    """Serving-facing searcher (port of the reference's
-    ``MultiTaskBeamSearch``): holds the decode config and the modules; the
-    prompt is runtime data, so one searcher serves ASR and ST."""
+    """The searcher (port of the reference's ``MultiTaskBeamSearch``):
+    holds the decode config and the modules; the prompt is runtime data,
+    so one searcher serves ASR and ST."""
 
-    def __init__(self, model, seq_lin, bos_index: int = 1,
+    def __init__(self, model=None, seq_lin=None, bos_index: int = 1,
                  eos_index: int = 2, blank_index: int = 0,
                  min_decode_ratio: float = 0.0,
                  max_decode_ratio: float = 1.0, beam_size: int = 5,
@@ -218,12 +229,28 @@ class MultiTaskBeamSearch:
                  temperature: float = 1.0, ctc_weight: float = 0.0,
                  lm_weight: float = 0.0,
                  max_decode_tokens: Optional[int] = None,
-                 cache_growth: Optional[int] = 64):
-        if ctc_weight > 0.0 or lm_weight > 0.0:
-            raise NotImplementedError(
-                "joint-CTC and LM fusion are not ported; the serving "
-                "configuration uses neither")
-        self.model, self.seq_lin = model, seq_lin
+                 cache_growth: Optional[int] = 64,
+                 modules: Optional[Sequence[Any]] = None,
+                 temperature_lm: float = 0.0,
+                 mask_encoder_padding: bool = False,
+                 kv_cache_dtype: Optional[str] = None, **unused):
+        """``modules`` (or a list as the first argument): [Transformer,
+        seq_lin, ctc_lin], as the JAX searcher and the YAMLs take them;
+        ``temperature_lm`` acts only with an LM, so it is accepted and
+        unused."""
+        if isinstance(model, (list, tuple)):
+            modules, model = model, None
+        ctc_lin = None
+        if modules is not None:
+            model, seq_lin = modules[0], modules[1]
+            ctc_lin = modules[2] if len(modules) > 2 else None
+        owner = "MultiTaskBeamSearch"
+        require(owner, "ctc_weight", float(ctc_weight), 0.0)
+        require(owner, "lm_weight", float(lm_weight), 0.0)
+        require(owner, "mask_encoder_padding", bool(mask_encoder_padding),
+                False)
+        require(owner, "kv_cache_dtype", kv_cache_dtype, None)
+        self.model, self.seq_lin, self.ctc_lin = model, seq_lin, ctc_lin
         self.config = BeamSearchConfig(
             beam_size=int(beam_size), bos_index=int(bos_index),
             eos_index=int(eos_index), blank_index=int(blank_index),
@@ -238,6 +265,25 @@ class MultiTaskBeamSearch:
         self.max_decode_tokens = (int(max_decode_tokens)
                                   if max_decode_tokens else None)
         self.cache_growth = int(cache_growth) if cache_growth else None
+        self.decoder_input_tokens: Optional[List[int]] = None
+
+    # ---- the reference's prompt API ------------------------------------
+    def set_decoder_prefix_tokens(self, source_lang: int,
+                                  target_lang: int) -> None:
+        self.decoder_input_tokens = [self.bos_token, int(source_lang),
+                                     int(target_lang)]
+
+    def __call__(self, enc_out: torch.Tensor, wav_lens=None):
+        """Search under the prompt set by ``set_decoder_prefix_tokens``.
+        Returns (hyps as lists of token ids, scores (B,) on the CPU).
+        ``wav_lens`` is accepted as the JAX searcher takes it; like the
+        reference's shipped decode path, the search does not mask encoder
+        padding."""
+        if self.decoder_input_tokens is None:
+            raise RuntimeError("call set_decoder_prefix_tokens(src, tgt) "
+                               "first")
+        return self.call_multi(enc_out, wav_lens,
+                               prompts=[self.decoder_input_tokens])[0]
 
     def max_steps(self, enc_frames: int) -> int:
         """min(⌊max_decode_ratio · S⌋, max_decode_tokens), at least 1."""
@@ -249,18 +295,23 @@ class MultiTaskBeamSearch:
     @torch.inference_mode()
     def search(self, enc_out: torch.Tensor, prompt: torch.Tensor):
         """(tokens (B, steps), lengths (B,), scores (B,)) on enc_out's
-        device; prompt (L,) or (B, L) int. Like the reference's shipped
-        decode path, cross-attention does not mask encoder padding."""
-        return beam_search(self.model, self.seq_lin, enc_out,
+        device; prompt (L,) or (B, L) int. ``enc_out`` is taken in the
+        model's dtype (the trainer's fp32 weights search a bf16 forward's
+        output in fp32, as JAX's type promotion does). Like the
+        reference's shipped decode path, cross-attention does not mask
+        encoder padding."""
+        dtype = next(self.model.parameters()).dtype
+        return beam_search(self.model, self.seq_lin, enc_out.to(dtype),
                            prompt.to(enc_out.device),
                            self.max_steps(enc_out.shape[1]), self.config,
                            cache_growth=self.cache_growth)
 
-    def call_multi(self, enc_out: torch.Tensor,
-                   prompts: Sequence[Sequence[int]]):
+    def call_multi(self, enc_out: torch.Tensor, wav_lens=None,
+                   prompts: Sequence[Sequence[int]] = ()):
         """Decode the same encoder output under P prompts in ONE search:
         enc_out is tiled P× on the batch axis, tile p gets prompt p.
-        Returns P (hyps, scores) pairs, hyps as lists of token ids."""
+        Returns P (hyps, scores) pairs, hyps as lists of token ids.
+        ``wav_lens`` as in ``__call__``."""
         pr = torch.as_tensor(prompts, dtype=torch.long)
         if pr.dim() != 2:
             raise ValueError("prompts must be a (P, L) token matrix")

@@ -1,4 +1,4 @@
-"""Load the JAX reference's parameters into the port's modules.
+"""Carry parameters between the JAX reference's layout and the port's.
 
 The JAX engine holds ``{"CNN", "Transformer", "seq_lin", "ctc_lin"}``
 flax parameter trees (each optionally wrapped in ``{"params": ...}``);
@@ -17,6 +17,11 @@ nothing set, raises. A transformer tree carries neither its head count nor
 its layer-norm placement (a post-LN and a pre-LN model have the same keys),
 so loading one also takes the JAX module's settings and refuses any that
 the port cannot run (``PORT_SETTINGS``).
+
+``to_jax_params`` is the inverse: the port's modules as the JAX tree (the
+same key set, each module under ``{"params": ...}``, numpy fp32 in the JAX
+layouts). The port writes its ``model`` checkpoints in that layout, so
+each package reads the other's.
 """
 
 from __future__ import annotations
@@ -28,21 +33,13 @@ import torch
 from torch import nn
 
 from ..models import ConvolutionFrontEnd, LinearHead, TransformerMultiTask
+from ..models.settings import PORT_SETTINGS, require_transformer
 from ..models.transformer import MultiHeadAttention
 from ..ops.cmvn import CmvnState
 
-__all__ = ["load_jax_params", "cmvn_from_jax", "PORT_SETTINGS"]
+__all__ = ["load_jax_params", "to_jax_params", "cmvn_from_jax",
+           "PORT_SETTINGS"]
 
-# The JAX ``TransformerMultiTask`` settings the port's model computes; any
-# other value loads the same keys into another network. ``nhead`` must
-# also equal the port module's own.
-PORT_SETTINGS = {
-    "normalize_before": True,
-    "causal": False,
-    "encoder_module": "transformer",
-    "attention_type": "regularMHA",
-    "positional_encoding": "fixed_abs_sine",
-}
 _MISSING = object()
 
 
@@ -144,16 +141,16 @@ def check_settings(settings: Any, transformer: TransformerMultiTask) -> None:
     if settings is None:
         raise ValueError("load_jax_params: a transformer tree needs the JAX "
                          "module's settings (settings=...)")
-    want = {**PORT_SETTINGS, "nhead": transformer.nhead}
     get = (settings.get if isinstance(settings, Mapping)
            else lambda f, d: getattr(settings, f, d))
-    for field, value in want.items():
-        got = get(field, _MISSING)
+
+    def field(name):
+        got = get(name, _MISSING)
         if got is _MISSING:
-            raise ValueError(f"JAX transformer settings lack {field!r}")
-        if got != value:
-            raise ValueError(f"JAX transformer {field}={got!r}: the port "
-                             f"runs only {field}={value!r}")
+            raise ValueError(f"JAX transformer settings lack {name!r}")
+        return got
+
+    require_transformer("JAX transformer", field, transformer.nhead)
 
 
 def _load_cnn(ld: _Loader, cnn: ConvolutionFrontEnd) -> None:
@@ -184,6 +181,78 @@ def _load_transformer(ld: _Loader, tr: TransformerMultiTask) -> None:
             ld.layernorm(layer.norm1, f"{key}/norm1")
             ld.layernorm(layer.norm2, f"{key}/norm2")
         ld.layernorm(stack.final_norm, f"Transformer/{side}/final_norm")
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().to("cpu", torch.float32).numpy())
+
+
+def _dense(lin: nn.Linear) -> Dict[str, np.ndarray]:
+    out = {"kernel": _np(lin.weight).T.copy()}
+    if lin.bias is not None:
+        out["bias"] = _np(lin.bias)
+    return out
+
+
+def _norm(ln: nn.LayerNorm) -> Dict[str, np.ndarray]:
+    return {"scale": _np(ln.weight), "bias": _np(ln.bias)}
+
+
+def _mha(mha: MultiHeadAttention) -> Dict[str, Any]:
+    w = _np(mha.in_proj.weight).T  # (d, 3d): q | k | v
+    b = _np(mha.in_proj.bias)
+    d = w.shape[0]
+    out = {f"{name}_proj": {"kernel": w[:, i * d:(i + 1) * d].copy(),
+                            "bias": b[i * d:(i + 1) * d].copy()}
+           for i, name in enumerate(("q", "k", "v"))}
+    out["out_proj"] = _dense(mha.out_proj)
+    return out
+
+
+def _transformer_tree(tr: TransformerMultiTask) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {
+        "src_proj": _dense(tr.src_proj),
+        "tgt_embed": {"embed": {"embedding": _np(tr.tgt_embed.embed.weight)}},
+    }
+    for side in ("encoder", "decoder"):
+        stack = getattr(tr, side)
+        layers: Dict[str, Any] = {"final_norm": _norm(stack.final_norm)}
+        for i, layer in enumerate(stack.layers):
+            entry = {"self_attn": _mha(layer.self_attn),
+                     "ffn": {"fc1": _dense(layer.ffn.fc1),
+                             "fc2": _dense(layer.ffn.fc2)},
+                     "norm1": _norm(layer.norm1),
+                     "norm2": _norm(layer.norm2)}
+            if side == "decoder":
+                entry["cross_attn"] = _mha(layer.cross_attn)
+                entry["norm3"] = _norm(layer.norm3)
+            layers[f"layer_{i}"] = entry
+        tree[side] = layers
+    return tree
+
+
+def to_jax_params(cnn: Optional[ConvolutionFrontEnd] = None,
+                  transformer: Optional[TransformerMultiTask] = None,
+                  seq_lin: Optional[LinearHead] = None,
+                  ctc_lin: Optional[LinearHead] = None) -> Dict[str, Any]:
+    """The given port modules as the JAX engine's parameter tree
+    ``{"CNN": {"params": ...}, "Transformer": ..., "seq_lin": ...,
+    "ctc_lin": ...}`` of fp32 numpy arrays: the inverse of
+    ``load_jax_params`` (Linear weight (out, in) -> kernel (in, out); Conv2d
+    (out, in, k_time, k_freq) -> HWIO; ``in_proj`` -> q/k/v)."""
+    tree: Dict[str, Any] = {}
+    if cnn is not None:
+        tree["CNN"] = {"params": {
+            name: ({"kernel": _np(mod.weight).transpose(2, 3, 1, 0).copy(),
+                    "bias": _np(mod.bias)}
+                   if isinstance(mod, nn.Conv2d) else _norm(mod))
+            for name, mod in cnn.layers.items()}}
+    if transformer is not None:
+        tree["Transformer"] = {"params": _transformer_tree(transformer)}
+    for name, head in (("seq_lin", seq_lin), ("ctc_lin", ctc_lin)):
+        if head is not None:
+            tree[name] = {"params": {"linear": _dense(head.linear)}}
+    return tree
 
 
 def cmvn_from_jax(state: Sequence) -> CmvnState:

@@ -6,6 +6,12 @@ LayerNorm -> LeakyReLU(0.01) -> Dropout over (time, freq), no residuals:
 Dropout is active only when the caller passes ``train=True`` with a
 :class:`~stac_st_tpu_torch.models.dropout.StepRandom`.
 
+The constructor also takes the YAML's keywords (``input_shape``, whose
+last entry is ``n_mels``; ``num_blocks``; ``num_layers_per_block``;
+``residuals``) and refuses, naming the field, what the port does not run:
+a residual, more than one layer a block, or ``num_blocks`` other than
+``len(out_channels)``.
+
 The JAX module is NHWC with H = time and W = freq. Activations stay in that
 layout here and are permuted to NCHW only around each convolution, so the
 LayerNorm reduces over (freq, channel) jointly with (F, C)-shaped scale and
@@ -22,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from .dropout import StepRandom, dropout
+from .settings import require
 
 __all__ = ["ConvolutionFrontEnd", "conv_out_length"]
 
@@ -33,11 +40,27 @@ def conv_out_length(length: int, num_blocks: int = 2, stride: int = 2) -> int:
 
 
 class ConvolutionFrontEnd(nn.Module):
-    def __init__(self, n_mels: int = 80,
+    def __init__(self, n_mels: Optional[int] = None,
                  out_channels: Sequence[int] = (256, 256),
                  kernel_sizes: Sequence[int] = (3, 3),
-                 strides: Sequence[int] = (2, 2), dropout: float = 0.1):
+                 strides: Sequence[int] = (2, 2), dropout: float = 0.1,
+                 input_shape: Optional[Sequence[int]] = None,
+                 num_blocks: Optional[int] = None,
+                 num_layers_per_block: int = 1,
+                 residuals: Optional[Sequence[bool]] = None):
         super().__init__()
+        owner = "ConvolutionFrontEnd"
+        if input_shape is not None:
+            if n_mels is not None:
+                require(owner, "input_shape[-1]", int(input_shape[-1]),
+                        int(n_mels))
+            n_mels = int(input_shape[-1])
+        n_mels = 80 if n_mels is None else int(n_mels)
+        if num_blocks is not None:
+            require(owner, "num_blocks", int(num_blocks), len(out_channels))
+        require(owner, "num_layers_per_block", int(num_layers_per_block), 1)
+        for b, residual in enumerate(residuals or ()):
+            require(owner, f"residuals[{b}]", bool(residual), False)
         self.dropout = float(dropout)
         self.layers = nn.ModuleDict()
         freq, c_in = n_mels, 1

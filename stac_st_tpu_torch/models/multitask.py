@@ -8,12 +8,23 @@ attention), the oracle full-prefix ``decode``, and the KV-cached
 ``decode_step`` with its cache (``init_decode_cache`` /
 ``grow_decode_cache``). The task is selected by the decoder prompt
 ``[bos, source_lang, target_lang]``.
+
+The YAML-facing classes (``TransformerMultiTask``, ``LinearHead``,
+``ModuleGroup``, ``EncoderWrapper``) are what the registry resolves the
+reference hparams onto. The constructor takes the JAX module's settings
+(``normalize_before``, ``causal``, ``encoder_module``, ``attention_type``,
+``positional_encoding``) and keeps them as attributes, so a port model
+describes itself to ``interop.from_jax.load_jax_params`` as a JAX one
+does; any value the port does not compute raises, through the same rule
+as the loader (``models.settings``). Unlike the JAX module, whose
+``normalize_before`` defaults to False, the port's defaults to True (the
+only placement it runs; every YAML of the repository sets it).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -22,28 +33,49 @@ from ..ops import masks as M
 from .activations import default_activation
 from .dropout import StepRandom, dropout
 from .positional import sinusoidal_table
+from .settings import require_transformer
 from .transformer import (
     NormalizedEmbedding,
     TransformerDecoder,
     TransformerEncoder,
 )
 
-__all__ = ["TransformerMultiTask", "LinearHead", "glorot_init_"]
+__all__ = ["TransformerMultiTask", "LinearHead", "ModuleGroup",
+           "EncoderWrapper", "glorot_init_"]
 
 MAX_LENGTH = 2500  # sinusoidal table rows (reference max_length)
+
+
+def _as_callable(activation: Any) -> Callable:
+    """The JAX module's rule: None -> the default, a class -> an
+    instance of it."""
+    if activation is None:
+        return default_activation
+    return activation() if isinstance(activation, type) else activation
 
 
 class TransformerMultiTask(nn.Module):
     def __init__(self, tgt_vocab: int, input_size: int, d_model: int = 512,
                  nhead: int = 8, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 6, d_ffn: int = 2048,
-                 activation: Callable = default_activation,
-                 dropout: float = 0.1):
-        """Pre-LN only (``normalize_before=True``, as every reference
-        preset); positions up to ``MAX_LENGTH``. ``dropout`` acts only in
-        the training forward."""
+                 activation: Any = default_activation,
+                 dropout: float = 0.1, normalize_before: bool = True,
+                 causal: bool = False, encoder_module: str = "transformer",
+                 attention_type: str = "regularMHA",
+                 positional_encoding: str = "fixed_abs_sine"):
+        """Pre-LN only; positions up to ``MAX_LENGTH``. ``dropout`` acts
+        only in the training forward. ``activation``: a callable, or a
+        class (as a YAML's ``!name:torch.nn.GELU`` gives it) that is
+        instantiated; None is ``default_activation``."""
         super().__init__()
         self.d_model, self.nhead = d_model, nhead
+        self.normalize_before, self.causal = normalize_before, causal
+        self.encoder_module = encoder_module
+        self.attention_type = attention_type
+        self.positional_encoding = positional_encoding
+        require_transformer("TransformerMultiTask",
+                            lambda field: getattr(self, field), nhead)
+        activation = _as_callable(activation)
         self.dropout = float(dropout)
         self.src_proj = nn.Linear(input_size, d_model)
         self.tgt_embed = NormalizedEmbedding(d_model, tgt_vocab)
@@ -196,6 +228,34 @@ class LinearHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear(x)
+
+
+class ModuleGroup:
+    """Stand-in for ``torch.nn.ModuleList`` groupings in YAML (the
+    ``model`` recoverable: CNN, Transformer, seq_lin, ctc_lin). Holds the
+    very modules the YAML's ``!ref`` names, so it shares them with
+    ``modules`` and the searchers."""
+
+    def __init__(self, modules: Sequence[Any]):
+        self.modules = list(modules)
+
+    def __iter__(self):
+        return iter(self.modules)
+
+    def __len__(self):
+        return len(self.modules)
+
+
+class EncoderWrapper(nn.Module):
+    """Reference ``EncoderWrapper``: forward == ``encode``."""
+
+    def __init__(self, transformer: TransformerMultiTask, *args, **kwargs):
+        super().__init__()
+        self.transformer = transformer
+
+    def forward(self, x: torch.Tensor,
+                wav_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.transformer.encode(x, wav_lens)
 
 
 @torch.no_grad()

@@ -8,7 +8,8 @@ Port of ``stac_st_tpu/ops/losses.py`` (SpeechBrain semantics):
   ``reg = −Σ(mean_vocab(logp) · mask) / Σ mask``: the smoothing term is
   normalised by the token count whatever the reduction;
 * reductions ``mean`` (token mean), ``batchmean`` (sum / batch), ``batch``
-  (per-utterance mean) and ``sum``.
+  (per-utterance mean) and ``sum``;
+* ``LogSoftmax``, what the YAML's ``torch.nn.LogSoftmax`` resolves to.
 """
 
 from __future__ import annotations
@@ -17,7 +18,17 @@ from typing import Optional
 
 import torch
 
-__all__ = ["length_mask", "nll_loss", "kldiv_loss"]
+__all__ = ["length_mask", "nll_loss", "kldiv_loss", "LogSoftmax"]
+
+
+class LogSoftmax:
+    """Callable matching ``torch.nn.LogSoftmax`` instantiation from YAML."""
+
+    def __init__(self, dim: int = -1):
+        self.dim = dim
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.log_softmax(x, dim=self.dim)
 
 
 def length_mask(rel_lengths: torch.Tensor, max_len: int) -> torch.Tensor:

@@ -17,23 +17,34 @@ scoring stay fp32. The engine runs on ``cuda`` unless ``device="cpu"`` is
 given, and owns the modules it is handed (it moves and casts them).
 
 The tokenizer is duck-typed: ``encode_as_ids(text)`` and ``decode_ids``.
+A trained experiment loads through ``from_saved_experiment(exp_dir)``
+(modules rebuilt from the experiment's own ``hyperparams.yaml`` and
+``overrides.yaml`` by the port's config loader) or ``from_experiment``
+(dimensions given); both load the average of the ACC-top-k checkpoints
+(written by either package) and the CMVN statistics saved beside them.
 Not ported yet: ``mesh``, ``kv_cache_dtype``, ``weights_int8``,
-``long_form``, ``warmup``, the experiment loaders and
-``SpeculativeSTEngine``.
+``long_form`` and ``SpeculativeSTEngine``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import yaml
 
+from .data.audio import read_audio
 from .decoding.beam_search import MultiTaskBeamSearch
 from .device import model_dtype, resolve_device, set_tf32
-from .ops.cmvn import CmvnState, cmvn_apply
+from .interop.from_jax import load_jax_params
+from .models import ConvolutionFrontEnd, LinearHead, TransformerMultiTask
+from .ops.cmvn import CmvnState, cmvn_apply, cmvn_init
 from .ops.fbank import Fbank
+from .tokenizer import SentencePieceProcessor
+from .training.checkpoint import Checkpointer, average_checkpoints
 from .utils.rttm import extract_turn_events
 
 __all__ = ["STEngine"]
@@ -90,6 +101,83 @@ class STEngine:
             length_normalization=True, temperature=1.15,
             max_decode_tokens=max_decode_tokens,
         )
+
+    # ------------------------------------------------------------ factories
+    @classmethod
+    def from_experiment(
+        cls, pretrained_path: str, tokenizer_file: str,
+        d_model: int = 256, nhead: int = 4, num_encoder_layers: int = 12,
+        num_decoder_layers: int = 6, d_ffn: int = 1024, vocab: int = 5000,
+        **kw,
+    ) -> "STEngine":
+        """Load averaged weights from a training experiment's save dir,
+        with the model dimensions given (``from_saved_experiment`` reads
+        them from the experiment's config)."""
+        tokenizer = SentencePieceProcessor(tokenizer_file)
+        cnn = ConvolutionFrontEnd()
+        transformer = TransformerMultiTask(
+            tgt_vocab=vocab, input_size=5120, d_model=d_model, nhead=nhead,
+            num_encoder_layers=num_encoder_layers,
+            num_decoder_layers=num_decoder_layers, d_ffn=d_ffn,
+            dropout=0.1, normalize_before=True)
+        seq_lin = LinearHead(input_size=d_model, n_neurons=vocab)
+        ctc_lin = LinearHead(input_size=d_model, n_neurons=vocab)
+        return cls._load_from_save(
+            cnn, transformer, seq_lin, ctc_lin,
+            os.path.join(pretrained_path, "save"), tokenizer, 80, **kw)
+
+    @classmethod
+    def from_saved_experiment(
+        cls, experiment_directory: str,
+        tokenizer_file: Optional[str] = None, **kw,
+    ) -> "STEngine":
+        """Reload a training experiment from its OWN saved config: the
+        modules are rebuilt from ``hyperparams.yaml`` + ``overrides.yaml``
+        through the port's config loader exactly as training built them,
+        so the caller never re-specifies model dimensions."""
+        from .config.hyperyaml import load_hyperpyyaml
+
+        ov_path = os.path.join(experiment_directory, "overrides.yaml")
+        overrides = {}
+        if os.path.isfile(ov_path):
+            with open(ov_path) as f:
+                overrides = yaml.safe_load(f) or {}
+        with open(os.path.join(experiment_directory,
+                               "hyperparams.yaml")) as f:
+            hp = load_hyperpyyaml(f, overrides)
+
+        tokenizer_file = tokenizer_file or hp.get("tokenizer_file")
+        if not tokenizer_file or not os.path.isfile(str(tokenizer_file)):
+            raise FileNotFoundError(
+                "tokenizer model not found; pass tokenizer_file= (saved "
+                f"config points at {tokenizer_file!r})")
+        tokenizer = SentencePieceProcessor(str(tokenizer_file))
+        return cls._load_from_save(
+            hp["CNN"], hp["Transformer"], hp["seq_lin"], hp.get("ctc_lin"),
+            os.path.join(experiment_directory, "save"), tokenizer,
+            int(hp.get("n_mels", 80)), **kw)
+
+    @classmethod
+    def _load_from_save(cls, cnn, transformer, seq_lin, ctc_lin,
+                        ckpt_dir: str, tokenizer, n_mels: int,
+                        avg_checkpoints: Optional[int] = None,
+                        **kw) -> "STEngine":
+        ckpts = Checkpointer(ckpt_dir).find_checkpoints(
+            max_key="ACC", max_num_checkpoints=avg_checkpoints)
+        if not ckpts:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+        raw = average_checkpoints(ckpts, "model")
+        if ctc_lin is None:
+            raw.pop("ctc_lin", None)
+        load_jax_params(raw, cnn=cnn, transformer=transformer,
+                        seq_lin=seq_lin, ctc_lin=ctc_lin,
+                        settings=transformer)
+        cmvn = cmvn_init(n_mels)
+        if "normalizer" in ckpts[0].names():
+            n = ckpts[0].load("normalizer")
+            cmvn = CmvnState(*(torch.from_numpy(np.array(n[k], np.float32))
+                               for k in ("mean", "std", "count")))
+        return cls(transformer, cnn, seq_lin, ctc_lin, cmvn, tokenizer, **kw)
 
     # ------------------------------------------------------------- internal
     def _bucket_width(self, n_samples: int) -> int:
@@ -162,12 +250,35 @@ class STEngine:
         for idx, batch, lens in self._prepare(wavs):
             enc = self._encode(batch, lens)
             for p, (hyps, _) in enumerate(
-                    self.searcher.call_multi(enc, prompts)):
+                    self.searcher.call_multi(enc, prompts=prompts)):
                 for row, i in enumerate(idx):
                     out[p][i] = self.tokenizer.decode_ids(hyps[row])
         return out
 
     # ------------------------------------------------------------------ API
+    def load_audio(self, path: str) -> np.ndarray:
+        return read_audio(path, sample_rate=self.sample_rate)[0]
+
+    def warmup(self, dual: bool = False) -> int:
+        """Serve silence once at every (bucket, pad rung) shape, so a fresh
+        server pays its first-call costs (cuBLAS and cuDNN set-up, the
+        kernels' first launch) before traffic. ``dual=True`` also runs the
+        fused dual-prompt search per shape. Returns the number of shapes
+        served."""
+        rungs = (self.pad_batch_rows
+                 if isinstance(self.pad_batch_rows, tuple)
+                 else (self.pad_batch_rows or 1,))
+        n = 0
+        for sec in self.buckets:
+            wav = np.zeros((max(int(sec * self.sample_rate), 1),),
+                           np.float32)
+            for r in rungs:
+                self.translate([wav] * int(r))
+                if dual:
+                    self.transcribe_and_translate([wav] * int(r))
+                n += 1
+        return n
+
     def translate(self, wavs: Sequence[np.ndarray],
                   source_lang: Optional[str] = None,
                   target_lang: Optional[str] = None) -> List[str]:

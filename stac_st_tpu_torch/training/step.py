@@ -238,21 +238,24 @@ def make_optimizer(opt_factory, schedule_value: Callable,
 @dataclass
 class TrainState:
     params: FlatParams
-    opt_state: OptState
+    opt_state: Optional[OptState]
     cmvn: CmvnState
     optimizer_step: int = 0   # update attempts, skipped ones included
     micro_step: int = 0       # train_step calls
 
 
-def init_train_state(cfg: StepConfig, tx: ChainOptimizer, device=None,
-                     n_mels: int = 80) -> TrainState:
+def init_train_state(cfg: StepConfig, tx: Optional[ChainOptimizer],
+                     device=None, n_mels: int = 80) -> TrainState:
     """Move the config's modules to ``device`` (default ``cuda``) in fp32,
-    alias their parameters into one buffer, and start the optimizer and
-    CMVN state. The weights are those the modules hold (seeded init or
-    ``interop.from_jax.load_jax_params``)."""
+    alias their parameters into one buffer, and start the optimizer (none
+    for an eval-only ``tx=None``) and CMVN state. The weights are those
+    the modules hold (seeded init or ``interop.from_jax.load_jax_params``).
+    """
     dev = resolve_device(device)
     params = FlatParams(cfg.modules(), dev)
-    return TrainState(params=params, opt_state=tx.init(params.flat),
+    return TrainState(params=params,
+                      opt_state=tx.init(params.flat) if tx is not None
+                      else None,
                       cmvn=cmvn_init(n_mels, dev))
 
 

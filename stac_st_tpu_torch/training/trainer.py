@@ -1,28 +1,57 @@
-"""The ST trainer, single-device core (port of
-``stac_st_tpu/training/trainer.py``).
+"""The ST trainer: fit and evaluate loops, validation, checkpoints and
+resume on one device (port of ``stac_st_tpu/training/trainer.py``).
 
 ``STTrainer`` builds the step configuration from the modules and hparams
 (precision, losses, SpecAugment, device speed perturbation, the optimizer
-chain), creates the train state at the first batch, moves each
-``PaddedBatch`` to the device (PCM16 when ``transfer_int16`` is set; the
-``speed_idx`` column when the loader drew one) and runs ``fit`` over a
-``data.loader.BatchLoader`` or any iterable of batches: per epoch,
-``set_epoch`` (which keys the loader's shuffle and speed draw), the CMVN
-update gate, one train step per batch, ``optimizer_step_limit`` and the
-debug limits.
+chain), creates the train state from the weights the modules hold, moves
+each ``PaddedBatch`` to the device (PCM16 when ``transfer_int16`` is set;
+the ``speed_idx`` column when the loader drew one), and runs:
+
+* ``fit(epoch_counter, train_set, valid_set=None, ...)``: per epoch,
+  ``set_epoch`` (which keys the loader's shuffle and speed draw), the CMVN
+  update gate, one train step per batch, timed checkpoints every
+  ``ckpt_interval_minutes``; then validation, the train logger's line and
+  the top-5-by-ACC checkpoint; ``optimizer_step_limit`` and the debug
+  limits. A SIGTERM during ``fit`` (in the main thread) only sets a flag:
+  after the step in flight, a ``preempted`` checkpoint is written from
+  host copies and ``fit`` returns, with the previous handler restored;
+* validation (``_validate``): the teacher-forced loss and ACC, and every
+  ``valid_search_interval`` epochs the dual ASR + ST beam search, fused
+  into one search while ``2·B·beam <= DUAL_FUSE_MAX_ROWS``; BLEU and WER
+  with and without ``[turn]``/``[xt]``;
+* ``evaluate``: the ACC-top-k average (``on_evaluate_start``), then the
+  test split's search and its BLEU/WER files.
+
+Checkpoints hold the trees both packages read, in the JAX layouts:
+``model`` (``interop.from_jax.to_jax_params``), ``normalizer`` (``mean``,
+``std``, ``count``) and ``counters`` (``optimizer_step``, ``micro_step``,
+``epoch``). The port's optimizer state goes in ``opt_torch``: Adam's
+``mu``/``nu`` (flat, in the port's parameter order), ``count``,
+``notfinite``, ``sched_count``, the accumulator, and the state of the
+trainer's step-seed generator, so a resumed run draws the seeds the
+uninterrupted run would have drawn. The JAX package's ``opt`` tree (optax
+layout) is not read: resuming from a JAX checkpoint restores parameters,
+CMVN and counters, and the moments restart (logged). A checkpoint written
+inside epoch k (``preempted`` or ``timed``) resumes at the start of epoch
+k; one written at the end of epoch k resumes at epoch k + 1.
 
 Randomness: one CPU ``torch.Generator`` per trainer, seeded from
 ``hparams["seed"]``; each step draws its integer seed from it.
 
-Not ported yet: meshes and multi-device, pipeline stages, preemption
-handling, checkpoints, validation with beam search, ``evaluate``, and the
-``train_attn_kernel`` / ``rng_impl`` run options
-(the port always takes its attention kernels).
+Validation searches with the trainer's fp32 weights, as the JAX trainer
+binds its fp32 ``state.params``; on the card that takes the decode
+kernels' fp32 (``simt``) variants.
+
+Not ported yet: meshes and multi-device (the multi-host preemption flag
+reduction included), pipeline stages, and the ``train_attn_kernel`` /
+``rng_impl`` run options (the port always takes its attention kernels).
 """
 
 from __future__ import annotations
 
 import logging
+import shutil
+import signal
 import time
 from typing import Any, Dict, List, Optional
 
@@ -30,6 +59,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..interop.from_jax import load_jax_params, to_jax_params
+from ..ops.cmvn import CmvnState
+from ..utils.profiling import StepTimer
+from ..utils.recipe_io import append_4gt, append_gt_preds, print_bleu_or_wer
+from .checkpoint import average_checkpoints
 from .step import (
     StepConfig,
     TrainState,
@@ -38,6 +72,7 @@ from .step import (
     make_eval_forward,
     make_optimizer,
     make_train_step,
+    objectives,
 )
 
 logger = logging.getLogger(__name__)
@@ -53,15 +88,19 @@ def _specaug_opts(hparams) -> Optional[tuple]:
 
 
 class STTrainer:
-    """Drives training of the multitask ASR+ST model on one device."""
+    """Drives training and evaluation of the multitask ASR+ST model on one
+    device: ``device`` if given, else ``run_opts["device"]``, else cuda."""
 
     def __init__(self, modules: Dict[str, Any], opt_class=None,
                  hparams: Optional[Dict[str, Any]] = None,
-                 run_opts: Optional[Dict[str, Any]] = None, device=None):
+                 run_opts: Optional[Dict[str, Any]] = None,
+                 checkpointer=None, device=None):
         self.hparams = dict(hparams or {})
         self.run_opts = dict(run_opts or {})
+        self.checkpointer = checkpointer
         self.modules = modules
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if device is not None else self.run_opts.get("device"))
         h = self.hparams
 
         precision = str(self.run_opts.get("precision", "") or "").lower()
@@ -92,18 +131,24 @@ class STTrainer:
         self.normalize = modules.get("normalize")
         scheduler = h.get("lr_scheduler")
         factory = opt_class if opt_class is not None else h.get("Adam")
-        self.tx = make_optimizer(
-            factory,
-            scheduler.value if scheduler is not None
-            else (lambda step: h.get("lr_adam", 1e-3)),
-            grad_accumulation_factor=int(h.get("grad_accumulation_factor",
-                                               1)),
-            # clipping is opt-in, as in the reference recipe
-            max_grad_norm=(h.get("max_grad_norm")
-                           if h.get("use_grad_clipping") else None),
-            nonfinite_patience=int(h.get("nonfinite_patience", 100)),
-        )
-        self.train_step = make_train_step(self.cfg, self.tx)
+        if factory is not None:
+            self.tx = make_optimizer(
+                factory,
+                scheduler.value if scheduler is not None
+                else (lambda step: h.get("lr_adam", 1e-3)),
+                grad_accumulation_factor=int(
+                    h.get("grad_accumulation_factor", 1)),
+                # clipping is opt-in, as in the reference recipe
+                max_grad_norm=(h.get("max_grad_norm")
+                               if h.get("use_grad_clipping") else None),
+                nonfinite_patience=int(h.get("nonfinite_patience", 100)),
+            )
+            self.train_step = make_train_step(self.cfg, self.tx)
+        else:
+            # eval-only construction (the inference recipe passes no
+            # optimizer)
+            self.tx = None
+            self.train_step = None
         self.eval_forward = make_eval_forward(self.cfg)
         self.encode_forward = make_encode_forward(self.cfg)
 
@@ -113,23 +158,119 @@ class STTrainer:
         self.generator = torch.Generator().manual_seed(
             int(h.get("seed", 8886)))
         self.train_stats: Dict[str, float] = {}
+        self.last_valid_stats: Dict[str, Any] = {}
         self.epoch_losses: List[torch.Tensor] = []  # last epoch, per step
+        self.valid_search_s = 0.0  # the last validation's search time
+        self.preempted = False  # the last fit stopped on SIGTERM
         self.debug = bool(self.run_opts.get("debug", False))
         self.debug_batches = int(self.run_opts.get("debug_batches", 2))
 
     # ------------------------------------------------------------ state mgmt
     def ensure_state(self, sample_batch=None) -> TrainState:
         """The train state, created at the first call from the weights the
-        modules hold."""
+        modules hold, then resumed from the checkpointer's latest
+        checkpoint if it has one."""
         if self.state is None:
             self.state = init_train_state(
                 self.cfg, self.tx, self.device,
                 int(self.hparams.get("n_mels", 80)))
             logger.info("initialized %d parameters", self.state.params.numel)
+            self._maybe_resume()
         return self.state
 
     def next_seed(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator))
+
+    def _maybe_resume(self) -> None:
+        if self.checkpointer is None:
+            return
+        latest = self.checkpointer.recover_if_possible()
+        if latest is None:
+            return
+        self.load_from_checkpoint(latest)
+        logger.info("resumed from %s", latest.path)
+
+    def _load_model_tree(self, tree) -> None:
+        """A ``model`` tree (JAX layout) into the modules, which write it
+        into the flat buffer they view."""
+        cfg = self.cfg
+        load_jax_params(tree, cnn=cfg.cnn, transformer=cfg.transformer,
+                        seq_lin=cfg.seq_lin, ctc_lin=cfg.ctc_lin,
+                        settings=cfg.transformer)
+
+    def load_from_checkpoint(self, ckpt) -> None:
+        state, dev = self.state, self.device
+        names = ckpt.names()
+        self._load_model_tree(ckpt.load("model"))
+        if "opt_torch" in names and self.tx is not None:
+            self._load_opt_tree(ckpt.load("opt_torch"))
+        elif self.tx is not None:
+            logger.warning("%s holds no port optimizer state: Adam's "
+                           "moments restart", ckpt.path)
+        if "normalizer" in names:
+            raw = ckpt.load("normalizer")
+            state.cmvn = CmvnState(*(torch.from_numpy(np.array(
+                raw[k], np.float32)).to(dev) for k in ("mean", "std",
+                                                        "count")))
+        counters = ckpt.load("counters") if "counters" in names else {}
+        state.optimizer_step = int(counters.get("optimizer_step", 0))
+        state.micro_step = int(counters.get("micro_step", 0))
+        epoch_counter = self.hparams.get("epoch_counter")
+        if epoch_counter is not None and "epoch" in counters:
+            inside = ckpt.meta.get("preempted") or ckpt.meta.get("timed")
+            epoch_counter.current = int(counters["epoch"]) - bool(inside)
+
+    def _load_opt_tree(self, raw) -> None:
+        st, dev = self.state.opt_state, self.device
+
+        def t(x):
+            return torch.from_numpy(np.array(x)).to(dev)
+
+        if np.asarray(raw["mu"]).size != self.state.params.numel:
+            logger.warning("opt_torch holds %d moments for %d parameters: "
+                           "Adam's moments restart",
+                           np.asarray(raw["mu"]).size,
+                           self.state.params.numel)
+            return
+        st.mu, st.nu = t(raw["mu"]), t(raw["nu"])
+        st.count, st.notfinite = t(raw["count"]), t(raw["notfinite"])
+        st.sched_count = int(raw["sched_count"])
+        st.mini_step = int(raw["mini_step"])
+        st.acc = t(raw["acc"]) if "acc" in raw else None
+        self.generator.set_state(torch.from_numpy(np.array(raw["generator"])))
+
+    def _cleanup_timed_checkpoints(self, keep: int = 1) -> None:
+        """Keep only the newest `keep` timed checkpoints (ACC-keyed saves
+        are managed separately by save_and_keep_only)."""
+        timed = [c for c in self.checkpointer.list_checkpoints()
+                 if c.meta.get("timed")]
+        timed.sort(key=lambda c: c.meta.get("unixtime", 0), reverse=True)
+        for old in timed[keep:]:
+            shutil.rmtree(old.path, ignore_errors=True)
+
+    def _checkpoint_trees(self, epoch: int) -> Dict[str, Any]:
+        """Host copies of the state (the copies wait for the step in
+        flight)."""
+        state, cfg = self.state, self.cfg
+        trees: Dict[str, Any] = {
+            "model": to_jax_params(cfg.cnn, cfg.transformer, cfg.seq_lin,
+                                   cfg.ctc_lin),
+            "normalizer": {"mean": state.cmvn.mean, "std": state.cmvn.std,
+                           "count": state.cmvn.count},
+            "counters": {"optimizer_step": int(state.optimizer_step),
+                         "micro_step": int(state.micro_step),
+                         "epoch": int(epoch)},
+        }
+        st = state.opt_state
+        if st is not None:
+            opt = {"mu": st.mu, "nu": st.nu, "count": st.count,
+                   "notfinite": st.notfinite, "sched_count": st.sched_count,
+                   "mini_step": st.mini_step,
+                   "generator": self.generator.get_state()}
+            if st.acc is not None:
+                opt["acc"] = st.acc
+            trees["opt_torch"] = opt
+        return trees
 
     # --------------------------------------------------------------- batches
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -162,41 +303,101 @@ class STTrainer:
         return out
 
     # ------------------------------------------------------------------- fit
-    def fit(self, epoch_counter, train_set, progress_every: int = 50) -> None:
+    def fit(self, epoch_counter, train_set, valid_set=None,
+            train_loader_kwargs=None, valid_loader_kwargs=None,
+            progress_every: int = 50) -> None:
         """Train over ``train_set`` (a ``BatchLoader`` or any iterable of
         ``PaddedBatch``; ``set_epoch(epoch)`` is called where it has one,
         and a ``BatchLoader`` passes it on to its sampler and dataset) for
-        each epoch of ``epoch_counter`` (an iterable of epoch numbers)."""
+        each epoch of ``epoch_counter`` (an ``EpochCounter`` or any
+        iterable of epoch numbers), validating on ``valid_set`` after each.
+        The loader keyword arguments are accepted as the JAX trainer takes
+        them and unused (the loaders are built by the caller)."""
+        # resume (if the checkpointer has a checkpoint) before the epoch
+        # counter is read
+        self.ensure_state()
+        timer = StepTimer()
+        self.preempted = False
+
+        def _on_sigterm(signum, frame):
+            logger.warning("SIGTERM received - checkpointing and stopping")
+            self.preempted = True
+            if callable(prev_handler):
+                prev_handler(signum, frame)
+
+        prev_handler = None
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:  # not in the main thread
+            prev_handler = None
+        try:
+            self._fit_epochs(epoch_counter, train_set, valid_set, timer,
+                             progress_every)
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+
+    def _save_preemption_checkpoint(self, epoch: int) -> None:
+        if self.checkpointer is not None:
+            self.checkpointer.save_checkpoint(
+                meta={"preempted": True, "epoch": epoch},
+                trees=self._checkpoint_trees(epoch))
+        logger.warning("stopped by SIGTERM at epoch %d opt step %d "
+                       "(checkpoint saved)", epoch,
+                       self.state.optimizer_step)
+
+    def _fit_epochs(self, epoch_counter, train_set, valid_set, timer,
+                    progress_every) -> None:
+        ckpt_interval = float(
+            self.hparams.get("ckpt_interval_minutes", 0) or 0) * 60.0
+        last_timed_ckpt = time.time()
         for epoch in epoch_counter:
+            t_epoch = time.time()
             if hasattr(train_set, "set_epoch"):
                 train_set.set_epoch(epoch)
             update_cmvn = (self.normalize is not None
                            and self.normalize.should_update(epoch))
             losses: List[torch.Tensor] = []
-            t0, audio_s = time.perf_counter(), 0.0
+            self.epoch_losses = losses
             for i, batch in enumerate(train_set):
                 if self.debug and i >= self.debug_batches:
                     break
                 dev_batch = self._device_batch(batch)
-                self.ensure_state(dev_batch)
                 self.state, metrics = self.train_step(
                     self.state, dev_batch, self.next_seed(),
                     update_cmvn=update_cmvn)
                 losses.append(metrics["loss"])
-                audio_s += float(np.sum(batch.duration))
+                timer.tick(items=float(np.sum(batch.duration)))
+                if self.preempted:
+                    self._save_preemption_checkpoint(epoch)
+                    return
                 if progress_every and (i + 1) % progress_every == 0:
-                    dt = time.perf_counter() - t0
+                    stats = timer.stats()
                     logger.info(
                         "epoch %d batch %d loss %.4f (opt step %d, "
-                        "%.0f audio-s/s)", epoch, i + 1,
+                        "%.1f steps/s, %.0f audio-s/s)", epoch, i + 1,
                         float(metrics["loss"]), self.state.optimizer_step,
-                        audio_s / max(dt, 1e-9))
-            self.epoch_losses = losses
+                        stats.get("steps_per_sec", 0.0),
+                        stats.get("items_per_sec", 0.0))
+                # timed intra-epoch checkpoints (ckpt_interval_minutes)
+                if (ckpt_interval > 0 and self.checkpointer is not None
+                        and time.time() - last_timed_ckpt > ckpt_interval):
+                    self.checkpointer.save_checkpoint(
+                        meta={"timed": True, "epoch": epoch},
+                        trees=self._checkpoint_trees(epoch))
+                    self._cleanup_timed_checkpoints()
+                    last_timed_ckpt = time.time()
             if not losses:
                 logger.warning("epoch %d: empty train loader", epoch)
                 continue
-            self.train_stats = {
-                "loss": float(torch.stack(losses).float().mean())}
+            train_loss = float(torch.stack(losses).float().mean())
+            self.train_stats = {"loss": train_loss}
+
+            stage_stats: Dict[str, Any] = {"loss": train_loss}
+            if valid_set is not None:
+                stage_stats = self._validate(valid_set, epoch)
+            self.last_valid_stats = stage_stats
+            self._on_valid_end(epoch, stage_stats, time.time() - t_epoch)
             if self.state.optimizer_step >= self.optimizer_step_limit:
                 logger.info("optimizer_step_limit %d reached - stopping",
                             self.optimizer_step_limit)
@@ -204,3 +405,234 @@ class STTrainer:
             if self.debug and epoch >= int(self.run_opts.get("debug_epochs",
                                                              2)):
                 break
+
+    # ------------------------------------------------------------ validation
+    def _lang_id(self, lang: str) -> int:
+        tokenizer = self.hparams["tokenizer"]
+        return tokenizer.encode_as_ids(f"[{lang}]")[-1]
+
+    def _run_search(self, searcher, enc_out, wav_lens, src: str, tgt: str):
+        searcher.set_decoder_prefix_tokens(self._lang_id(src),
+                                           self._lang_id(tgt))
+        hyps, _scores = searcher(enc_out, wav_lens)
+        return hyps
+
+    # Fused dual decode (one search over both prompts) while the fused row
+    # count 2·B·beam stays small, else two searches over the same enc_out
+    # (the JAX trainer's threshold; exact either way).
+    DUAL_FUSE_MAX_ROWS = 80
+
+    def _run_search_dual(self, searcher, enc_out, wav_lens, src: str,
+                         tgt: str):
+        """ASR + ST hypotheses off one encoder output. hparam
+        ``fused_dual_decode``: True forces fusion, False disables it,
+        unset/'auto' applies DUAL_FUSE_MAX_ROWS."""
+        mode = self.hparams.get("fused_dual_decode", "auto")
+        rows = 2 * int(enc_out.shape[0]) * searcher.config.beam_size
+        fuse = (rows <= self.DUAL_FUSE_MAX_ROWS) if mode == "auto" \
+            else bool(mode)
+        if not fuse:
+            return (self._run_search(searcher, enc_out, wav_lens, src, src),
+                    self._run_search(searcher, enc_out, wav_lens, src, tgt))
+        s_id, t_id = self._lang_id(src), self._lang_id(tgt)
+        bos = searcher.bos_token
+        (asr, _), (st, _) = searcher.call_multi(
+            enc_out, wav_lens, prompts=[[bos, s_id, s_id], [bos, s_id, t_id]])
+        return asr, st
+
+    def _validate(self, valid_set, epoch: int) -> Dict[str, Any]:
+        h = self.hparams
+        acc = h["acc_computer"]() if "acc_computer" in h else None
+        do_search = ("valid_search" in h
+                     and epoch % int(h.get("valid_search_interval", 10)) == 0)
+        bleu = h["bleu_computer"]() if do_search else None
+        wer = h["error_rate_computer"]() if do_search else None
+        bleu_nt = h["bleu_computer"]() if do_search else None
+        wer_nt = h["error_rate_computer"]() if do_search else None
+        special = {"[turn]": h.get("turn", 7), "[xt]": h.get("xt", 8)}
+        self.ensure_state()
+
+        losses = []
+        self.valid_search_s = 0.0
+        for i, batch in enumerate(valid_set):
+            if self.debug and i >= self.debug_batches:
+                break
+            dev_batch = self._device_batch(batch)
+            p_ctc, p_seq, enc_out = self.eval_forward(
+                self.state.params, self.state.cmvn, dev_batch)
+            loss, _ = objectives(p_ctc, p_seq, dev_batch, self.cfg)
+            losses.append(float(loss))
+            if acc is not None:
+                acc.append(p_seq, dev_batch["tokens_eos"],
+                           dev_batch["tokens_eos_len"])
+            if do_search:
+                t0 = time.perf_counter()
+                hyps_asr, hyps_st = self._run_search_dual(
+                    h["valid_search"], enc_out, dev_batch["sig_len"],
+                    batch.source_lang[0], batch.target_lang[0])
+                self.valid_search_s += time.perf_counter() - t0
+                self._append_dual_metrics(batch, hyps_st, hyps_asr, bleu,
+                                          wer, bleu_nt, wer_nt, special)
+
+        stats: Dict[str, Any] = {"loss": float(np.mean(losses or [0.0]))}
+        if acc is not None:
+            stats["ACC"] = acc.summarize()
+        if do_search and bleu is not None and bleu.ids:
+            stats["BLEU"] = bleu.summarize("BLEU")
+            stats["BLEU_no_turn"] = bleu_nt.summarize("BLEU")
+        if do_search and wer is not None and wer.ids:
+            stats["WER"] = wer.summarize("error_rate")
+            stats["WER_no_turn"] = wer_nt.summarize("error_rate")
+        return stats
+
+    def _append_dual_metrics(self, batch, hyps_st, hyps_asr, bleu, wer,
+                             bleu_nt, wer_nt, special) -> None:
+        tokenizer = self.hparams["tokenizer"]
+        tgt_lang = batch.target_lang[0]
+        # ST stream vs translation_0
+        refs_st = batch.extras.get("translation_0")
+        if refs_st and refs_st[0] is not None:
+            ids, tgts, preds = append_gt_preds(
+                batch.id, refs_st, hyps_st, tgt_lang, tokenizer)
+            bleu.append(ids, preds, [tgts])
+            ids, tgts, preds = append_gt_preds(
+                batch.id, refs_st, hyps_st, tgt_lang, tokenizer,
+                remove_special_chars=True, chars_dict=special)
+            bleu_nt.append(ids, preds, [tgts])
+        # ASR stream vs transcription (WER on space-split words)
+        refs_asr = batch.extras.get("transcription")
+        if refs_asr and refs_asr[0] is not None:
+            ids, tgts, preds = append_gt_preds(
+                batch.id, refs_asr, hyps_asr, tgt_lang, tokenizer)
+            wer.append(ids, [p.split(" ") for p in preds],
+                       [t.split(" ") for t in tgts])
+            ids, tgts, preds = append_gt_preds(
+                batch.id, refs_asr, hyps_asr, tgt_lang, tokenizer,
+                remove_special_chars=True, chars_dict=special)
+            wer_nt.append(ids, [p.split(" ") for p in preds],
+                          [t.split(" ") for t in tgts])
+
+    def _on_valid_end(self, epoch: int, stage_stats: Dict[str, Any],
+                      epoch_time: float) -> None:
+        h = self.hparams
+        scheduler = h.get("lr_scheduler")
+        # lr the NEXT attempt will run at (attempt a runs at value(a-1),
+        # the first at the optimizer construction lr)
+        step = int(self.state.optimizer_step)
+        lr = (float(scheduler.value(step)) if scheduler is not None
+              and step >= 1 else float(h.get("lr_adam", 0.0)))
+        if "train_logger" in h:
+            h["train_logger"].log_stats(
+                stats_meta={"epoch": epoch, "lr": lr, "steps": step,
+                            "optimizer": "AdamW",
+                            "epoch_time": round(epoch_time, 1)},
+                train_stats=self.train_stats, valid_stats=stage_stats)
+        if self.checkpointer is not None and "ACC" in stage_stats:
+            self.checkpointer.save_and_keep_only(
+                meta={"ACC": float(stage_stats["ACC"]), "epoch": epoch},
+                trees=self._checkpoint_trees(epoch), max_keys=["ACC"],
+                num_to_keep=5)
+
+    # ------------------------------------------------------------ evaluation
+    def on_evaluate_start(self, max_key: str = "ACC") -> None:
+        """Load the average of the kept top-k checkpoints as the weights
+        (reference ``on_evaluate_start``, ``train_multitask.py:460-471``)."""
+        if self.checkpointer is None or self.state is None:
+            return
+        ckpts = self.checkpointer.find_checkpoints(max_key=max_key)
+        if not ckpts:
+            return
+        self._load_model_tree(average_checkpoints(ckpts, "model"))
+        logger.info("Loaded the average of %d checkpoints", len(ckpts))
+
+    def evaluate(self, test_set, test_loader_kwargs=None,
+                 average_first: bool = True) -> Dict[str, Any]:
+        """Single-task test evaluation (reference ``__main__`` test loop,
+        ``train_multitask.py:694-726``)."""
+        h = self.hparams
+        self.ensure_state()
+        if average_first:
+            self.on_evaluate_start()
+        searcher = h["test_search"]
+        acc = h["acc_computer"]() if "acc_computer" in h else None
+        bleu = h["bleu_computer"]()
+        wer = h["error_rate_computer"]()
+        bleu_nt = h["bleu_computer"]()
+        wer_nt = h["error_rate_computer"]()
+        special = {"[turn]": h.get("turn", 7), "[xt]": h.get("xt", 8)}
+        tokenizer = h["tokenizer"]
+
+        task = None
+        for batch in test_set:
+            dev_batch = self._device_batch(batch)
+            if task is None:
+                task = batch.task[0]
+            if len(set(batch.task)) != 1:
+                raise AssertionError(
+                    "test sets carry exactly one task per JSON "
+                    "(train_multitask.py:115-117)")
+            p_ctc, p_seq, enc_out = self.eval_forward(
+                self.state.params, self.state.cmvn, dev_batch)
+            if acc is not None:
+                acc.append(p_seq, dev_batch["tokens_eos"],
+                           dev_batch["tokens_eos_len"])
+            src, tgt = batch.source_lang[0], batch.target_lang[0]
+            if task == "transcription":
+                hyps = self._run_search(searcher, enc_out,
+                                        dev_batch["sig_len"], src, src)
+                refs = batch.extras.get("transcription")
+                ids, tgts, preds = append_gt_preds(batch.id, refs, hyps, src,
+                                                   tokenizer)
+                wer.append(ids, [p.split(" ") for p in preds],
+                           [t.split(" ") for t in tgts])
+                ids, tgts, preds = append_gt_preds(
+                    batch.id, refs, hyps, src, tokenizer,
+                    remove_special_chars=True, chars_dict=special)
+                wer_nt.append(ids, [p.split(" ") for p in preds],
+                              [t.split(" ") for t in tgts])
+            else:
+                hyps = self._run_search(searcher, enc_out,
+                                        dev_batch["sig_len"], src, tgt)
+                refs = batch.extras.get("translation_0")
+                has_4refs = (batch.extras.get("translation_1") is not None
+                             and batch.extras["translation_1"][0] is not None)
+                ids, tgts, preds = append_gt_preds(batch.id, refs, hyps, tgt,
+                                                   tokenizer)
+                _, tgts_nt, preds_nt = append_gt_preds(
+                    batch.id, refs, hyps, tgt, tokenizer,
+                    remove_special_chars=True, chars_dict=special)
+                if has_4refs:
+                    four = [batch.extras.get(f"translation_{k}")
+                            for k in range(4)]
+                    targets, targets_nt = append_4gt(four, tgt, special)
+                    bleu.append(ids, preds, targets)
+                    bleu_nt.append(ids, preds_nt, targets_nt)
+                else:
+                    bleu.append(ids, preds, [tgts])
+                    bleu_nt.append(ids, preds_nt, [tgts_nt])
+
+        stats: Dict[str, Any] = {}
+        if acc is not None and acc.total > 0:
+            stats["ACC"] = acc.summarize()
+        if wer.ids:
+            stats["WER"] = wer.summarize("error_rate")
+            stats["WER_no_turn"] = wer_nt.summarize("error_rate")
+            if h.get("wer_file"):
+                print_bleu_or_wer(wer, h["wer_file"], logger)
+            if h.get("wer_file_no_turn"):
+                print_bleu_or_wer(wer_nt, h["wer_file_no_turn"], logger)
+        if bleu.ids:
+            stats["BLEU"] = bleu.summarize("BLEU")
+            stats["BLEU_no_turn"] = bleu_nt.summarize("BLEU")
+            if h.get("bleu_file"):
+                print_bleu_or_wer(bleu, h["bleu_file"], logger, is_bleu=True)
+            if h.get("bleu_file_no_turn"):
+                print_bleu_or_wer(bleu_nt, h["bleu_file_no_turn"], logger,
+                                  is_bleu=True)
+        if "train_logger" in h:
+            counter = h.get("epoch_counter")
+            h["train_logger"].log_stats(
+                stats_meta={"Epoch loaded": int(counter.current
+                                                if counter else 0)},
+                test_stats=stats)
+        return stats

@@ -2,6 +2,7 @@
 and its entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
+import json
 import os
 import re
 import subprocess
@@ -14,17 +15,64 @@ from stac_st_tpu_torch import device as port_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# Imports every module of the port, then resolves every
+# recipes/hparams/transformer_*.yaml through the port's config loader at a
+# tiny size (and a YAML naming the JAX package's DeviceSpeedPerturb), and
+# reports the modules imported, the constructed objects whose class is not
+# the port's, and any JAX or JAX-package module in sys.modules.
 _IMPORT_ALL = r"""
-import importlib, pkgutil, sys
+import functools, glob, importlib, json, pkgutil, sys, tempfile, types
+import yaml
 import stac_st_tpu_torch as pkg
 names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+from stac_st_tpu_torch.config import load_hyperpyyaml
+from stac_st_tpu_torch.config.hyperyaml import Placeholder, _Loader
+
+TINY = {"d_model": 32, "nhead": 4, "num_encoder_layers": 2,
+        "num_decoder_layers": 2, "d_ffn": 64, "output_neurons": 150}
+SCALARS = (int, float, str, bool, type(None))
+
+def foreign(value, where, out):
+    if isinstance(value, dict):
+        for k, v in value.items():
+            foreign(v, f"{where}.{k}", out)
+    elif isinstance(value, (list, tuple)):
+        for i, v in enumerate(value):
+            foreign(v, f"{where}[{i}]", out)
+    elif not isinstance(value, SCALARS):
+        obj = value.func if isinstance(value, functools.partial) else value
+        mod = (obj.__module__ if isinstance(obj, (type, types.FunctionType))
+               else type(obj).__module__)
+        if not mod.startswith("stac_st_tpu_torch."):
+            out.append(f"{where}: {mod}")
+
+tmp = tempfile.mkdtemp()
+yamls, found = sorted(glob.glob("recipes/hparams/transformer_*.yaml")), []
+for path in yamls:
+    text = open(path).read()
+    raw = yaml.load(text, Loader=_Loader)
+    ov = {k: v for k, v in TINY.items() if k in raw}
+    ov.update({k: f"{tmp}/{k}" for k, v in raw.items()
+               if isinstance(v, Placeholder) or k == "output_folder"})
+    foreign(load_hyperpyyaml(text, ov), path, found)
+sp = load_hyperpyyaml(
+    "sp: !new:stac_st_tpu.ops.speed_perturb.DeviceSpeedPerturb\n"
+    "    speeds: [90, 100, 110]\n")["sp"]
+try:
+    load_hyperpyyaml("x: !new:stac_st_tpu.ops.speed_perturb.NoSuchName\n")
+    missing = "resolved"
+except ImportError as err:
+    missing = str(err)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
              or m == "stac_st_tpu" or m.startswith("stac_st_tpu."))
-print(len(names), bad)
+print(json.dumps({"modules": len(names), "bad": bad, "yamls": len(yamls),
+                  "foreign": found, "missing": missing,
+                  "device_speed_perturb": f"{type(sp).__module__}."
+                                          f"{type(sp).__qualname__}"}))
 """
 
 
@@ -36,14 +84,34 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-def test_importing_every_module_pulls_in_no_jax():
+@pytest.fixture(scope="module")
+def imported_all():
+    """One subprocess: every module imported and every YAML resolved."""
     env = {**os.environ, "PYTHONPATH": ROOT}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 49  # every module of the package was imported
-    assert bad == "[]", bad
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_importing_every_module_pulls_in_no_jax(imported_all):
+    # every module of the package was imported
+    assert imported_all["modules"] >= 65
+    assert imported_all["bad"] == []
+
+
+def test_yaml_resolution_builds_only_port_objects(imported_all):
+    """Every transformer YAML of the repository resolves to the port's
+    classes and functions only, without importing JAX or the JAX package;
+    a path into the JAX package resolves to the port's counterpart, or
+    raises ImportError naming it."""
+    assert imported_all["yamls"] == 6
+    assert imported_all["foreign"] == []
+    assert imported_all["device_speed_perturb"] == (
+        "stac_st_tpu_torch.ops.speed_perturb.DeviceSpeedPerturb")
+    assert "stac_st_tpu.ops.speed_perturb.NoSuchName" in \
+        imported_all["missing"]
+    assert imported_all["bad"] == []
 
 
 # what the port never imports, at module level or inside a function (the
@@ -81,6 +149,24 @@ def test_no_source_imports_jax_or_the_jax_package_anywhere():
                   if mod.split(".")[0] in _FORBIDDEN]
         found += [f"{rel}: {m.group(0)}" for m in _DYNAMIC.finditer(src)]
     assert len(files) >= 50
+    assert found == []
+
+
+# packages the card's environment does not have (the port keeps its own
+# BLEU, detokenizer, tokenizer and audio readers)
+_NOT_ON_THE_CARD = ("sacrebleu", "sacremoses", "sentencepiece", "soundfile")
+
+
+def test_no_source_imports_a_package_the_card_lacks():
+    found = []
+    for d, _, names in os.walk(os.path.join(ROOT, "stac_st_tpu_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                path = os.path.join(d, n)
+                src = open(path, encoding="utf-8").read()
+                found += [f"{os.path.relpath(path, ROOT)}:{line} {mod}"
+                          for line, mod in _imports(ast.parse(src, path))
+                          if mod.split(".")[0] in _NOT_ON_THE_CARD]
     assert found == []
 
 

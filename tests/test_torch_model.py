@@ -8,6 +8,8 @@ made with numpy from a seed. Tolerance: fp32, atol 1e-4 on activations.
 ``test_torch_engine.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import jax
@@ -108,13 +110,16 @@ def pair():
     return jx, build_port_twin(jx)
 
 
-@pytest.fixture(scope="module")
-def encoded(pair):
-    """Encoder outputs of both sides on one seeded batch."""
-    jx, pt = pair
+def _encoder_batch():
     rng = np.random.default_rng(1)
     feats = rng.standard_normal((2, 41, 80)).astype(np.float32)
-    wav_len = np.asarray([1.0, 0.7], np.float32)
+    return feats, np.asarray([1.0, 0.7], np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_encode(pair):
+    """The JAX encoder, compiled once for the module."""
+    jx, _ = pair
     t = jx["transformer"]
 
     @jax.jit
@@ -122,7 +127,15 @@ def encoded(pair):
         src = jx["cnn"].apply(params["CNN"], feats)
         return t.apply(params["Transformer"], src, wav_len, method=t.encode)
 
-    enc_j = encode(jx["params"], jnp.asarray(feats), jnp.asarray(wav_len))
+    return encode
+
+
+@pytest.fixture(scope="module")
+def encoded(pair, jax_encode):
+    """Encoder outputs of both sides on one seeded batch."""
+    jx, pt = pair
+    feats, wav_len = _encoder_batch()
+    enc_j = jax_encode(jx["params"], jnp.asarray(feats), jnp.asarray(wav_len))
     with torch.no_grad():
         enc_t = pt["transformer"].encode(pt["cnn"](torch.from_numpy(feats)),
                                          torch.from_numpy(wav_len))
@@ -267,3 +280,112 @@ def test_segmented_cache_growth_is_exact(pair, encoded, beam):
     torch.testing.assert_close(grown[0], whole[0], atol=0, rtol=0)
     torch.testing.assert_close(grown[1], whole[1], atol=0, rtol=0)
     torch.testing.assert_close(grown[2], whole[2], atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------ checkpoints
+def _scaled(tree, k):
+    """A distinct parameter tree per checkpoint: every leaf times 1 + k/8."""
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32) * np.float32(1 + k / 8), tree)
+
+
+def _assert_trees_bitwise(got, want):
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(want)
+    for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree_util.tree_leaves(want)):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        assert g.tobytes() == w.tobytes(), path
+
+
+def test_port_reads_jax_checkpoints_and_averages_bitwise(pair, tmp_path):
+    """Checkpoints the JAX Checkpointer kept (top 2 of 3 by ACC): the port
+    finds the same ones in the same order, and its average, loaded into
+    the port's modules, equals the JAX average loaded there, bit for bit
+    (float64 sums cast back)."""
+    from stac_st_tpu.training.checkpoint import Checkpointer as JCkpt
+    from stac_st_tpu.training.checkpoint import (
+        average_checkpoints as j_average,
+    )
+    from stac_st_tpu_torch.interop.from_jax import to_jax_params
+    from stac_st_tpu_torch.training.checkpoint import (
+        Checkpointer,
+        average_checkpoints,
+    )
+
+    jx, _ = pair
+    jck = JCkpt(str(tmp_path))
+    for k, acc in enumerate((0.5, 0.7, 0.6)):
+        jck.save_and_keep_only(
+            meta={"ACC": acc, "epoch": k + 1},
+            trees={"model": _scaled(jx["params"], k),
+                   "counters": {"optimizer_step": k, "epoch": k + 1}},
+            max_keys=["ACC"], num_to_keep=2)
+    want = jck.find_checkpoints(max_key="ACC")
+    got = Checkpointer(str(tmp_path)).find_checkpoints(max_key="ACC")
+    assert [c.path for c in got] == [c.path for c in want]
+    assert [c.meta["ACC"] for c in got] == [0.7, 0.6]
+    avg = average_checkpoints(got, "model")
+    j_avg = jax.tree_util.tree_map(np.asarray, j_average(want, "model"))
+    _assert_trees_bitwise(avg, j_avg)
+    loaded, j_loaded = new_port_modules(), new_port_modules()
+    load_jax_params(avg, **loaded, settings=loaded["transformer"])
+    load_jax_params(j_avg, **j_loaded, settings=jx["transformer"])
+    _assert_trees_bitwise(to_jax_params(**loaded), to_jax_params(**j_loaded))
+    assert got[0].load("counters") == {"epoch": 2, "optimizer_step": 1}
+
+
+def test_jax_reads_port_checkpoints(pair, encoded, jax_encode, tmp_path):
+    """The port's model / normalizer / counters files, written from its
+    modules, load through the JAX package's average_checkpoints and
+    flax's from_state_dict; the JAX encoder on those weights equals the
+    port's encoder (atol 1e-4). The same trees written by each package's
+    Checkpointer are byte-equal files."""
+    from flax import serialization
+
+    from stac_st_tpu.training.checkpoint import Checkpointer as JCkpt
+    from stac_st_tpu.training.checkpoint import (
+        average_checkpoints as j_average,
+    )
+    from stac_st_tpu_torch.interop.from_jax import to_jax_params
+    from stac_st_tpu_torch.training.checkpoint import Checkpointer
+
+    jx, pt = pair
+    _, enc_t = encoded
+    rng = np.random.default_rng(4)
+    mean = rng.standard_normal(80).astype(np.float32)
+    std = (0.5 + rng.random(80)).astype(np.float32)
+    counters = {"optimizer_step": 7, "micro_step": 14, "epoch": 3}
+    port_trees = {
+        "model": to_jax_params(**pt),
+        "normalizer": {"mean": torch.from_numpy(mean),
+                       "std": torch.from_numpy(std),
+                       "count": torch.tensor(12.0)},
+        "counters": counters}
+    ours = Checkpointer(str(tmp_path / "port")).save_checkpoint(
+        {"ACC": 0.5}, port_trees)
+    ckpts = JCkpt(str(tmp_path / "port")).find_checkpoints(max_key="ACC")
+    params = serialization.from_state_dict(jx["params"],
+                                           j_average(ckpts, "model"))
+    feats, wav_len = _encoder_batch()
+    enc = jax_encode(params, jnp.asarray(feats), jnp.asarray(wav_len))
+    np.testing.assert_allclose(np.asarray(enc), enc_t.numpy(), atol=ATOL,
+                               rtol=0)
+    norm = ckpts[0].load("normalizer")
+    np.testing.assert_array_equal(norm["mean"], mean)
+    assert float(norm["count"]) == 12.0
+    assert ckpts[0].load("counters") == counters
+
+    jax_trees = {
+        "model": jx["params"],
+        "normalizer": {"mean": jnp.asarray(mean), "std": jnp.asarray(std),
+                       "count": jnp.asarray(12.0, jnp.float32)},
+        "counters": counters}
+    theirs = JCkpt(str(tmp_path / "jax")).save_checkpoint(
+        {"ACC": 0.5}, jax_trees)
+    for name in port_trees:
+        with open(os.path.join(ours.path, f"{name}.msgpack"), "rb") as f:
+            mine = f.read()
+        with open(os.path.join(theirs.path, f"{name}.msgpack"), "rb") as f:
+            assert f.read() == mine, name

@@ -371,7 +371,9 @@ def slice_run():
     return dict(params_j=params_j, grad_j=grad_j, state_j=state_j,
                 losses_j=losses_j, norms_j=norms_j, grad_p=grad_p,
                 state_p=state_p, losses_p=losses_p, norms_p=norms_p,
-                batches=batches, mean=mean, std=std, cfg_j=cfg_j)
+                batches=batches, mean=mean, std=std, cfg_j=cfg_j,
+                # one jitted JAX eval forward for every test of the module
+                eval_j=jstep.make_eval_forward(cfg_j))
 
 
 def test_slice_losses_match_jax(slice_run):
@@ -414,7 +416,7 @@ def test_eval_forward_matches_jax(slice_run):
     key-padding routes) against JAX's eval forward, fp32 atol 1e-4."""
     r = slice_run
     batch = r["batches"][1]
-    p_ctc_j, p_seq_j, enc_j = jax.jit(jstep.make_eval_forward(r["cfg_j"]))(
+    p_ctc_j, p_seq_j, enc_j = r["eval_j"](
         r["params_j"], _jcmvn(r["mean"], r["std"]), {k: jnp.asarray(v)
                                      for k, v in batch.items()})
     cfg_p = _port_cfg(_port_modules(r["params_j"]))
@@ -522,3 +524,53 @@ def test_collate_and_pad_rows_match_jax():
         for g, w in zip(pad_batch_rows(arrays, 4).values(),
                         jdata.pad_batch_rows(arrays, 4).values()):
             np.testing.assert_array_equal(g, w)
+
+
+def test_validation_loss_and_acc_match_jax(slice_run, monkeypatch):
+    """The port's validation (teacher-forced loss and ACC, no search)
+    against the JAX trainer's ``_validate`` on identical batches, weights
+    and CMVN: fp32, atol 1e-4. The JAX trainer runs the module's one
+    compiled eval forward, and its losses compiled once (eager, each
+    operation compiles on its own)."""
+    from stac_st_tpu.training.trainer import STTrainer as JaxTrainer
+    from stac_st_tpu.utils.metrics import AccuracyStats as JaxAccuracy
+    from stac_st_tpu_torch.utils.metrics import AccuracyStats
+
+    r = slice_run
+    batches = _padded_batches(np.random.default_rng(12), 2)
+    cfg = r["cfg_j"]
+    # eos wins the argmax, so ACC counts each row's eos position
+    params = jax.tree_util.tree_map(np.asarray, r["params_j"])
+    params["seq_lin"]["params"]["linear"]["bias"] = (
+        params["seq_lin"]["params"]["linear"]["bias"]
+        + 20.0 * (np.arange(VOCAB) == 2)).astype(np.float32)
+    jax_trainer = JaxTrainer(
+        {"CNN": cfg.cnn, "Transformer": cfg.transformer,
+         "seq_lin": cfg.seq_lin, "ctc_lin": cfg.ctc_lin},
+        hparams=dict(compute_features=cfg.fbank, ctc_weight=0.3,
+                     label_smoothing=0.1, loss_reduction="batchmean",
+                     n_mels=N_MELS, acc_computer=JaxAccuracy),
+        run_opts={"data_parallel_count": 1})
+    jax_trainer.eval_forward = r["eval_j"]
+    original = jstep._objectives
+    objectives = jax.jit(lambda p_ctc, p_seq, batch: original(
+        p_ctc, p_seq, batch, cfg))
+    monkeypatch.setattr(jstep, "_objectives",
+                        lambda p_ctc, p_seq, batch, _: objectives(
+                            p_ctc, p_seq, batch))
+    jax_trainer.state = jstep.TrainState(
+        params=jax.tree_util.tree_map(jnp.asarray, params), opt_state=None,
+        cmvn=_jcmvn(r["mean"], r["std"]),
+        optimizer_step=jnp.zeros((), jnp.int32),
+        micro_step=jnp.zeros((), jnp.int32))
+    want = jax_trainer._validate(batches, 1)
+
+    trainer = _trainer(params)
+    trainer.hparams["acc_computer"] = AccuracyStats
+    trainer.ensure_state().cmvn = CmvnState(_t(r["mean"]), _t(r["std"]),
+                                            torch.tensor(100.0))
+    got = trainer._validate(batches, 1)
+    assert set(got) == set(want) == {"loss", "ACC"}
+    np.testing.assert_allclose(got["loss"], want["loss"], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got["ACC"], want["ACC"], atol=1e-4, rtol=0)
+    assert 0.0 < want["ACC"] < 1.0
