@@ -98,11 +98,13 @@ Phases, each printed as one JSON line:
    handler. The second run must resume from that checkpoint with
    parameters, Adam's moments and accumulator, the optimizer's counts,
    the step-seed generator, CMVN and counters bitwise equal to the saved
-   ones, re-run epoch 1 and run epoch 2, validate both with the dual
-   search (every decode launch on the fp32 "simt" kernels, as the JAX
-   trainer searches its fp32 weights), keep 2 ACC checkpoints, evaluate
-   on their average (bitwise) and write the bleu_/wer_ files of both
-   heldout splits; the YAML's references must share the modules. Then
+   ones, re-enter epoch 1, read the batches run 1 trained again without
+   training them (so its micro steps are an uninterrupted run's, one for
+   each batch of two epochs), train the rest of epoch 1 and epoch 2,
+   validate both with the dual search (every decode launch on the fp32
+   "simt" kernels, as the JAX trainer searches its fp32 weights), keep 2
+   ACC checkpoints, evaluate on their average (bitwise) and write the
+   bleu_/wer_ files of both heldout splits; the YAML's references must share the modules. Then
    STEngine.from_saved_experiment loads weights bitwise equal to that
    average and translates the heldout audio. Launches of the phase by
    kernel and variant (kernels 2-7 each at least once), each stage's wall
@@ -1074,9 +1076,8 @@ def write_ulaw_sphere(path: str, wav: np.ndarray, rate: int) -> None:
         f.write(header + b" " * (1024 - len(header)) + ulaw_bytes(pcm))
 
 
-def write_corpus(root: str, seed: int = 0, n: int = N_CORPUS,
-                 seconds=(12.0, 15.0)):
-    """``n`` utterances (N_CORPUS) of 12-15 s (``seconds``) of seeded
+def write_corpus(root: str, seed: int = 0, count: int = N_CORPUS):
+    """``count`` utterances (N_CORPUS) of 12-15 s of seeded
     noise-and-tone audio at 8 kHz, as PCM16 WAV (every eighth entry two
     files that the loader concatenates; one entry a mu-law SPHERE file), a
     training manifest in the reference schema (half ASR rows, half ES->EN
@@ -1096,8 +1097,8 @@ def write_corpus(root: str, seed: int = 0, n: int = N_CORPUS,
     es, en = lexicon(400), [w[::-1] for w in lexicon(400)]
     os.makedirs(os.path.join(root, "wav"), exist_ok=True)
     entries, lines, total = {}, [], 0.0
-    for i in range(n):
-        dur = float(rng.uniform(*seconds))
+    for i in range(count):
+        dur = float(rng.uniform(12.0, 15.0))
         n = int(dur * FILE_SR)
         t = np.arange(n) / FILE_SR
         wav = (0.2 * np.sin(2 * np.pi * (150 + 7 * (i % 40)) * t)
@@ -1430,25 +1431,24 @@ SIGTERM_AFTER = 3  # batches of epoch 1 before the in-process SIGTERM
 RECIPE_DECODE = ("decode_self_attention_anc", "decode_cross_attention")
 
 
-def recipe_corpus(root: str, n_train: int, n_dev: int, n_heldout: int,
-                  seconds=(12.0, 15.0)):
-    """write_corpus, split: ``train`` (ASR and ST rows), ``dev`` (ST rows),
-    ``heldout/data-asr`` (transcription rows) and ``heldout/data-st`` (the
-    same utterances' translation rows, four references); a BPE tokenizer
+def recipe_corpus(root: str):
+    """write_corpus, split: ``train`` (ASR and ST rows), ``dev`` (N_DEV ST
+    rows), ``heldout/data-asr`` (N_HELDOUT transcription rows) and
+    ``heldout/data-st`` (the same utterances' translation rows, four
+    references); a BPE tokenizer
     trained on the text as data_train trains it ([es] [en] [turn] [xt] are
     3-6). Returns (tokenizer path, heldout audio paths)."""
     from stac_st_tpu_torch.tokenizer import train_bpe
 
-    n_tail = n_dev + n_heldout
-    path, lines, _ = write_corpus(root, n=n_train + 2 * n_tail,
-                                  seconds=seconds)
+    n_tail = N_DEV + N_HELDOUT
+    path, lines, _ = write_corpus(root, count=N_TRAIN + 2 * n_tail)
     with open(path) as f:
         entries = json.load(f)
     ids = list(entries)
     # ST rows (odd rows) carry both texts: transcription and translation_0
-    tail = [u for u in ids[n_train:] if entries[u]["task"] == "translation"]
+    tail = [u for u in ids[N_TRAIN:] if entries[u]["task"] == "translation"]
     check(len(tail) == n_tail, f"{len(tail)} ST rows for dev and heldout")
-    dev, heldout = tail[:n_dev], tail[n_dev:]
+    dev, heldout = tail[:N_DEV], tail[N_DEV:]
     train = [u for u in ids if u not in set(tail)]
     asr = {u: {**entries[u], "task": "transcription", "target_lang": "es",
                "translation_0": entries[u]["transcription"]} for u in heldout}
@@ -1470,14 +1470,14 @@ def recipe_corpus(root: str, n_train: int, n_dev: int, n_heldout: int,
 
 
 class _Feed:
-    """Passes the recipe's train loader through: counts the audio seconds
-    it hands over, and in the run it arms raises SIGTERM in-process after
-    the ``after``-th batch of the first epoch (tests/test_e2e.py's
-    deterministic preemption)."""
+    """Passes the recipe's train loader through: records the audio seconds
+    of each batch it hands over, and in the run it arms raises SIGTERM
+    in-process after the ``after``-th batch of the first epoch
+    (tests/test_e2e.py's deterministic preemption)."""
 
     def __init__(self, loader, after=None):
         self.loader, self.after = loader, after
-        self.fired, self.audio_s, self.batches = False, 0.0, 0
+        self.fired, self.seconds = False, []
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
@@ -1486,8 +1486,7 @@ class _Feed:
         import signal
 
         for i, batch in enumerate(self.loader):
-            self.audio_s += float(np.sum(batch.duration))
-            self.batches += 1
+            self.seconds.append(float(np.sum(batch.duration)))
             yield batch
             if self.after and not self.fired and i + 1 >= self.after:
                 self.fired = True
@@ -1540,13 +1539,10 @@ def resume_check(trainer, ckpt) -> dict:
     }
 
 
-def recipe_run(torch, kernels, root: str, device: str, extra=(),
-               n_train: int = N_TRAIN, n_dev: int = N_DEV,
-               n_heldout: int = N_HELDOUT, seconds=(12.0, 15.0)) -> dict:
-    """The recipe twice from its YAML (SIGTERM in the first run, resume in
-    the second), then the saved experiment through STEngine; ``extra``
-    overrides (none on the card). Checks as the phase states; returns its
-    record."""
+def recipe_run(torch, kernels, root: str) -> dict:
+    """The recipe twice from its YAML on the card (SIGTERM in the first
+    run, resume in the second), then the saved experiment through
+    STEngine. Checks as the phase states; returns its record."""
     import contextlib
     import signal
 
@@ -1557,22 +1553,22 @@ def recipe_run(torch, kernels, root: str, device: str, extra=(),
         average_checkpoints,
     )
 
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    rec = {"yaml": os.path.relpath(RECIPE_YAML, ROOT), "device": device,
-           "train_utterances": n_train, "dev_utterances": n_dev,
-           "heldout_utterances": n_heldout, "sigterm_after": SIGTERM_AFTER}
+    sync = torch.cuda.synchronize
+    rec = {"yaml": os.path.relpath(RECIPE_YAML, ROOT),
+           "train_utterances": N_TRAIN, "dev_utterances": N_DEV,
+           "heldout_utterances": N_HELDOUT, "sigterm_after": SIGTERM_AFTER}
     t0 = time.perf_counter()
-    tok, wavs = recipe_corpus(root, n_train, n_dev, n_heldout, seconds)
+    tok, wavs = recipe_corpus(root)
     rec["corpus_and_tokenizer_s"] = time.perf_counter() - t0
     out = os.path.join(root, "exp")
-    args = [RECIPE_YAML, f"--device={device}", f"--data_folder={root}",
+    args = [RECIPE_YAML, "--device=cuda", f"--data_folder={root}",
             f"--tokenizer_file={tok}", f"--output_folder={out}",
             "--train_splits=train", "--dev_splits=dev",
             "--test_splits_4_translations=[heldout/data-st]",
             "--test_splits_1_translations=[heldout/data-asr]",
             "--number_of_epochs=2", "--valid_search_interval=1",
             "--num_workers=4", "--no_eval=False", "--n_warmup_steps=10",
-            "--turn=5", "--xt=6", *extra]
+            "--turn=5", "--xt=6"]
     rec["overrides"] = args[1:]
 
     runs = []
@@ -1635,7 +1631,7 @@ def recipe_run(torch, kernels, root: str, device: str, extra=(),
     R.STTrainer, R.dataio_prepare = Recorded, prepared
     kernels.reset_launches()
     try:
-        with open(os.path.join(OUT_DIR, f"recipe_log_{device}.txt"),
+        with open(os.path.join(OUT_DIR, "recipe_log_cuda.txt"),
                   "w") as log, contextlib.redirect_stdout(log):
             trainers = []
             for _ in range(2):
@@ -1658,22 +1654,26 @@ def recipe_run(torch, kernels, root: str, device: str, extra=(),
     check(chained == [signal.SIGTERM], f"previous handler called {chained}")
     # the signal lands while the loader fetches the next batch: that
     # batch's step runs, then fit checkpoints and returns
-    check(first.state.micro_step == feeds[0].batches == SIGTERM_AFTER + 1,
+    done = len(feeds[0].seconds)
+    check(first.state.micro_step == done == SIGTERM_AFTER + 1,
           f"run 1 took {first.state.micro_step} steps")
     check(not runs[0]["valid"] and not runs[0]["evaluate"],
           "no validation or evaluation after SIGTERM")
     save = Checkpointer(os.path.join(out, "save"))
     pre = [c for c in save.list_checkpoints() if c.meta.get("preempted")]
-    check(len(pre) == 1 and pre[0].meta["epoch"] == 1,
+    check(len(pre) == 1 and pre[0].meta["epoch"] == 1
+          and len(pre[0].meta["epoch_losses"]) == done,
           f"preempted checkpoints {[c.meta for c in pre]}")
-    # run 2: resumed from it, bitwise; re-ran epoch 1, then epoch 2
+    # run 2: resumed from it, bitwise; re-entered epoch 1, read its first
+    # `done` batches again without training them, then epoch 2
     check(runs[1].get("resumed_from") == os.path.basename(pre[0].path),
           "run 2 resumed from the preempted checkpoint")
     check(all(runs[1]["resume"].values()), f"resume {runs[1]['resume']}")
     check([v["epoch"] for v in runs[1]["valid"]] == [1, 2],
           "validated epochs 1 and 2")
-    check(second.state.micro_step == feeds[0].batches + feeds[1].batches,
-          "micro steps across the resume")
+    check(second.state.micro_step == len(feeds[1].seconds),
+          f"micro steps across the resume: {second.state.micro_step} for "
+          f"{len(feeds[1].seconds)} batches in 2 epochs")
     check(second.state.optimizer_step
           == second.state.micro_step // second.tx.accum,
           f"optimizer steps {second.state.optimizer_step}")
@@ -1683,7 +1683,7 @@ def recipe_run(torch, kernels, root: str, device: str, extra=(),
               f"valid stats {v}")
         check(all(v["launches"].get(f"{n}/simt", 0) > 0
                   and not v["launches"].get(f"{n}/{SPLIT}")
-                  for n in RECIPE_DECODE) or device != "cuda",
+                  for n in RECIPE_DECODE),
               f"validation searches in fp32 (simt): {v['launches']}")
     acc = save.find_checkpoints(max_key="ACC")
     check(1 <= len(acc) <= 5 and sorted(c.meta["epoch"] for c in acc)
@@ -1712,7 +1712,7 @@ def recipe_run(torch, kernels, root: str, device: str, extra=(),
 
     # the saved experiment, reloaded from its own config, serves
     t = time.perf_counter()
-    eng = STEngine.from_saved_experiment(out, device=device, bf16=False)
+    eng = STEngine.from_saved_experiment(out, device="cuda", bf16=False)
     sync()
     load_s = time.perf_counter() - t
     check(trees_equal(model_tree(eng._cnn, eng._transformer,
@@ -1727,12 +1727,14 @@ def recipe_run(torch, kernels, root: str, device: str, extra=(),
     launches = dict(kernels.launches)
     check(len(texts) == len(wavs) and all(isinstance(x, str) for x in texts),
           "translate")
+    trained = [sum(feeds[0].seconds), sum(feeds[1].seconds[done:])]
     rec.update({
         "run1": runs[0], "run2": runs[1],
-        "fit_audio_s": [f.audio_s for f in feeds],
+        # audio trained: run 2 reads run 1's batches again untrained
+        "fit_audio_s": trained,
         "fit_audio_s_per_s": [
-            f.audio_s / (r["fit_s"] - sum(v["valid_s"] for v in r["valid"]))
-            for f, r in zip(feeds, runs)],
+            a / (r["fit_s"] - sum(v["valid_s"] for v in r["valid"]))
+            for a, r in zip(trained, runs)],
         "checkpoints_kept": [{"ACC": c.meta["ACC"], "epoch": c.meta["epoch"]}
                              for c in acc],
         "optimizer_steps": second.state.optimizer_step,
@@ -1751,7 +1753,7 @@ def recipe_phase(torch, kernels, smi: str):
 
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        rec = recipe_run(torch, kernels, root, "cuda")
+        rec = recipe_run(torch, kernels, root)
         rec["phase_s"] = time.perf_counter() - t0
     launches = rec["launches"]
     for name in RECIPE_DECODE + FLASH:

@@ -110,9 +110,11 @@ class STEngine:
         num_decoder_layers: int = 6, d_ffn: int = 1024, vocab: int = 5000,
         **kw,
     ) -> "STEngine":
-        """Load averaged weights from a training experiment's save dir,
-        with the model dimensions given (``from_saved_experiment`` reads
-        them from the experiment's config)."""
+        """Load averaged weights from a training experiment's save dir
+        into the canonical YAML's modules (front end of two 256-channel
+        blocks over 80 mels, pre-LN transformer) at the dimensions given;
+        ``from_saved_experiment`` reads every setting from the
+        experiment's own config instead."""
         tokenizer = SentencePieceProcessor(tokenizer_file)
         cnn = ConvolutionFrontEnd()
         transformer = TransformerMultiTask(
@@ -160,10 +162,8 @@ class STEngine:
     @classmethod
     def _load_from_save(cls, cnn, transformer, seq_lin, ctc_lin,
                         ckpt_dir: str, tokenizer, n_mels: int,
-                        avg_checkpoints: Optional[int] = None,
                         **kw) -> "STEngine":
-        ckpts = Checkpointer(ckpt_dir).find_checkpoints(
-            max_key="ACC", max_num_checkpoints=avg_checkpoints)
+        ckpts = Checkpointer(ckpt_dir).find_checkpoints(max_key="ACC")
         if not ckpts:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
         raw = average_checkpoints(ckpts, "model")
@@ -259,12 +259,11 @@ class STEngine:
     def load_audio(self, path: str) -> np.ndarray:
         return read_audio(path, sample_rate=self.sample_rate)[0]
 
-    def warmup(self, dual: bool = False) -> int:
+    def warmup(self) -> int:
         """Serve silence once at every (bucket, pad rung) shape, so a fresh
         server pays its first-call costs (cuBLAS and cuDNN set-up, the
-        kernels' first launch) before traffic. ``dual=True`` also runs the
-        fused dual-prompt search per shape. Returns the number of shapes
-        served."""
+        kernels' first launch) before traffic. Returns the number of
+        shapes served."""
         rungs = (self.pad_batch_rows
                  if isinstance(self.pad_batch_rows, tuple)
                  else (self.pad_batch_rows or 1,))
@@ -274,8 +273,6 @@ class STEngine:
                            np.float32)
             for r in rungs:
                 self.translate([wav] * int(r))
-                if dual:
-                    self.transcribe_and_translate([wav] * int(r))
                 n += 1
         return n
 

@@ -32,8 +32,12 @@ trainer's step-seed generator, so a resumed run draws the seeds the
 uninterrupted run would have drawn. The JAX package's ``opt`` tree (optax
 layout) is not read: resuming from a JAX checkpoint restores parameters,
 CMVN and counters, and the moments restart (logged). A checkpoint written
-inside epoch k (``preempted`` or ``timed``) resumes at the start of epoch
-k; one written at the end of epoch k resumes at epoch k + 1.
+inside epoch k (``preempted`` or ``timed``) also records in its meta the
+losses of the batches epoch k had trained (``epoch_losses``); the resumed
+run re-enters epoch k, reads those batches from the loader again without
+training them (its order and speed draws are keyed by the epoch) and goes
+on from the next one, so it ends where the uninterrupted run ends. One
+written at the end of epoch k resumes at epoch k + 1.
 
 Randomness: one CPU ``torch.Generator`` per trainer, seeded from
 ``hparams["seed"]``; each step draws its integer seed from it.
@@ -162,6 +166,9 @@ class STTrainer:
         self.epoch_losses: List[torch.Tensor] = []  # last epoch, per step
         self.valid_search_s = 0.0  # the last validation's search time
         self.preempted = False  # the last fit stopped on SIGTERM
+        # (epoch, losses of its trained batches) from a checkpoint written
+        # inside that epoch, until fit re-enters it
+        self._resume_inside: Optional[tuple] = None
         self.debug = bool(self.run_opts.get("debug", False))
         self.debug_batches = int(self.run_opts.get("debug_batches", 2))
 
@@ -216,9 +223,12 @@ class STTrainer:
         state.optimizer_step = int(counters.get("optimizer_step", 0))
         state.micro_step = int(counters.get("micro_step", 0))
         epoch_counter = self.hparams.get("epoch_counter")
+        inside = ckpt.meta.get("preempted") or ckpt.meta.get("timed")
         if epoch_counter is not None and "epoch" in counters:
-            inside = ckpt.meta.get("preempted") or ckpt.meta.get("timed")
             epoch_counter.current = int(counters["epoch"]) - bool(inside)
+        self._resume_inside = ((int(counters["epoch"]),
+                                ckpt.meta.get("epoch_losses", []))
+                               if inside and "epoch" in counters else None)
 
     def _load_opt_tree(self, raw) -> None:
         st, dev = self.state.opt_state, self.device
@@ -316,7 +326,7 @@ class STTrainer:
         # resume (if the checkpointer has a checkpoint) before the epoch
         # counter is read
         self.ensure_state()
-        timer = StepTimer()
+        timer = StepTimer(device=self.device)
         self.preempted = False
 
         def _on_sigterm(signum, frame):
@@ -337,11 +347,19 @@ class STTrainer:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
 
-    def _save_preemption_checkpoint(self, epoch: int) -> None:
+    def _save_inside_epoch(self, kind: str, epoch: int,
+                           losses: List[torch.Tensor]) -> None:
+        """A ``preempted`` or ``timed`` checkpoint, with the losses of the
+        batches this epoch has trained."""
+        self.checkpointer.save_checkpoint(
+            meta={kind: True, "epoch": epoch, "epoch_losses":
+                  torch.stack(losses).float().cpu().tolist()},
+            trees=self._checkpoint_trees(epoch))
+
+    def _save_preemption_checkpoint(self, epoch: int,
+                                    losses: List[torch.Tensor]) -> None:
         if self.checkpointer is not None:
-            self.checkpointer.save_checkpoint(
-                meta={"preempted": True, "epoch": epoch},
-                trees=self._checkpoint_trees(epoch))
+            self._save_inside_epoch("preempted", epoch, losses)
         logger.warning("stopped by SIGTERM at epoch %d opt step %d "
                        "(checkpoint saved)", epoch,
                        self.state.optimizer_step)
@@ -358,10 +376,20 @@ class STTrainer:
             update_cmvn = (self.normalize is not None
                            and self.normalize.should_update(epoch))
             losses: List[torch.Tensor] = []
+            if self._resume_inside and self._resume_inside[0] == epoch:
+                losses = [torch.tensor(x, dtype=torch.float32,
+                                       device=self.device)
+                          for x in self._resume_inside[1]]
+                logger.info("epoch %d: %d batches trained before the "
+                            "checkpoint are skipped", epoch, len(losses))
+            self._resume_inside = None
+            done = len(losses)
             self.epoch_losses = losses
             for i, batch in enumerate(train_set):
                 if self.debug and i >= self.debug_batches:
                     break
+                if i < done:  # trained before the checkpoint
+                    continue
                 dev_batch = self._device_batch(batch)
                 self.state, metrics = self.train_step(
                     self.state, dev_batch, self.next_seed(),
@@ -369,7 +397,7 @@ class STTrainer:
                 losses.append(metrics["loss"])
                 timer.tick(items=float(np.sum(batch.duration)))
                 if self.preempted:
-                    self._save_preemption_checkpoint(epoch)
+                    self._save_preemption_checkpoint(epoch, losses)
                     return
                 if progress_every and (i + 1) % progress_every == 0:
                     stats = timer.stats()
@@ -382,9 +410,7 @@ class STTrainer:
                 # timed intra-epoch checkpoints (ckpt_interval_minutes)
                 if (ckpt_interval > 0 and self.checkpointer is not None
                         and time.time() - last_timed_ckpt > ckpt_interval):
-                    self.checkpointer.save_checkpoint(
-                        meta={"timed": True, "epoch": epoch},
-                        trees=self._checkpoint_trees(epoch))
+                    self._save_inside_epoch("timed", epoch, losses)
                     self._cleanup_timed_checkpoints()
                     last_timed_ckpt = time.time()
             if not losses:
@@ -424,14 +450,9 @@ class STTrainer:
 
     def _run_search_dual(self, searcher, enc_out, wav_lens, src: str,
                          tgt: str):
-        """ASR + ST hypotheses off one encoder output. hparam
-        ``fused_dual_decode``: True forces fusion, False disables it,
-        unset/'auto' applies DUAL_FUSE_MAX_ROWS."""
-        mode = self.hparams.get("fused_dual_decode", "auto")
+        """ASR + ST hypotheses off one encoder output."""
         rows = 2 * int(enc_out.shape[0]) * searcher.config.beam_size
-        fuse = (rows <= self.DUAL_FUSE_MAX_ROWS) if mode == "auto" \
-            else bool(mode)
-        if not fuse:
+        if rows > self.DUAL_FUSE_MAX_ROWS:
             return (self._run_search(searcher, enc_out, wav_lens, src, src),
                     self._run_search(searcher, enc_out, wav_lens, src, tgt))
         s_id, t_id = self._lang_id(src), self._lang_id(tgt)

@@ -3,22 +3,20 @@
 ``scripts/tokenizer/detokenizer.perl``), for the port's metrics.
 
 The port keeps its own copy because the card's environment has no
-``sacremoses``. One pass over the whitespace-split tokens decides, token
-by token, whether a space goes before it (``prepend_space``):
+``sacremoses``. It carries the rules for the languages the recipes
+detokenize, English and Spanish (``lang`` names the target language); any
+other ``lang`` raises ``ValueError``. One pass over the whitespace-split
+tokens decides, token by token, whether a space goes before it
+(``prepend_space``):
 
 * XML entities are unescaped first (``&amp;`` last) and `` @-@ `` joins;
-* a token starting with a CJK character joins a preceding CJK token
-  (not for Korean);
+* a token starting with a CJK character joins a preceding CJK token;
 * currency symbols and opening brackets/¿/¡ take the next token without a
-  space; closing punctuation joins the previous token (French puts a
-  space before ``? ! : ; \\ %``);
-* English ``'s``-style contractions join the previous token; French,
-  Italian and Irish ``l'``-style contractions join the next; Czech
-  decimals and ``-li`` forms join;
+  space; closing punctuation joins the previous token;
+* English ``'s``-style contractions join the previous token;
 * quotes alternate between opening (space before, none after) and
   closing (no space before), counted per quote kind; an English ``'``
   after a word ending in ``s`` is a possessive;
-* Finnish case suffixes after ``:`` keep their space;
 * spaces collapse to one and the ends are stripped.
 
 Character classes come from Python's ``unicodedata``: letters and letter
@@ -27,11 +25,8 @@ sacremoses ships has no CJK ideographs or Hangul syllables), currency
 symbols (``Sc``) for ``IsSc``. They agree with sacremoses' tables on every
 character below U+0345 and in the CJK ranges; beyond, they differ on some
 combining marks and recent letters, which decide a rule only as the
-second character of a contraction or the first of a word.
-``tests/test_torch_recipe.py`` holds the two to each other on English,
-Spanish, French, Czech, Finnish and Korean token streams. Where
-sacremoses fails (its Czech ``-li`` branch calls ``next`` on a list), this
-copy does what ``detokenizer.perl`` does.
+second character of a contraction. ``tests/test_torch_recipe.py`` holds
+the two to each other on English and Spanish token streams.
 """
 
 from __future__ import annotations
@@ -52,21 +47,7 @@ _CJK = ((4352, 4607), (11904, 42191), (43072, 43135), (44032, 55215),
         (63744, 64255), (65072, 65103), (65381, 65500), (94208, 101119),
         (110592, 110895), (110960, 111359), (131072, 196607))
 _PUNCT = re.compile(r"^[\,\.\?\!\:\;\\\%\}\]\)]+$")
-_FR_SPACED = re.compile(r"^[\?\!\:\;\\\%]$")
 _OPEN_QUOTE = re.compile(r"""^[\'\"„“`]+$""")
-_FI_SUFFIX = re.compile(r"^({})({})?({})$".format(
-    "|".join(["N", "n", "A", "a", "\xc4", "\xe4", "ssa", "Ssa", "ss\xe4",
-              "Ss\xe4", "sta", "st\xe4", "Sta", "St\xe4", "hun", "Hun",
-              "hyn", "Hyn", "han", "Han", "h\xe4n", "H\xe4n", "h\xf6n",
-              "H\xf6n", "un", "Un", "yn", "Yn", "an", "An", "\xe4n",
-              "\xc4n", "\xf6n", "\xd6n", "seen", "Seen", "lla", "Lla",
-              "ll\xe4", "Ll\xe4", "lta", "Lta", "lt\xe4", "Lt\xe4", "lle",
-              "Lle", "ksi", "Ksi", "kse", "Kse", "tta", "Tta", "ine",
-              "Ine"]),
-    "|".join(["ni", "si", "mme", "nne", "nsa"]),
-    "|".join(["ko", "k\xf6", "han", "h\xe4n", "pa", "p\xe4", "kaan",
-              "k\xe4\xe4n", "kin"])))
-_NUMBER = re.compile(r"^[0-9]+$")
 
 
 def _is_cjk(ch: str) -> bool:
@@ -88,23 +69,24 @@ def _is_currency(token: str) -> bool:
 
 
 class MosesDetokenizer:
+    LANGUAGES = ("en", "es")
+
     def __init__(self, lang: str = "en"):
+        if lang not in self.LANGUAGES:
+            raise ValueError(f"lang: {lang!r} has no detokenizer rules here "
+                             f"(the port carries {self.LANGUAGES})")
         self.lang = lang
 
-    def detokenize(self, tokens: Sequence[str], return_str: bool = True,
-                   unescape: bool = True):
+    def detokenize(self, tokens: Sequence[str]) -> str:
         text = " {} ".format(" ".join(tokens)).replace(" @-@ ", "-")
-        if unescape:
-            for entity, char in _UNESCAPE:
-                text = text.replace(entity, char)
+        for entity, char in _UNESCAPE:
+            text = text.replace(entity, char)
         words: List[str] = text.split()
         lang = self.lang
         quotes = {"'": 0, '"': 0, "``": 0, "`": 0, "''": 0}
         out, space = "", " "
-        i = 0
-        while i < len(words):
-            tok = words[i]
-            if _is_cjk(tok[0]) and lang != "ko":
+        for i, tok in enumerate(words):
+            if _is_cjk(tok[0]):
                 joins = i > 0 and _is_cjk(words[i - 1][-1])
                 out += tok if joins else space + tok
                 space = " "
@@ -112,39 +94,15 @@ class MosesDetokenizer:
                 out += space + tok
                 space = ""
             elif _PUNCT.search(tok):
-                if lang == "fr" and _FR_SPACED.search(tok):
-                    out += " "
                 out += tok
                 space = " "
             elif (lang == "en" and i > 0 and len(tok) > 1 and tok[0] == "'"
                   and _is_alpha(tok[1])):
                 out += tok
                 space = " "
-            elif (lang == "cs" and i > 1 and _NUMBER.search(words[-2])
-                  and re.search(r"^[.,]$", words[-1])
-                  and _NUMBER.search(tok)):
-                out += tok
-                space = " "
-            elif (lang in ("fr", "it", "ga") and i <= len(words) - 2
-                  and len(tok) > 1 and tok[-1] == "'"
-                  and _is_alpha(tok[-2]) and _is_alpha(words[i + 1][0])):
-                out += space + tok
-                space = ""
-            elif (lang == "cs" and i <= len(words) - 3 and len(tok) > 1
-                  and tok[-1] == "'" and _is_alpha(tok[-2])
-                  and re.search(r"^[-–]$", words[i + 1])
-                  and re.search(r"^li$|^mail.*", words[i + 2],
-                                re.IGNORECASE)):
-                out += space + tok + words[i + 1]
-                i += 1  # the dash is taken
-                space = ""
             elif _OPEN_QUOTE.search(tok):
                 quote = '"' if re.search(r"^[„“”]+$", tok) else tok
                 quotes[quote] = quotes.get(quote, 0)
-                if lang == "cs" and tok == "„":
-                    quotes[quote] = 0
-                if lang == "cs" and tok == "“":
-                    quotes[quote] = 1
                 if quotes[quote] % 2 == 0:
                     if (lang == "en" and tok == "'" and i > 0
                             and words[i - 1].endswith("s")):
@@ -158,13 +116,7 @@ class MosesDetokenizer:
                     out += tok
                     space = " "
                     quotes[quote] += 1
-            elif (lang == "fi" and words[i - 1].endswith(":")
-                  and _FI_SUFFIX.search(tok)):
-                out += space + tok
-                space = " "
             else:
                 out += space + tok
                 space = " "
-            i += 1
-        out = re.sub(r" {2,}", " ", out).strip()
-        return out if return_str else out.split()
+        return re.sub(r" {2,}", " ", out).strip()

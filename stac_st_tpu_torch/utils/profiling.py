@@ -2,20 +2,20 @@
 ``stac_st_tpu/utils/profiling.py``'s ``StepTimer``; the JAX trace hook is
 not ported: ``torch.profiler`` serves there).
 
-Host clock only: ``time.perf_counter`` at each ``tick``. The trainer calls
-``tick`` after a step is enqueued and never synchronizes for it, so on a
-card a tick measures the host's issue rate; over a window longer than the
-device's queue the two rates agree, because the host then waits for the
-card. Call ``torch.cuda.synchronize()`` before a tick where one step's
-device time is wanted.
+On a card, each ``tick`` records a ``torch.cuda.Event`` on the current
+stream, after the step it closes was enqueued, and never waits for it: a
+step's duration is the device time between two consecutive events, read
+in ``stats`` (which waits for the last event only). On the CPU, each
+``tick`` reads ``time.perf_counter``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
+import torch
 
 __all__ = ["StepTimer"]
 
@@ -23,28 +23,40 @@ __all__ = ["StepTimer"]
 class StepTimer:
     """Rolling step-latency/throughput stats for the training loop."""
 
-    def __init__(self, window: int = 50):
+    def __init__(self, window: int = 50, device=None):
         self.window = int(window)
-        self._durations: List[float] = []
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self._spans: List[tuple] = []  # (start mark, end mark) a step
         self._items: List[float] = []
-        self._last: Optional[float] = None
+        self._last = None
 
     def tick(self, items: float = 0.0) -> None:
         """Call once per step; items = e.g. seconds of audio in the batch."""
-        now = time.perf_counter()
+        if self.cuda:
+            now = torch.cuda.Event(enable_timing=True)
+            now.record()
+        else:
+            now = time.perf_counter()
         if self._last is not None:
-            self._durations.append(now - self._last)
+            self._spans.append((self._last, now))
             self._items.append(items)
-            if len(self._durations) > self.window:
-                self._durations.pop(0)
+            if len(self._spans) > self.window:
+                self._spans.pop(0)
                 self._items.pop(0)
         self._last = now
 
+    def _durations(self) -> np.ndarray:
+        if not self.cuda:
+            return np.asarray([end - start for start, end in self._spans])
+        self._last.synchronize()
+        return np.asarray([start.elapsed_time(end) / 1000.0
+                           for start, end in self._spans])
+
     def stats(self) -> Dict[str, float]:
-        if not self._durations:
+        if not self._spans:
             return {}
-        durations = np.asarray(self._durations)
-        out = {
+        durations = self._durations()
+        out: Dict[str, float] = {
             "step_ms_p50": float(np.percentile(durations, 50) * 1000),
             "step_ms_p95": float(np.percentile(durations, 95) * 1000),
             "steps_per_sec": float(1.0 / durations.mean()),

@@ -2,6 +2,7 @@
 and its entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
+import functools
 import json
 import os
 import re
@@ -136,19 +137,28 @@ def _imports(tree):
                 yield node.lineno, node.module or ""
 
 
-def test_no_source_imports_jax_or_the_jax_package_anywhere():
+@functools.lru_cache(maxsize=None)
+def _sources():
+    """(path relative to the repository, source, its imports) of
+    chip_smoke.py and of every module of the port, parsed once."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "stac_st_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    found = []
+    out = []
     for path in files:
         src = open(path, encoding="utf-8").read()
-        rel = os.path.relpath(path, ROOT)
-        found += [f"{rel}:{line} {mod}" for line, mod in
-                  _imports(ast.parse(src, path))
+        out.append((os.path.relpath(path, ROOT), src,
+                    list(_imports(ast.parse(src, path)))))
+    return out
+
+
+def test_no_source_imports_jax_or_the_jax_package_anywhere():
+    found = []
+    for rel, src, imports in _sources():
+        found += [f"{rel}:{line} {mod}" for line, mod in imports
                   if mod.split(".")[0] in _FORBIDDEN]
         found += [f"{rel}: {m.group(0)}" for m in _DYNAMIC.finditer(src)]
-    assert len(files) >= 50
+    assert len(_sources()) >= 50
     assert found == []
 
 
@@ -158,15 +168,10 @@ _NOT_ON_THE_CARD = ("sacrebleu", "sacremoses", "sentencepiece", "soundfile")
 
 
 def test_no_source_imports_a_package_the_card_lacks():
-    found = []
-    for d, _, names in os.walk(os.path.join(ROOT, "stac_st_tpu_torch")):
-        for n in names:
-            if n.endswith(".py"):
-                path = os.path.join(d, n)
-                src = open(path, encoding="utf-8").read()
-                found += [f"{os.path.relpath(path, ROOT)}:{line} {mod}"
-                          for line, mod in _imports(ast.parse(src, path))
-                          if mod.split(".")[0] in _NOT_ON_THE_CARD]
+    found = [f"{rel}:{line} {mod}" for rel, _, imports in _sources()
+             if rel.startswith("stac_st_tpu_torch")
+             for line, mod in imports
+             if mod.split(".")[0] in _NOT_ON_THE_CARD]
     assert found == []
 
 

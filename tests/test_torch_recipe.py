@@ -232,7 +232,7 @@ def test_metrics_match_jax(corpus, tmp_path):
 
 def _token_streams(seed, n=300):
     """Seeded token lists mixing words, punctuation, quotes, contractions,
-    currency, brackets, CJK, Finnish suffixes and XML entities."""
+    currency, brackets, CJK and XML entities."""
     rng = np.random.default_rng(seed)
     vocab = ["hola", "the", "Jones", "cats", "l'", "homme", "EU:", "n",
              "ssa", "'s", "'re", "'", '"', "``", "''", "„", "“", "”", "`",
@@ -245,24 +245,25 @@ def _token_streams(seed, n=300):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("lang", ["en", "es", "fr", "cs", "fi", "ko"])
+@pytest.mark.parametrize("lang", ["en", "es"])
 def test_detokenizer_matches_sacremoses(lang):
     """The port's Moses detokenizer (the card has no sacremoses) against
-    sacremoses on seeded token streams, exactly."""
+    sacremoses on seeded token streams, exactly, in the two languages the
+    recipes detokenize."""
     from sacremoses import MosesDetokenizer as Reference
 
     from stac_st_tpu_torch.utils.detokenize import MosesDetokenizer
 
     ref, port = Reference(lang=lang), MosesDetokenizer(lang=lang)
-    checked = 0
     for tokens in _token_streams(sum(map(ord, lang))):
-        try:
-            want = ref.detokenize(tokens)
-        except TypeError:  # sacremoses' Czech "-li" branch
-            continue
-        assert port.detokenize(tokens) == want, tokens
-        checked += 1
-    assert checked > 250
+        assert port.detokenize(tokens) == ref.detokenize(tokens), tokens
+
+
+def test_detokenizer_refuses_other_languages():
+    from stac_st_tpu_torch.utils.detokenize import MosesDetokenizer
+
+    with pytest.raises(ValueError, match="lang: 'fr'"):
+        MosesDetokenizer(lang="fr")
 
 
 def test_bleu_matches_sacrebleu():
@@ -316,7 +317,8 @@ def _state(trainer):
             "mean": st.cmvn.mean, "std": st.cmvn.std, "n": st.cmvn.count,
             "gen": trainer.generator.get_state(),
             "ints": torch.tensor([st.optimizer_step, st.micro_step,
-                                  opt.sched_count, opt.mini_step])}
+                                  opt.sched_count, opt.mini_step]),
+            **({"acc": opt.acc} if opt.acc is not None else {})}
 
 
 def test_resume_is_bitwise_equal_to_an_uninterrupted_run(corpus, tmp_path):
@@ -384,6 +386,40 @@ def test_sigterm_saves_a_preempted_checkpoint_and_restores_handler(
                                          "optimizer_step": 0}
 
 
+def test_resume_inside_an_epoch_equals_an_uninterrupted_epoch(corpus,
+                                                              tmp_path):
+    """SIGTERM after the second batch of epoch 1 (accumulation 2); a fresh
+    trainer from the YAML resumes from the preempted checkpoint, reads the
+    two trained batches again without training them and trains the third:
+    its state (the accumulator too) and the epoch's train loss equal one
+    uninterrupted epoch, bit for bit."""
+    more = dict(dynamic_batching=False, batch_size=2,
+                grad_accumulation_factor=2, number_of_epochs=1)
+    whole_hp = _hparams(corpus, tmp_path / "whole", **more)
+    whole = _trainer(whole_hp)
+    batches = _batches(whole_hp, 3)
+    whole.fit(whole_hp["epoch_counter"], batches)
+
+    prev = signal.signal(signal.SIGTERM, lambda s, f: None)
+    try:
+        first_hp = _hparams(corpus, tmp_path / "run", **more)
+        first = _trainer(first_hp)
+        first.fit(first_hp["epoch_counter"], _Sigterm(batches))
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    assert first.preempted and first.state.micro_step == 2
+    second_hp = _hparams(corpus, tmp_path / "run", **more)
+    second = _trainer(second_hp)
+    second.fit(second_hp["epoch_counter"], batches)
+    assert not second.preempted and second.state.micro_step == 3
+    got, want = _state(second), _state(whole)
+    assert set(got) == set(want) and "acc" in want
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert second.train_stats == whole.train_stats
+    assert second_hp["epoch_counter"].current == 1
+
+
 def test_validation_search_reads_the_live_weights(corpus, tmp_path):
     """The YAML's searcher decodes with the trainer's weights as they are:
     the same encoder output scores differently after one step, and the
@@ -406,14 +442,36 @@ def test_validation_search_reads_the_live_weights(corpus, tmp_path):
 
 
 # ------------------------------------------------------------ the recipe
-def _run_recipe(corpus, out, device):
-    """The recipe from the canonical YAML (one epoch, search on, one test
-    split), then the experiment reloaded by STEngine."""
-    from stac_st_tpu_torch.serving import STEngine
+def _assert_engine_holds(engine, avg):
+    """The engine's weights are the tree ``avg`` (JAX layout), bitwise."""
+    got = to_jax_params(engine._cnn, engine._transformer,
+                        engine.searcher.seq_lin, engine._ctc_lin)
+    flat = {}
+    for tree, tag in ((got, "got"), (avg, "want")):
+        leaves = []
+        _flatten(tree, "", leaves)
+        flat[tag] = leaves
+    assert [k for k, _ in flat["got"]] == [k for k, _ in flat["want"]]
+    for (key, g), (_, w) in zip(flat["got"], flat["want"]):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), key
+
+
+def _average(out):
     from stac_st_tpu_torch.training.checkpoint import (
         Checkpointer,
         average_checkpoints,
     )
+
+    ckpts = Checkpointer(os.path.join(out, "save")).find_checkpoints(
+        max_key="ACC")
+    assert len(ckpts) == 1
+    return average_checkpoints(ckpts, "model")
+
+
+def _run_recipe(corpus, out, device):
+    """The recipe from the canonical YAML (one epoch, search on, one test
+    split), then the experiment reloaded by STEngine."""
+    from stac_st_tpu_torch.serving import STEngine
 
     # the card's decode kernels take heads of 64
     heads = {"d_model": 128, "nhead": 2} if device == "cuda" else {}
@@ -432,21 +490,8 @@ def _run_recipe(corpus, out, device):
     files = sorted(f for f in os.listdir(out) if f.startswith("wer_"))
     assert files == ["wer_data-asr.csv", "wer_data-asr.txt",
                      "wer_data-asr_no_turn.csv", "wer_data-asr_no_turn.txt"]
-    ckpts = Checkpointer(os.path.join(out, "save")).find_checkpoints(
-        max_key="ACC")
-    assert len(ckpts) == 1
-    avg = average_checkpoints(ckpts, "model")
     engine = STEngine.from_saved_experiment(out, device=device, bf16=False)
-    got = to_jax_params(engine._cnn, engine._transformer,
-                        engine.searcher.seq_lin, engine._ctc_lin)
-    flat = {}
-    for tree, tag in ((got, "got"), (avg, "want")):
-        leaves = []
-        _flatten(tree, "", leaves)
-        flat[tag] = leaves
-    assert [k for k, _ in flat["got"]] == [k for k, _ in flat["want"]]
-    for (key, g), (_, w) in zip(flat["got"], flat["want"]):
-        assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), key
+    _assert_engine_holds(engine, _average(out))
     wav = engine.load_audio(os.path.join(corpus["root"], "wav",
                                          "utt000.wav"))
     assert isinstance(engine.translate([wav])[0], str)
@@ -474,7 +519,15 @@ def test_recipes_default_to_cuda_and_raise_without_it(monkeypatch):
             main([YAML, "--data_folder=/nonexistent"])
 
 
-def test_recipe_end_to_end_on_cpu(corpus, tmp_path):
+@pytest.fixture(scope="module")
+def cpu_experiment(corpus, tmp_path_factory):
+    """The recipe's experiment on the CPU (``_run_recipe``), made once."""
+    out = str(tmp_path_factory.mktemp("recipe") / "exp")
+    _run_recipe(corpus, out, "cpu")
+    return out
+
+
+def test_recipe_end_to_end_on_cpu(corpus, cpu_experiment):
     """``--device=cpu``: train, validate with the dual search, keep the
     ACC checkpoint, evaluate the test split into its files, and reload
     the experiment with the averaged weights, bit for bit; then the
@@ -482,8 +535,7 @@ def test_recipe_end_to_end_on_cpu(corpus, tmp_path):
     the CTC head's RTTM files."""
     from stac_st_tpu_torch.recipes import inference
 
-    out = str(tmp_path / "exp")
-    _run_recipe(corpus, out, "cpu")
+    out = cpu_experiment
     root = corpus["root"]
     inference.main([
         os.path.join(ROOT, "recipes", "hparams", "transformer_inference.yaml"),
@@ -505,3 +557,54 @@ def test_recipe_end_to_end_on_card(corpus, tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _run_recipe(corpus, str(tmp_path / "exp"), "cuda")
+
+
+def test_from_experiment_loads_the_average_and_warms_up(corpus,
+                                                        cpu_experiment):
+    """``STEngine.from_experiment`` (dimensions given, the YAML's CNN)
+    loads the same experiment's averaged weights, bit for bit, and
+    ``warmup`` serves every bucket once."""
+    from stac_st_tpu_torch.serving import STEngine
+
+    engine = STEngine.from_experiment(
+        cpu_experiment, corpus["tokenizer"], d_model=TINY["d_model"],
+        nhead=TINY["nhead"], num_encoder_layers=TINY["num_encoder_layers"],
+        num_decoder_layers=TINY["num_decoder_layers"], d_ffn=TINY["d_ffn"],
+        vocab=TINY["output_neurons"], device="cpu", bf16=False,
+        beam_size=2, bucket_seconds=(0.5, 1.0))
+    _assert_engine_holds(engine, _average(cpu_experiment))
+    assert engine.warmup() == 2
+
+
+def test_step_timer_rates():
+    """The trainer's StepTimer on the CPU's clock: a window of step
+    durations and the items (audio seconds) a second over it."""
+    from stac_st_tpu_torch.utils.profiling import StepTimer
+
+    timer = StepTimer(window=2, device="cpu")
+    assert timer.stats() == {} and not timer.cuda
+    for items in (5.0, 1.0, 2.0, 3.0):
+        timer.tick(items)
+    stats = timer.stats()
+    assert timer._items == [2.0, 3.0]
+    assert stats["step_ms_p50"] >= 0 and stats["steps_per_sec"] > 0
+    assert stats["items_per_sec"] == pytest.approx(
+        5.0 * stats["steps_per_sec"] / 2)
+
+
+@pytest.mark.cuda
+def test_step_timer_reads_device_time_on_card():
+    """On the card the timer records events and reads the device time
+    between them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stac_st_tpu_torch.utils.profiling import StepTimer
+
+    timer = StepTimer(device="cuda")
+    x = torch.randn(2048, 2048, device="cuda")
+    for _ in range(4):
+        x = (x @ x).tanh()
+        timer.tick(1.0)
+    stats = timer.stats()
+    assert timer.cuda and 0 < stats["step_ms_p50"] < 1e3
+    assert stats["items_per_sec"] > 0

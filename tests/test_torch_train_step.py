@@ -551,7 +551,11 @@ def test_validation_loss_and_acc_match_jax(slice_run, monkeypatch):
                      label_smoothing=0.1, loss_reduction="batchmean",
                      n_mels=N_MELS, acc_computer=JaxAccuracy),
         run_opts={"data_parallel_count": 1})
-    jax_trainer.eval_forward = r["eval_j"]
+    # the module's compiled eval forward, on the batch as uncommitted
+    # arrays (the trainer's are committed to its one-device mesh, which
+    # would compile the same program again)
+    jax_trainer.eval_forward = lambda p, c, b: r["eval_j"](
+        p, c, {k: jnp.asarray(np.asarray(v)) for k, v in b.items()})
     original = jstep._objectives
     objectives = jax.jit(lambda p_ctc, p_seq, batch: original(
         p_ctc, p_seq, batch, cfg))
