@@ -15,8 +15,9 @@ Phases, each printed as one JSON line:
    build/torch_kernels/); ptxas must report no spills for the
    tensor-core kernels (fwd_tc_kernel, four instantiations; dq_tc_kernel
    and dkv_tc_kernel, two each) and for the split decode kernels
-   (self_split_kernel, cross_split_kernel and anc_split_kernel, two
-   each), whose registers are reported;
+   (self_split_kernel and its ragged form self_split_rows_kernel,
+   cross_split_kernel and anc_split_kernel, two instantiations each), whose
+   registers are reported;
 2. kernel: each decode-attention kernel against its plain PyTorch version
    at the serving path's shapes (B 16 x 10 s, beam 10: 160 rows, 4 heads of
    64, self cache 3 + 192 positions, 251 encoder frames), in fp32 with TF32
@@ -33,7 +34,16 @@ Phases, each printed as one JSON line:
    other shapes of the main path (self at B16 greedy decoding, 16 rows,
    idx 194 of the 195-position cache segment and idx 97 of the
    131-position one; anc mid-decode, idx 97 of 131; cross at the dual
-   search's B32);
+   search's B32); and self's ragged form (one index per row, as the
+   continuous slot loop steps it): 16 slots of the 195-position cache at
+   indices 3 to 194 and one past the cache, fp32 (``simt``) and bf16
+   (``split``, bitwise over two launches), counted under
+   ``decode_self_attention/rows``, its SDPA yardstick with the
+   equivalent key mask; and cross at the slot loop's shapes: 16 slots
+   padded to 801 encoder frames, each masked past floor(len · S_w) of its
+   own 2-32 s bucket, at beam 1 (the chunk step) and beam 3 (prompt
+   priming of a full rung), fp32 and bf16 (bitwise over two launches),
+   timed with its bound and the SDPA yardstick with the same mask;
 3. train_kernel: the four flash-attention kernels (inference forward,
    training forward, dQ, dK/dV) against their plain versions at the
    training path's shapes (encoder self-attention B32 x 376 frames with
@@ -117,11 +127,36 @@ Phases, each printed as one JSON line:
 9. card_vs_cpu_train: one train step, full width d256/H4, 2 + 2 layers,
    B2 x 2 s, fp32 (TF32 off), dropout 0: loss, gradients and updated
    parameters, card against CPU; then the same for B3 x 2 s through
-   DeviceSpeedPerturb, one row at each speed.
+   DeviceSpeedPerturb, one row at each speed;
+10. serve, run right after recipe on the experiment it saved: the batch
+   front as ``stac_st_tpu_torch.recipes.serve`` builds it (start_servers:
+   HTTP, bf16, --max-batch 16, --pad-batch 4,16, warm-up on); one client
+   posts to every route (translate, transcribe, transcribe_translate,
+   speaker_turns, long_form on a conversation of at least 60 s made of
+   corpus utterances between pauses, /healthz, /stats), each answer equal
+   to the engine's direct call; then 16 concurrent clients post
+   PCM16-base64 /v1/translate requests of 2-16 s for 20 s, every one
+   answered. Then a ContinuousBatchingEngine (16 slots, chunk 16) on the
+   same engine behind STHttpServer: 8 requests one at a time against a
+   sequential greedy oracle (one row, the scalar self kernel; the bf16
+   agreement is printed, not checked), the same concurrent load, and
+   protocol_finalize on 6 requests closed right after submitting (every
+   future resolves to its final). Then an fp32 engine of the experiment
+   (TF32 off): the same 8 requests must give the oracle's tokens exactly.
+   Launches of the phase (zeroed before): ragged self on ``split`` and
+   cross in the slot loop, anc and cross in the batch front, no plain
+   version called on a CUDA tensor. Prints sustained RTFx through HTTP
+   per front, p50 / p95 / p99 latency, the formed-batch histogram, slot
+   utilization, launches by kernel and variant, the phase's seconds, and
+   where each load window's time went (seconds and calls of the batch
+   front's engine calls and searches, of the slot loop's admissions and
+   chunks); --profile also traces 5 s of each front under the same load
+   (device busy time and idle share, the decode kernels' µs a launch).
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through, and its
-launches in the recipe phase),
+launches in the recipe and serve phases; the ragged self form is a line
+of its own, its launches the serve phase's),
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
@@ -136,6 +171,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -250,10 +286,11 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 SDPA_FUSED = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
-def sdpa_yardstick(torch, timer, q, k, v, want):
+def sdpa_yardstick(torch, timer, q, k, v, want, mask=None):
     """The library time of one attention call: scaled_dot_product_attention
-    of q (..., Lq, Dh) against k, v (..., n, Dh), at scale 1, all three laid
-    out contiguous as its fused backends take them (built by the caller,
+    of q (..., Lq, Dh) against k, v (..., n, Dh), at scale 1 (with the
+    boolean ``mask`` of visible keys, if given), all three laid out
+    contiguous as its fused backends take them (built by the caller,
     outside the timed call). Every fused backend that accepts the call is
     checked against ``want`` (the plain version's output in SDPA's layout;
     within bf16's step, since a backend may compute in bf16) and timed; the
@@ -262,7 +299,8 @@ def sdpa_yardstick(torch, timer, q, k, v, want):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    call = partial(F.scaled_dot_product_attention, q, k, v, scale=1.0)
+    call = partial(F.scaled_dot_product_attention, q, k, v, attn_mask=mask,
+                   scale=1.0)
     best = None
     for name in (*SDPA_FUSED, "MATH"):
         if name == "MATH" and best is not None:
@@ -287,6 +325,18 @@ def _self_lib(q, k, v, idx, want):
     n = idx + 1
     return (q[:, :, None], k[..., :n].transpose(-1, -2).contiguous(),
             v[:, :, :n].contiguous(), want[:, :, None])
+
+
+def _rows_lib(q, kT, v, idx, want):
+    """SDPA's inputs for the ragged self form: every row's whole cache and
+    a mask of the positions 0..min(idx[r], S - 1) it sees."""
+    import torch
+
+    S = kT.shape[-1]
+    pos = torch.arange(S, device=kT.device)
+    mask = pos[None, :] <= idx.clamp(max=S - 1)[:, None]
+    return (q[:, :, None], kT.transpose(-1, -2).contiguous(), v,
+            want[:, :, None], mask[:, None, None, :])
 
 
 def _cross_lib(q, kT, v, beam, want):
@@ -413,7 +463,12 @@ def kernel_phase(torch, K, timer):
             rec["bfloat16_b32"] = _cross_b32(torch, K, timer, g)
         emit(rec)
         rows.append(rec)
-    return rows
+    # the continuous slot loop's shapes, from a generator of their own so
+    # the cases above see the same inputs as before them
+    g_slots = torch.Generator(device="cpu").manual_seed(1)
+    ragged = _self_rows(torch, K, timer, g_slots)
+    _cross_slots(torch, K, timer, g_slots)
+    return rows + [ragged]
 
 
 def _timed_case(torch, timer, name, label, run, plain, nbytes, flops,
@@ -460,6 +515,146 @@ def _self_greedy(torch, K, timer, g, S, idx):
         partial(K.decode_self_attention_ref, q, kT, v, idx),
         (2 * B * H * DH + 2 * B * H * n * DH) * 2, 4.0 * B * H * n * DH,
         lib=partial(_self_lib, q, kT, v, idx))
+
+
+# the ragged self form as continuous serving gives it: 16 slots of a
+# 3 + 192-position cache, each at its own index (3 just after the prompt,
+# mid-decode, 194 the last position, 200 a finished slot past the cache)
+ROWS_IDX = (3, 15, 28, 40, 53, 66, 79, 97, 110, 123, 136, 149, 162, 175, 194,
+            200)
+
+
+def _self_rows(torch, K, timer, g):
+    """decode_self_attention's ragged form (one index per row) against its
+    plain version, fp32 (TF32 off, ``simt``) and bf16 (``split``, bitwise
+    over two launches), with its times and bound; one line of phase
+    kernel."""
+    from stac_st_tpu_torch.ops import kernels
+
+    name = "decode_self_attention"
+    R, S = len(ROWS_IDX), S_SELF
+    base = [torch.randn(shape, generator=g) * sc
+            for shape, sc in (((R, H, DH), 1 / 8), ((R, H, DH, S), 1),
+                              ((R, H, S, DH), 1))]
+    idx = torch.tensor(ROWS_IDX, dtype=torch.int32, device="cuda")
+    n = [min(i, S - 1) + 1 for i in ROWS_IDX]
+    rec = {"phase": "kernel", "name": f"{name}/rows", "rows": R, "S": S,
+           "idx": list(ROWS_IDX)}
+    for dtype in ("float32", "bfloat16"):
+        q, kT, v = (t.to("cuda", getattr(torch, dtype)).contiguous()
+                    for t in base)
+        run = partial(K.decode_self_attention, q, kT, v, idx)
+        plain = partial(K.decode_self_attention_ref, q, kT, v, idx)
+        variant = SPLIT if dtype == "bfloat16" else "simt"
+        before = dict(kernels.launches)
+        out = run()
+        torch.cuda.synchronize()
+        added = {k: c - before.get(k, 0) for k, c in kernels.launches.items()
+                 if c != before.get(k, 0)}
+        check(added == {name: 1, f"{name}/{variant}": 1, f"{name}/rows": 1,
+                        f"{name}/rows/{variant}": 1},
+              f"ragged self {dtype}: launched {added}")
+        want = plain()
+        err = (out.float() - want.float()).abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"ragged self {dtype} finite")
+        check(err <= TOL[dtype], f"ragged self {dtype}: max abs err {err}")
+        if dtype == "bfloat16":
+            check(torch.equal(out, run()), "ragged self not repeatable")
+            rec["bitwise_repeatable"] = True
+        es = q.element_size()
+        b_ms, b_by = bound_ms(
+            (2 * R * H * DH + 2 * H * sum(n) * DH) * es + 4 * R,
+            4.0 * H * sum(n) * DH, dtype)
+        rec[dtype] = {
+            "max_abs_err": err, "tol": TOL[dtype], "variant": variant,
+            "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "host_us": host_us(torch, run)}
+        rec[dtype].update(sdpa_yardstick(torch, timer,
+                                         *_rows_lib(q, kT, v, idx, want)))
+    rec["timer_floor_ms"] = timer.floor_ms()
+    emit(rec)
+    return rec
+
+
+# the slot loop's cross-attention: 16 slots, each padded to the largest
+# bucket's S_max = 801 encoder frames (32 s) and masked past floor(len·S_w)
+# of its own bucket (S_w = 25·seconds + 1 frames), for requests across the
+# 2-32 s buckets; beam 1 in the chunk step, the prompt window (beam 3) when
+# a full rung of 16 is primed
+SLOT_SECONDS = (0.4, 2.0, 2.7, 3.1, 4.0, 5.5, 8.0, 9.9, 12.3, 16.0, 17.2,
+                20.0, 24.5, 28.0, 31.0, 32.0)
+SLOT_BUCKETS, S_MAX = (2.0, 4.0, 8.0, 16.0, 32.0), 801
+
+
+def _slot_bias(torch):
+    """(16, S_MAX) float32 bias as the continuous engine's admission makes
+    it, and each slot's visible frame count."""
+    abs_len = []
+    for sec in SLOT_SECONDS:
+        bucket = next(b for b in SLOT_BUCKETS if b >= sec)
+        S_w = int(25 * bucket) + 1
+        abs_len.append(math.floor(sec / bucket * S_w))
+    lens = torch.tensor(abs_len, dtype=torch.float32, device="cuda")
+    bias = torch.where(torch.arange(S_MAX, device="cuda")[None, :]
+                       > lens[:, None], -1e9, 0.0).float().contiguous()
+    return bias, [min(a, S_MAX - 1) + 1 for a in abs_len]
+
+
+def _cross_slots(torch, K, timer, g):
+    """decode_cross_attention at the slot loop's shapes (beam 1, and beam 3
+    for prompt priming) with the per-slot bias, against its plain version:
+    fp32 (TF32 off, ``simt``) and bf16 (``split``, bitwise over two
+    launches), with times and bound; one line of phase kernel."""
+    from stac_st_tpu_torch.ops import kernels
+
+    name, R = "decode_cross_attention", len(SLOT_SECONDS)
+    bias, n = _slot_bias(torch)
+    rec = {"phase": "kernel", "name": name, "case": "slot_loop", "slots": R,
+           "S": S_MAX, "seconds": list(SLOT_SECONDS), "visible": n}
+    for beam in (1, 3):
+        base = [torch.randn(shape, generator=g) * sc
+                for shape, sc in (((R * beam, H, DH), 1 / 8),
+                                  ((R, H, DH, S_MAX), 1),
+                                  ((R, H, S_MAX, DH), 1))]
+        for dtype in ("float32", "bfloat16"):
+            q, kT, v = (t.to("cuda", getattr(torch, dtype)).contiguous()
+                        for t in base)
+            run = partial(K.decode_cross_attention, q, kT, v, bias, beam)
+            plain = partial(K.decode_cross_attention_ref, q, kT, v, bias,
+                            beam)
+            variant = SPLIT if dtype == "bfloat16" else "simt"
+            label = f"cross slot loop beam {beam} {dtype}"
+            before = dict(kernels.launches)
+            out = run()
+            torch.cuda.synchronize()
+            added = {k: c - before.get(k, 0)
+                     for k, c in kernels.launches.items()
+                     if c != before.get(k, 0)}
+            check(added == {name: 1, f"{name}/{variant}": 1},
+                  f"{label}: launched {added}")
+            want = plain()
+            err = (out.float() - want.float()).abs().max().item()
+            check(bool(torch.isfinite(out).all()), f"{label} finite")
+            check(err <= TOL[dtype], f"{label}: max abs err {err}")
+            case = {"max_abs_err": err, "tol": TOL[dtype], "variant": variant}
+            if dtype == "bfloat16":
+                check(torch.equal(out, run()), f"{label} not repeatable")
+                case["bitwise_repeatable"] = True
+            es = q.element_size()
+            b_ms, b_by = bound_ms(
+                (2 * R * beam * H * DH + 2 * H * sum(n) * DH) * es
+                + R * S_MAX * 4, 4.0 * beam * H * sum(n) * DH, dtype)
+            case.update({"ms": timer.ms(run), "plain_ms": timer.ms(plain),
+                         "library_ms": None, "bound_ms": b_ms,
+                         "bound_by": b_by, "host_us": host_us(torch, run)})
+            q_l, k_l, v_l, want_l = _cross_lib(q, kT, v, beam, want)
+            case.update(sdpa_yardstick(torch, timer, q_l, k_l, v_l, want_l,
+                                       (bias == 0)[:, None, None, :]))
+            rec[f"beam{beam}_{dtype}"] = case
+    rec["timer_floor_ms"] = timer.floor_ms()
+    emit(rec)
+    return rec
 
 
 def _anc_mid(torch, K, timer, g):
@@ -521,8 +716,9 @@ SPLIT = "split"  # the decode kernels' variant for bf16 / fp16
 DECODE_SPLIT = ("decode_self_attention", "decode_self_attention_anc",
                 "decode_cross_attention")
 # the split decode kernels and their instantiations (ptxas: no spills)
-SPLIT_KERNELS = {"self_split_kernel": 2, "cross_split_kernel": 2,
-                 "anc_split_kernel": 2}
+# (self: bf16 and fp16; its ragged form is a kernel of its own)
+SPLIT_KERNELS = {"self_split_kernel": 2, "self_split_rows_kernel": 2,
+                 "cross_split_kernel": 2, "anc_split_kernel": 2}
 FLASH = ("flash_attention", "flash_attention_train_fwd",
          "flash_attention_train_dq", "flash_attention_train_dkv")
 TC = "wgmma"     # the tensor-core kernels' variant (bf16 / fp16, Dh 64)
@@ -881,7 +1077,8 @@ def profile_call(torch, fn, wall_unprofiled: float, name: str,
                  watch=()):
     """Device time by kernel over one call of ``fn`` (the union of kernel
     and copy intervals is the busy time; the idle share is taken against
-    the same call's wall time without the profiler). The table goes to
+    the same call's wall time without the profiler, or, given None, with
+    it). The table goes to
     chiprun_out/profile_<name>.txt. ``watch``: name fragments whose kernels
     are summed into device µs, launches and µs a launch."""
     from torch.autograd import DeviceType
@@ -923,7 +1120,13 @@ def profile_call(torch, fn, wall_unprofiled: float, name: str,
                                          "us_per_launch": us / count}
     return {"wall_profiled_s": wall, "wall_unprofiled_s": wall_unprofiled,
             "device_busy_s": busy_us / 1e6,
-            "device_idle_share": 1.0 - busy_us / 1e6 / wall_unprofiled,
+            "device_idle_share": 1.0 - busy_us / 1e6 / (wall_unprofiled
+                                                         or wall),
+            # the profiler's host cost is inside a profiled wall: a share
+            # taken against it is not comparable with one taken against
+            # an unprofiled run
+            "idle_share_against": ("unprofiled wall" if wall_unprofiled
+                                   else "profiled wall"),
             "top_device_us": [[k[:60], v, launches[k]] for k, v in top],
             "watched": watched}
 
@@ -1747,18 +1950,448 @@ def recipe_run(torch, kernels, root: str) -> dict:
     return rec
 
 
-def recipe_phase(torch, kernels, smi: str):
-    """The canonical recipe at full width on the card (recipe_run)."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        rec = recipe_run(torch, kernels, root)
-        rec["phase_s"] = time.perf_counter() - t0
+def recipe_phase(torch, kernels, smi: str, root: str):
+    """The canonical recipe at full width on the card (recipe_run), its
+    corpus and experiment under ``root``."""
+    t0 = time.perf_counter()
+    rec = recipe_run(torch, kernels, root)
+    rec["phase_s"] = time.perf_counter() - t0
     launches = rec["launches"]
     for name in RECIPE_DECODE + FLASH:
         check(launches.get(name, 0) > 0, f"recipe launched no {name}")
     emit({"phase": "recipe", "gpu": smi, **rec})
+    return rec
+
+
+# the serve phase: the recipe's experiment behind the port's HTTP front,
+# as `python -m stac_st_tpu_torch.recipes.serve EXP_DIR` runs it
+SERVE_ARGS = ["--transport", "http", "--http-port", "0", "--max-batch", "16",
+              "--pad-batch", "4,16"]
+SLOTS, CHUNK = 16, 16           # bench_serve.py's continuous defaults
+CLIENTS, LOAD_S = 16, 20.0      # concurrent clients, load window (s)
+REQUEST_S = (2.0, 16.0)         # request lengths (s)
+N_EXACT, N_FINAL = 8, 6         # continuous vs oracle; protocol finals
+CONVERSATION_S = 60.0           # the long-form input, at least
+
+
+class Refs:
+    """Counts calls of the decode kernels' plain versions on CUDA tensors
+    while active (the wrappers reach them through the module's names)."""
+
+    NAMES = ("decode_self_attention_ref", "decode_self_attention_anc_ref",
+             "decode_cross_attention_ref")
+
+    def __init__(self, K):
+        self.K, self.cuda_calls, self.saved = K, 0, {}
+
+    def __enter__(self):
+        for n in self.NAMES:
+            fn = self.saved[n] = getattr(self.K, n)
+
+            def counted(*args, _fn=fn, **kw):
+                if any(getattr(a, "is_cuda", False) for a in args):
+                    self.cuda_calls += 1
+                return _fn(*args, **kw)
+
+            setattr(self.K, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.K, n, fn)
+
+
+def http_post(port: int, path: str, body: bytes, timeout: float = 300.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_get(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def to_pcm16(wav: np.ndarray) -> np.ndarray:
+    return np.clip(wav * 32768.0, -32768, 32767).astype(np.int16)
+
+
+def pcm16_body(wav: np.ndarray) -> bytes:
+    """A request body carrying ``wav`` as PCM16, base64."""
+    import base64
+
+    return json.dumps({"audio_pcm16_b64": base64.b64encode(
+        to_pcm16(wav).tobytes()).decode()}).encode()
+
+
+def serve_audio(eng, root: str):
+    """The recipe corpus's first 24 utterances at 16 kHz; a pool of 64
+    requests of 2-16 s cut from them (PCM16-base64 bodies, with their
+    seconds); a conversation of at least 60 s: utterances between pauses
+    of 0.6-1.4 s of -60 dB noise."""
+    with open(os.path.join(root, "train.json")) as f:
+        entries = json.load(f)
+    utts = []
+    for uid in list(entries)[:24]:
+        utts.append(np.concatenate([
+            eng.load_audio(p.replace("{data_root}", root))
+            for p in entries[uid]["wav"].split()]).astype(np.float32))
+    rng = np.random.default_rng(10)
+    stream = np.concatenate(utts)
+    pool = []
+    for _ in range(64):
+        n = int(rng.uniform(*REQUEST_S) * SR)
+        a = int(rng.integers(0, len(stream) - n))
+        pool.append((stream[a:a + n], n / SR))
+    parts, total = [], 0.0
+    for u in utts:
+        pause = 0.001 * rng.standard_normal(int(rng.uniform(0.6, 1.4) * SR))
+        parts += [pause.astype(np.float32), u]
+        total += (len(pause) + len(u)) / SR
+        if total >= CONVERSATION_S:
+            break
+    parts.append(np.zeros(SR // 2, np.float32))
+    return utts, pool, np.concatenate(parts)
+
+
+class Stages:
+    """Wall seconds and calls of named methods of one object, while active
+    (each ends in a host read, so device work is included); the serving
+    workers are serial, so seconds over the window's wall is the share of
+    it each stage held the worker."""
+
+    def __init__(self, obj, names):
+        self.obj, self.names, self.s, self.calls = obj, names, {}, {}
+
+    def __enter__(self):
+        for n in self.names:
+            fn = getattr(self.obj, n)
+
+            def run(*a, _fn=fn, _n=n, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.s[_n] = self.s.get(_n, 0.0) + time.perf_counter() - t
+                    self.calls[_n] = self.calls.get(_n, 0) + 1
+
+            setattr(self.obj, n, run)
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            delattr(self.obj, n)
+
+    def report(self, wall: float) -> dict:
+        return {n: {"s": self.s.get(n, 0.0), "calls": self.calls.get(n, 0),
+                    "share_of_wall": self.s.get(n, 0.0) / wall}
+                for n in self.names}
+
+
+def load_window(port: int, pool, seconds: float = LOAD_S) -> dict:
+    """CLIENTS threads post /v1/translate (PCM16-base64) back to back for
+    ``seconds``: sustained RTFx (audio served over the wall time until the
+    last answer), latency percentiles, failures."""
+    import threading
+
+    bodies = [(pcm16_body(w), sec) for w, sec in pool]
+    lat, audio, failed = [], [], []
+    lock = threading.Lock()
+    t_end = time.perf_counter() + seconds
+
+    def client(c):
+        rng = np.random.default_rng(100 + c)
+        while time.perf_counter() < t_end:
+            body, sec = bodies[int(rng.integers(len(bodies)))]
+            t = time.perf_counter()
+            code, r = http_post(port, "/v1/translate", body)
+            dt = time.perf_counter() - t
+            with lock:
+                if code == 200 and isinstance(r.get("text"), str):
+                    lat.append(dt)
+                    audio.append(sec)
+                else:
+                    failed.append(code)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not failed and lat, f"load: {len(failed)} failed ({failed[:5]})")
+    ms = np.asarray(lat) * 1e3
+    return {"clients": CLIENTS, "window_s": seconds, "requests": len(lat),
+            "audio_s": float(sum(audio)), "wall_s": wall,
+            "rtfx": float(sum(audio)) / wall,
+            "latency_ms": {f"p{q}": float(np.percentile(ms, q))
+                           for q in (50, 95, 99)}}
+
+
+def greedy_oracle(eng, S_max: int, cap: int, wav, src: str, tgt: str):
+    """One utterance decoded greedily, alone, as the slot loop's admission
+    computes it (encode one row, pad to S_max, the floor(len · S_w) bias,
+    the prompt through decode_window, the budget min(frames, cap)), then
+    scalar decode steps through the scalar self kernel. Its tokens."""
+    import torch
+
+    with torch.inference_mode():
+        return _greedy_oracle(torch, eng, S_max, cap, wav, src, tgt)
+
+
+def _greedy_oracle(torch, eng, S_max, cap, wav, src, tgt):
+    model, dev = eng._transformer, eng.device
+    width = eng._bucket_width(len(wav))
+    batch = np.zeros((1, width), np.float32)
+    batch[0, : len(wav)] = wav
+    lens = torch.tensor([len(wav) / width], dtype=torch.float32, device=dev)
+    enc = eng._encode(torch.from_numpy(batch).to(dev), lens)
+    S_w = enc.shape[1]
+    abs_len = torch.floor(lens * S_w)
+    bias = torch.where(torch.arange(S_max, device=dev)[None, :]
+                       > abs_len[:, None], -1e9, 0.0)
+    enc = torch.nn.functional.pad(enc, (0, 0, 0, S_max - S_w))
+    cache = model.init_decode_cache(enc, 3 + cap, bias)
+    sp = eng.tokenizer
+    prompt = torch.tensor([[eng.searcher.bos_token,
+                            sp.encode_as_ids(f"[{src}]")[-1],
+                            sp.encode_as_ids(f"[{tgt}]")[-1]]], device=dev)
+    hidden = model.decode_window(prompt, 0, cache)
+    seq_lin, eos = eng.searcher.seq_lin, eng.searcher.config.eos_index
+    tok = int(torch.argmax(seq_lin(hidden[:, -1]), dim=-1))
+    budget = min(int(abs_len.item()) + 1, cap)
+    out, pos = [], 3
+    while tok != eos and len(out) < budget:
+        out.append(tok)
+        if len(out) >= budget:
+            break
+        hidden = model.decode_step(torch.tensor([tok], device=dev), pos,
+                                   cache)
+        tok = int(torch.argmax(seq_lin(hidden), dim=-1))
+        pos += 1
+    return out
+
+
+def one_at_a_time(cont, reqs):
+    """Each request submitted alone, after the previous one's answer
+    (each admitted as its own group of one); the slot loop's tokens."""
+    tokens, finish = {}, cont._finish
+
+    def record(s):
+        slot = cont._slots[s]
+        tokens[id(slot.req.future)] = list(slot.tokens)
+        finish(s)
+
+    cont._finish = record
+    out = []
+    try:
+        for wav, task in reqs:
+            fut = cont.submit(wav, task)
+            fut.result(timeout=300)
+            out.append(tokens[id(fut)])
+    finally:
+        cont._finish = finish
+    return out
+
+
+def serve_phase(torch, kernels, K, smi: str, root: str, profile: bool):
+    """The port's serving front on the recipe's experiment: the batch front
+    through every route and under load, the continuous front against the
+    sequential oracle, under load and with protocol finalization."""
+    from stac_st_tpu_torch.recipes import serve
+    from stac_st_tpu_torch.serving import STEngine
+    from stac_st_tpu_torch.serving_continuous import ContinuousBatchingEngine
+    from stac_st_tpu_torch.serving_http import STHttpServer
+
+    sync = torch.cuda.synchronize
+    exp = os.path.join(root, "exp")
+    rec = {"phase": "serve", "gpu": smi, "experiment": "phase recipe's",
+           "serve_args": SERVE_ARGS, "slots": SLOTS, "chunk": CHUNK}
+    t_phase = time.perf_counter()
+
+    def since(snap):
+        return {k: v - snap.get(k, 0) for k, v in kernels.launches.items()
+                if v != snap.get(k, 0)}
+
+    kernels.reset_launches()
+    refs = Refs(K).__enter__()
+    try:
+        # ---- the batch front, built as the serve recipe builds it
+        t = time.perf_counter()
+        front, server = serve.start_servers(
+            serve.build_parser().parse_args([exp, *SERVE_ARGS]))
+        sync()
+        rec["start_and_warmup_s"] = time.perf_counter() - t
+        eng, port = front.engine, server.port
+        utts, pool, conv = serve_audio(eng, root)
+        rec["conversation_s"] = len(conv) / SR
+        try:
+            wav = pool[0][0]
+            body, pcm = pcm16_body(wav), to_pcm16(wav)
+            routes, answers = {}, {}
+            t = time.perf_counter()
+            for path, want in (
+                    ("/v1/translate", lambda: {"text": eng.translate(
+                        [pcm])[0]}),
+                    ("/v1/transcribe", lambda: {"text": eng.transcribe(
+                        [pcm])[0]}),
+                    ("/v1/transcribe_translate", lambda: dict(zip(
+                        ("transcription", "translation"),
+                        (x[0] for x in eng.transcribe_and_translate(
+                            [pcm]))))),
+                    ("/v1/speaker_turns", lambda: {
+                        "events": eng.speaker_turns([pcm])[0]}),
+                    ("/v1/long_form", lambda: json.loads(json.dumps(
+                        eng.long_form(to_pcm16(conv)))))):
+                code, got = http_post(
+                    port, path, pcm16_body(conv) if "long" in path else body)
+                check(code == 200, f"{path}: HTTP {code}")
+                check(got == want(), f"{path}: differs from the engine's "
+                      "direct call")
+                routes[path], answers[path] = "equal", got
+            check(http_get(port, "/healthz") == (200, {"status": "ok"}),
+                  "/healthz")
+            code, stats = http_get(port, "/stats")
+            check(code == 200 and stats["requests"] == 5, f"/stats {stats}")
+            rec["routes"] = routes
+            rec["routes_s"] = time.perf_counter() - t
+            lf = answers["/v1/long_form"]
+            rec["long_form"] = {
+                "segments": len(lf["segments"]),
+                "rttm_lines": {k: len(v) for k, v in lf["rttm"].items()}}
+            check(len(lf["segments"]) >= 4, f"long_form segments {lf}")
+            snap = dict(kernels.launches)
+            with Stages(eng, ("_texts",)) as calls, \
+                    Stages(eng.searcher, ("search",)) as searches:
+                rec["batch_load"] = load_window(port, pool)
+            wall = rec["batch_load"]["wall_s"]
+            rec["batch_load"]["stages"] = {**calls.report(wall),
+                                           **searches.report(wall)}
+            rec["batch_load"]["front_stats"] = front.stats()
+            rec["batch_load"]["batch_histogram"] = front.batch_histogram()
+            if profile:
+                rec["batch_profile"] = profile_call(
+                    torch, partial(load_window, port, pool, 5.0), None,
+                    "serve_batch", watch=("anc_split_kernel",
+                                          "cross_split_kernel"))
+            rec["batch_load"]["launches"] = since(snap)
+            batch_launches = dict(kernels.launches)
+        finally:
+            server.close()
+            front.close()
+        for name in ("decode_self_attention_anc", "decode_cross_attention"):
+            check(batch_launches.get(f"{name}/{SPLIT}", 0) > 0,
+                  f"batch front launched no {name}/{SPLIT}")
+
+        # ---- the continuous front on the same engine
+        snap = dict(kernels.launches)
+        cont = ContinuousBatchingEngine(eng, slots=SLOTS, chunk=CHUNK)
+        server = STHttpServer(cont, port=0).start()
+        try:
+            t = time.perf_counter()
+            rec["continuous_warmup_shapes"] = cont.warmup()
+            sync()
+            rec["continuous_warmup_s"] = time.perf_counter() - t
+            reqs = [(pool[i][0], ("translate", "transcribe")[i % 2])
+                    for i in range(N_EXACT)]
+            t = time.perf_counter()
+            got = one_at_a_time(cont, reqs)
+            want = [greedy_oracle(eng, cont._S_max, cont.cap, w, "es",
+                                  "en" if task == "translate" else "es")
+                    for w, task in reqs]
+            rec["bf16_oracle_agreement"] = {
+                "equal": sum(a == b for a, b in zip(got, want)),
+                "of": len(reqs)}
+            rec["oracle_s"] = time.perf_counter() - t
+            with Stages(cont, ("_admit_batch", "_step_chunk")) as stages:
+                rec["continuous_load"] = load_window(server.port, pool)
+            rec["continuous_load"]["stages"] = stages.report(
+                rec["continuous_load"]["wall_s"])
+            if profile:
+                rec["continuous_profile"] = profile_call(
+                    torch, partial(load_window, server.port, pool, 5.0),
+                    None, "serve_continuous",
+                    watch=("self_split_rows_kernel", "cross_split_kernel"))
+            stats = cont.stats()
+            rec["continuous_load"].update({
+                "utilization": cont.utilization(), "stats": stats,
+                "launches": since(snap)})
+        finally:
+            server.close()
+            cont.close()
+        cont_launches = since(snap)
+        name = "decode_self_attention"
+        check(cont_launches.get(f"{name}/rows/{SPLIT}", 0) > 0
+              and cont_launches.get(f"{name}/rows/{SPLIT}")
+              == cont_launches.get(f"{name}/rows"),
+              f"slot loop's ragged self launches on {SPLIT}: {cont_launches}")
+        check(cont_launches.get(f"decode_cross_attention/{SPLIT}", 0) > 0,
+              f"slot loop's cross launches: {cont_launches}")
+
+        # ---- protocol finalization: close() right after submitting
+        t = time.perf_counter()
+        drafts = []
+        cont = ContinuousBatchingEngine(eng, slots=SLOTS, chunk=CHUNK,
+                                        protocol_finalize=True)
+        futs = [cont.submit(pool[i][0], on_draft=drafts.append)
+                for i in range(N_FINAL)]
+        cont.close()
+        finals = [f.result(timeout=0) for f in futs]
+        stats = cont.stats()
+        check(stats["finalized"] == N_FINAL and len(drafts) == N_FINAL
+              and all(isinstance(x, str) for x in finals),
+              f"protocol finalize: {stats}")
+        direct = eng.translate([pool[i][0] for i in range(N_FINAL)])
+        rec["protocol_finalize"] = {
+            "requests": N_FINAL, "finalized": stats["finalized"],
+            "draft_exact": stats["draft_exact"],
+            "equal_to_one_translate_call": sum(
+                a == b for a, b in zip(finals, direct)),
+            "s": time.perf_counter() - t}
+        check(refs.cuda_calls == 0,
+              f"{refs.cuda_calls} plain-version calls on CUDA tensors")
+    finally:
+        refs.__exit__()
+    rec["launches"] = dict(kernels.launches)
+
+    # ---- exact tokens: an fp32 engine of the experiment (TF32 off)
+    t = time.perf_counter()
+    eng32 = STEngine.from_saved_experiment(exp, device="cuda", bf16=False,
+                                           pad_batch_rows=(4, 16))
+    snap = dict(kernels.launches)
+    cont = ContinuousBatchingEngine(eng32, slots=SLOTS, chunk=CHUNK)
+    try:
+        reqs = [(pool[i][0], ("translate", "transcribe")[i % 2])
+                for i in range(N_EXACT)]
+        got = one_at_a_time(cont, reqs)
+    finally:
+        cont.close()
+    want = [greedy_oracle(eng32, cont._S_max, cont.cap, w, "es",
+                          "en" if task == "translate" else "es")
+            for w, task in reqs]
+    fp32 = since(snap)
+    check(got == want, "fp32 continuous tokens differ from the oracle: "
+          f"{[i for i, (a, b) in enumerate(zip(got, want)) if a != b]}")
+    check(fp32.get("decode_self_attention/rows/simt", 0) > 0
+          and fp32.get("decode_self_attention/simt", 0) > 0,
+          f"fp32 ragged (slot loop) and scalar (oracle) self: {fp32}")
+    rec["fp32_exact"] = {"requests": N_EXACT, "equal": len(got),
+                         "tokens": [len(x) for x in got],
+                         "launches": fp32, "s": time.perf_counter() - t}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
     return rec
 
 
@@ -1949,27 +2582,34 @@ def main() -> int:
     main_rec = main_path_phase(torch, kernels, args.profile)
     _, train_launches = train_phase(torch, kernels, args.profile)
     data_train_phase(torch, kernels, args.profile)
-    recipe = recipe_phase(torch, kernels, smi)
+    with tempfile.TemporaryDirectory() as root:
+        recipe = recipe_phase(torch, kernels, smi, root)
+        served = serve_phase(torch, kernels, K, smi, root, args.profile)
     card_vs_cpu_phase(torch)
     card_vs_cpu_train_phase(torch)
 
     kernel_line = []
     for rec in rows:
         bf = rec["bfloat16"]
-        replaces, source = K.KERNELS[rec["name"]]
+        # the ragged self form: its launches are the serve phase's
+        ragged = rec["name"].endswith("/rows")
+        replaces, source = K.KERNELS[rec["name"].split("/")[0]]
         kernel_line.append({
             "name": rec["name"], "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": main_rec["launches"].get(rec["name"], 0),
+            "launches": (served["launches"].get(rec["name"], 0) if ragged
+                         else main_rec["launches"].get(rec["name"], 0)),
             "recipe_launches": recipe["launches"].get(rec["name"], 0),
+            "serve_launches": served["launches"].get(rec["name"], 0),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
         })
-        if rec["name"] in DECODE_SPLIT:
+        if rec["name"] in DECODE_SPLIT or ragged:
+            counts = served["launches"] if ragged else main_rec["launches"]
             kernel_line[-1]["variant"] = "/".join(
                 v for v in (SPLIT, "simt")
-                if main_rec["launches"].get(f"{rec['name']}/{v}"))
+                if counts.get(f"{rec['name']}/{v}"))
     flash_kernels = {**A.KERNELS, **TA.KERNELS}
     for rec in train_rows:
         enc = rec["encoder_self"]  # the shape of 12 of the 18 launches

@@ -9,6 +9,9 @@
 // pre-scaled query, fp32 accumulation, and a store in the query's dtype.
 // The three differ only in their mask / key source:
 //   self:  positions 0..idx of the row's own cache, K^T (BB,H,Dh,S), V (BB,H,S,Dh);
+//          idx is one host int, or (the ragged form, continuous batching) an
+//          int32 device array of one index per row: row r reads positions
+//          0..min(idx[r], S-1), so a row whose index has run past S reads all S;
 //   anc:   position s of hypothesis r is read from cache row b*beam + anc[b,r,s]
 //          (K and V both (BB,H,S,Dh)); the caches are never reordered; an
 //          ancestor outside [0, beam) selects no key and scores -1e9;
@@ -65,8 +68,9 @@
 //     unpacked to fp32 pairs and reduced over the eight threads with three
 //     shuffles. An ancestor outside [0, beam) never becomes an address: its
 //     rows are zeros and its score -1e9.
-//   - self_split_kernel: beam 1, one query per (row, head), so a tensor-core
-//     product would waste 15 of its 16 rows: the CUDA cores, one 32-position
+//   - self_split_kernel (self_split_rows_kernel for the ragged form): beam
+//     1, one query per (row, head), so a tensor-core product would waste 15
+//     of its 16 rows: the CUDA cores, one 32-position
 //     tile per warp, up to four warps a block (cluster of ceil(tiles / 4)
 //     blocks; the (row, head)s are many at large batch, and fewer, fatter
 //     blocks were faster there than one warp a block). K^T is read as cross
@@ -97,6 +101,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -187,11 +192,20 @@ __device__ void block_pv(const float* p, int n, VRow vrow, float* part, T* out) 
   }
 }
 
+// The positions row r of the ragged form reads: min(rows[r], S - 1) + 1,
+// at least 1 (an index past the cache reads all S).
+__device__ __forceinline__ int row_positions(const int32_t* __restrict__ rows, int r, int S) {
+  return min(max(__ldg(rows + r), 0), S - 1) + 1;
+}
+
 // ---- decode_self_attention, simt (fp32): one block per (row, head) -------
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-self_kernel(const T* __restrict__ q, const T* __restrict__ kT,
-            const T* __restrict__ v, T* __restrict__ out, int S, int idx) {
+// The body of both forms: this (row, head) reads positions 0..n-1, n =
+// n_all, or (RAGGED) its row's own count from rows[].
+template <typename T, bool RAGGED>
+__device__ __forceinline__ void self_body(const T* __restrict__ q, const T* __restrict__ kT,
+                                          const T* __restrict__ v,
+                                          const int32_t* __restrict__ rows,
+                                          T* __restrict__ out, int H, int S, int n_all) {
   extern __shared__ float sc[];  // [S] scores
   __shared__ float qs[DH];
   __shared__ float red[WARPS];
@@ -201,7 +215,7 @@ self_kernel(const T* __restrict__ q, const T* __restrict__ kT,
   const T* vp = v + bh * S * DH;   // (S, Dh)
   if (threadIdx.x < DH) qs[threadIdx.x] = to_f(q[bh * DH + threadIdx.x]);
   __syncthreads();
-  const int n = idx + 1;  // only positions 0..idx are read
+  const int n = RAGGED ? row_positions(rows, (int)blockIdx.x / H, S) : n_all;
   for (int s = threadIdx.x; s < n; s += THREADS) {
     float acc = 0.f;
 #pragma unroll 16
@@ -212,6 +226,23 @@ self_kernel(const T* __restrict__ q, const T* __restrict__ kT,
   block_softmax(sc, n, red);
   block_pv<T>(sc, n, [&](int s) { return vp + (size_t)s * DH; }, part,
               out + bh * DH);
+}
+
+// The scalar form: positions 0..idx.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+self_kernel(const T* __restrict__ q, const T* __restrict__ kT,
+            const T* __restrict__ v, T* __restrict__ out, int S, int idx) {
+  self_body<T, false>(q, kT, v, nullptr, out, 0, S, idx + 1);
+}
+
+// The ragged form: row r reads its own positions from rows[r].
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+self_rows_kernel(const T* __restrict__ q, const T* __restrict__ kT,
+                 const T* __restrict__ v, const int32_t* __restrict__ rows,
+                 T* __restrict__ out, int H, int S) {
+  self_body<T, true>(q, kT, v, rows, out, H, S, S);
 }
 
 // ---- decode_self_attention_anc: one block per (hypothesis, head) ---------
@@ -803,14 +834,23 @@ size_t self_smem(int warps, int units) {
 // Positions 0..n-1 (n = idx + 1) of the row's S-position cache, in `tiles`
 // = ceil(n / SELF_TILE) tiles; the cluster's blocks and their warps (unit
 // u = rank * warps + warp) share them in order, one online softmax per
-// warp. Each warp sends its partial to slot u of rank 0, which combines the
-// slots in order after one cluster barrier and stores out[(row*H + h)*DH].
-// Four blocks an SM (at most 128 registers a thread): with 140, three fit
-// and the 160-row case read about a microsecond slower.
-template <typename T>
-__global__ void __launch_bounds__(32 * SELF_WARPS, 4)
-self_split_kernel(const T* __restrict__ q, const T* __restrict__ kT,
-                  const T* __restrict__ v, T* __restrict__ out, int S, int n, int tiles) {
+// warp. The ragged form (RAGGED, self_split_rows_kernel) is launched with
+// n = S, so the host needs no index; each row reads its own
+// min(rows[r], S - 1) + 1 positions, and a unit whose tiles all lie past
+// them reads nothing and sends the empty partial. The two forms are two
+// kernels over this one body, so the scalar kernel keeps its own
+// parameters. Each warp sends its partial to slot u of rank 0, which
+// combines the slots in order after one cluster barrier and stores
+// out[(row*H + h)*DH]. Four blocks an SM (at most 128 registers a
+// thread): with 140, three fit and the 160-row case read about a
+// microsecond slower.
+template <typename T, bool RAGGED>
+__device__ __forceinline__ void self_split_body(const T* __restrict__ q,
+                                                const T* __restrict__ kT,
+                                                const T* __restrict__ v,
+                                                const int32_t* __restrict__ rows,
+                                                T* __restrict__ out, int H, int S,
+                                                int n_all, int tiles) {
   extern __shared__ __align__(16) unsigned char self_smem_raw[];
   cluster_arrive_relaxed();
   const int cs = cluster_size(), rank = cluster_rank();
@@ -822,7 +862,10 @@ self_split_kernel(const T* __restrict__ q, const T* __restrict__ kT,
   float* pm = po + units * DH;  // slot maxima
   float* pl = pm + units;       // slot sums
   const int bh = blockIdx.x / cs;  // row * H + head
-  const int t0 = u * tiles / units, t1 = (u + 1) * tiles / units;
+  const int n = RAGGED ? row_positions(rows, bh / H, S) : n_all;
+  const int t0 = u * tiles / units;
+  const int t1 = RAGGED ? min((u + 1) * tiles / units, (n + SELF_TILE - 1) / SELF_TILE)
+                        : (u + 1) * tiles / units;
   const int c = lane & 7, r0 = lane >> 3;  // V: chunk (dims 8c..8c+7), first row
   const T* kp = kT + (size_t)bh * DH * S;  // this (row, head)'s K^T, 16-byte aligned
   const T* vp = v + (size_t)bh * S * DH;
@@ -923,6 +966,23 @@ self_split_kernel(const T* __restrict__ q, const T* __restrict__ kT,
   *reinterpret_cast<uint32_t*>(out + (size_t)bh * DH + 2 * lane) = pack2<T>(o0 / L, o1 / L);
 }
 
+// The scalar form: positions 0..n-1 of every row.
+template <typename T>
+__global__ void __launch_bounds__(32 * SELF_WARPS, 4)
+self_split_kernel(const T* __restrict__ q, const T* __restrict__ kT,
+                  const T* __restrict__ v, T* __restrict__ out, int S, int n, int tiles) {
+  self_split_body<T, false>(q, kT, v, nullptr, out, 0, S, n, tiles);
+}
+
+// The ragged form, launched on all S positions: row r reads its own.
+template <typename T>
+__global__ void __launch_bounds__(32 * SELF_WARPS, 4)
+self_split_rows_kernel(const T* __restrict__ q, const T* __restrict__ kT,
+                       const T* __restrict__ v, const int32_t* __restrict__ rows,
+                       T* __restrict__ out, int H, int S, int tiles) {
+  self_split_body<T, true>(q, kT, v, rows, out, H, S, S, tiles);
+}
+
 }  // namespace split
 
 // dtype codes shared with the Python wrapper
@@ -930,8 +990,13 @@ enum DType { F32 = 0, BF16 = 1, F16 = 2 };
 
 // Raise a kernel's dynamic shared-memory limit once, to the largest size
 // asked for so far (the default cap is 48 KB including static memory).
+// Serving launches from several host threads, so the check and the raise
+// happen under one lock.
+std::mutex smem_mutex;
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem, size_t* allowed) {
+  std::lock_guard<std::mutex> hold(smem_mutex);
   if (smem <= *allowed) return cudaSuccess;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -948,6 +1013,18 @@ cudaError_t launch_self(const void* q, const void* kT, const void* v, void* out,
   if (e != cudaSuccess) return e;
   self_kernel<T><<<BB * H, THREADS, smem, st>>>(
       (const T*)q, (const T*)kT, (const T*)v, (T*)out, S, idx);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_self_rows(const void* q, const void* kT, const void* v, const void* rows,
+                             void* out, int BB, int H, int S, cudaStream_t st) {
+  const size_t smem = (size_t)S * sizeof(float);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(self_rows_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  self_rows_kernel<T><<<BB * H, THREADS, smem, st>>>(
+      (const T*)q, (const T*)kT, (const T*)v, (const int32_t*)rows, (T*)out, H, S);
   return cudaGetLastError();
 }
 
@@ -1045,6 +1122,24 @@ cudaError_t launch_self_split(const void* q, const void* kT, const void* v, void
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// The ragged form is sized on all S positions: the host reads no index.
+template <typename T>
+cudaError_t launch_self_split_rows(const void* q, const void* kT, const void* v,
+                                   const void* rows, void* out, int BB, int H, int S,
+                                   cudaStream_t st) {
+  using namespace split;
+  const int tiles = (S + SELF_TILE - 1) / SELF_TILE;
+  const SelfShape sh = self_shape(tiles);
+  const size_t smem = self_smem(sh.warps, sh.cs * sh.warps);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(self_split_rows_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch L(BB * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
+  e = cudaLaunchKernelEx(&L.cfg, self_split_rows_kernel<T>, (const T*)q, (const T*)kT,
+                         (const T*)v, (const int32_t*)rows, (T*)out, H, S, tiles);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_cross_split(const void* q, const void* kT, const void* v,
                                const void* bias, void* out, int B, int H, int S, int beam,
@@ -1095,6 +1190,22 @@ int stac_decode_self_attention(const void* q, const void* kT, const void* v, voi
   return dtype == BF16
              ? launch_self_split<__nv_bfloat16>(q, kT, v, out, BB, H, S, idx, sh, st)
              : launch_self_split<__half>(q, kT, v, out, BB, H, S, idx, sh, st);
+}
+
+// The ragged form: idx_rows (BB,) int32 on the device, one index per row.
+int stac_decode_self_attention_rows(const void* q, const void* kT, const void* v,
+                                    const void* idx_rows, void* out, int BB, int H, int S,
+                                    int dtype, int split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!split) {
+    if (dtype != F32) return ERR_VARIANT;
+    return launch_self_rows<float>(q, kT, v, idx_rows, out, BB, H, S, st);
+  }
+  if (dtype != BF16 && dtype != F16) return ERR_VARIANT;
+  if (!aligned16(q) || !aligned16(kT) || !aligned16(v)) return ERR_ALIGN;
+  return dtype == BF16
+             ? launch_self_split_rows<__nv_bfloat16>(q, kT, v, idx_rows, out, BB, H, S, st)
+             : launch_self_split_rows<__half>(q, kT, v, idx_rows, out, BB, H, S, st);
 }
 
 int stac_decode_self_attention_anc(const void* q, const void* k, const void* v,

@@ -6,7 +6,9 @@ Port of ``stac_st_tpu/models/multitask.py``: linear source projection
 target padding), the serving ``encode`` (floor-based key padding, plain
 attention), the oracle full-prefix ``decode``, and the KV-cached
 ``decode_step`` with its cache (``init_decode_cache`` /
-``grow_decode_cache``). The task is selected by the decoder prompt
+``grow_decode_cache``), plus the two steps continuous batching runs:
+``decode_window`` (the prompt, w positions at once) and
+``decode_step_rows`` (one step of R slots, each at its own position). The task is selected by the decoder prompt
 ``[bos, source_lang, target_lang]``.
 
 The YAML-facing classes (``TransformerMultiTask``, ``LinearHead``,
@@ -167,17 +169,21 @@ class TransformerMultiTask(nn.Module):
 
     # --------------------------------------------------- KV-cached decode
     def init_decode_cache(self, encoder_out: torch.Tensor, max_len: int,
-                          enc_bias: Optional[torch.Tensor] = None,
+                          enc_mask_bias: Optional[torch.Tensor] = None,
                           beam: int = 1, anc_mode: bool = False
                           ) -> Dict[str, Any]:
         """encoder_out (B, S, d), untiled; self caches get B·beam rows.
-        enc_bias: (B, S) additive fp32 or None. anc_mode adds the ancestor
-        table ``anc`` (B, beam, max_len) int32, initially the identity."""
-        B = encoder_out.shape[0]
+        enc_mask_bias: additive fp32 cross-attention bias, (B, S) or the
+        reference's (B, 1, 1, S), kept as (B, S); or None. anc_mode adds
+        the ancestor table ``anc`` (B, beam, max_len) int32, initially the
+        identity."""
+        B, S = encoder_out.shape[:2]
+        if enc_mask_bias is not None:
+            enc_mask_bias = enc_mask_bias.reshape(B, S).float().contiguous()
         cache = {
             "layers": self.decoder.init_cache(B * beam, max_len, encoder_out,
                                               anc_mode),
-            "enc_bias": enc_bias,
+            "enc_bias": enc_mask_bias,
         }
         if anc_mode:
             cache["anc"] = (
@@ -217,6 +223,29 @@ class TransformerMultiTask(nn.Module):
         beam = tokens.shape[0] // cache["layers"][0]["cross_k"].shape[0]
         return self.decoder.step(emb, cache["layers"], cache["enc_bias"],
                                  beam, anc=cache.get("anc"))
+
+    def decode_window(self, tokens: torch.Tensor, position: int,
+                      cache: Dict[str, Any]) -> torch.Tensor:
+        """tokens (B, w) at positions position..position+w-1 (``position``,
+        a host int, equals the cache's write index) -> hidden (B, w, d);
+        the index advances by w. Equal to w ``decode_step`` calls."""
+        w = tokens.shape[1]
+        emb = self.tgt_embed(tokens) + self.pe[position:position + w].to(
+            self.tgt_embed.embed.weight.dtype)[None]
+        return self.decoder.step_window(emb, cache["layers"],
+                                        cache["enc_bias"])
+
+    def decode_step_rows(self, tokens: torch.Tensor, positions: torch.Tensor,
+                         cache: Dict[str, Any]) -> torch.Tensor:
+        """One step of R slots at per-row positions (continuous batching):
+        tokens (R,), positions (R,) on the device (the sinusoidal row of
+        each, clipped to the table), every layer's self-cache ``index`` a
+        (R,) int32 tensor; beam 1. Returns hidden (R, d); every slot's
+        index advances by one."""
+        pos = positions.clamp(0, self.pe.shape[0] - 1).long()
+        emb = self.tgt_embed(tokens) + self.pe[pos].to(
+            self.tgt_embed.embed.weight.dtype)
+        return self.decoder.step(emb, cache["layers"], cache["enc_bias"], 1)
 
 
 class LinearHead(nn.Module):

@@ -17,6 +17,13 @@ Decode mode keeps the reference's cache layouts:
 
 Unlike the functional JAX cache, the port appends to its caches in place
 (one row write per step, no copy) and keeps the write index as a host int.
+Continuous batching keeps it as a (BB,) int32 device tensor instead, one
+index per slot (the ragged step): each row appends at its own index, an
+index past the cache writes nothing, and the self kernel reads each row's
+positions up to its index. ``step_window`` primes w positions at once
+(causal (w, S) attention in plain ``matmul`` + softmax, as the reference
+computes it in XLA; cross-attention through the kernel with the window as
+the beam).
 
 Full-sequence attention takes a ``mode``:
 
@@ -49,6 +56,7 @@ from ..ops.kernels.decode_attention import (
     decode_self_attention_anc,
 )
 from ..ops.kernels.train_attention import flash_attention_train
+from ..ops.masks import NEG_INF
 from .activations import default_activation
 from .dropout import StepRandom, dropout
 
@@ -145,15 +153,44 @@ class MultiHeadAttention(nn.Module):
 
     def step(self, x: torch.Tensor, cache: Dict[str, Any]) -> torch.Tensor:
         """Beam-1 layout step: appends this step's K/V at ``cache["index"]``
-        (in place) and attends positions 0..index."""
+        (in place) and attends positions 0..index. A tensor index (BB,) is
+        the ragged step: row r appends at index[r] (nothing where
+        index[r] >= S) and attends its positions 0..min(index[r], S - 1)."""
         q, k_new, v_new = self.fused_qkv(x)
         idx = cache["index"]
-        cache["k"][:, :, :, idx] = k_new
-        cache["v"][:, :, idx, :] = v_new
+        if isinstance(idx, torch.Tensor):
+            _append_rows(cache["k"], cache["v"], k_new, v_new, idx)
+        else:
+            cache["k"][:, :, :, idx] = k_new
+            cache["v"][:, :, idx, :] = v_new
         attn = decode_self_attention(self._scaled(q), cache["k"], cache["v"],
                                      idx)
         cache["index"] = idx + 1
         return self.out_proj(attn.reshape(x.shape[0], self.d_model))
+
+    def step_window(self, x: torch.Tensor, cache: Dict[str, Any]
+                    ) -> torch.Tensor:
+        """Windowed step, x (B, w, d) at positions index..index+w-1 (a
+        host int index): appends the w K/V rows, attends causally (key j
+        is visible to window row r iff j <= index + r) and advances the
+        index by w. Equal to w ``step`` calls."""
+        B, w, _ = x.shape
+        H, Dh = self.nhead, self.head_dim
+        q, k_new, v_new = self.fused_qkv(x.reshape(B * w, self.d_model))
+        q, k_new, v_new = (t.reshape(B, w, H, Dh).transpose(1, 2)
+                           for t in (q, k_new, v_new))  # (B, H, w, Dh)
+        idx = cache["index"]
+        S = cache["k"].shape[-1]
+        cache["k"][:, :, :, idx:idx + w] = k_new.transpose(-1, -2)
+        cache["v"][:, :, idx:idx + w, :] = v_new
+        pos = torch.arange(S, device=x.device)
+        rows = idx + torch.arange(w, device=x.device)
+        bias = torch.where(pos[None, :] > rows[:, None], NEG_INF, 0.0)
+        logits = torch.matmul(q.float(), cache["k"].float()) * self.scale
+        weights = torch.softmax(logits + bias, dim=-1).to(q.dtype)
+        out = torch.matmul(weights.float(), cache["v"].float()).to(q.dtype)
+        cache["index"] = idx + w
+        return self.out_proj(out.transpose(1, 2).reshape(B, w, self.d_model))
 
     def step_anc(self, x: torch.Tensor, cache: Dict[str, Any],
                  anc: torch.Tensor, beam: int) -> torch.Tensor:
@@ -175,6 +212,20 @@ class MultiHeadAttention(nn.Module):
         q = self._proj(x, 0).reshape(BB, self.nhead, self.head_dim)
         attn = decode_cross_attention(self._scaled(q), kT, v, bias, beam)
         return self.out_proj(attn.reshape(BB, self.d_model))
+
+
+def _append_rows(kT: torch.Tensor, v: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor, idx: torch.Tensor) -> None:
+    """Row r of Kᵀ (BB, H, Dh, S) / V (BB, H, S, Dh) takes k_new[r] /
+    v_new[r] (BB, H, Dh) at position idx[r]; rows whose index is past S
+    keep their cache (the reference's where-append writes nothing there).
+    One gather and one scatter of BB rows, no host read."""
+    S = kT.shape[-1]
+    pos = idx.clamp(max=S - 1).long()
+    rows = torch.arange(kT.shape[0], device=kT.device)
+    keep = (idx >= S)[:, None, None]
+    kT[rows, :, :, pos] = torch.where(keep, kT[rows, :, :, pos], k_new)
+    v[rows, :, pos, :] = torch.where(keep, v[rows, :, pos, :], v_new)
 
 
 class FeedForward(nn.Module):
@@ -277,6 +328,18 @@ class DecoderLayer(nn.Module):
             beam)
         return x + self.ffn(self.norm3(x))
 
+    def step_window(self, x, cache, cross_bias=None):
+        """Windowed step, x (B, w, d): self-attention through
+        ``MultiHeadAttention.step_window``, cross-attention with the window
+        as the beam (each utterance's encoder K/V read once)."""
+        B, w, d = x.shape
+        x = x + self.self_attn.step_window(self.norm1(x), cache["self"])
+        h = self.cross_attn.step_cross(
+            self.norm2(x).reshape(B * w, d), cache["cross_k"],
+            cache["cross_v"], cross_bias, w)
+        x = x + h.reshape(B, w, d)
+        return x + self.ffn(self.norm3(x))
+
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, d_ffn: int,
@@ -318,4 +381,9 @@ class TransformerDecoder(nn.Module):
     def step(self, x, caches, cross_bias=None, beam: int = 1, anc=None):
         for layer, cache in zip(self.layers, caches):
             x = layer.step(x, cache, cross_bias, beam, anc)
+        return self.final_norm(x)
+
+    def step_window(self, x, caches, cross_bias=None):
+        for layer, cache in zip(self.layers, caches):
+            x = layer.step_window(x, cache, cross_bias)
         return self.final_norm(x)

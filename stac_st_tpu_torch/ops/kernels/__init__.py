@@ -11,6 +11,11 @@ beside its library, so ``build_logs`` holds it for a cached build too.
 ``launches`` counts kernel launches by name: a wrapper adds one exactly
 where it launches its kernel, never for its plain PyTorch version, so a run
 can show that its path went through the kernels.
+
+Serving launches kernels from several threads at once (the front end's
+worker, the slot loop, the finalizer), so the counts change under a lock,
+and each library is built and loaded once under a lock of its own (its
+nvcc output goes to a temporary file named by process and thread).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -37,14 +43,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launches: Dict[str, int] = {}
 build_logs: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+_build_lock = threading.RLock()  # build() runs inside load_library
 
 
 def count_launch(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
+    with _count_lock:
+        launches[name] = launches.get(name, 0) + 1
 
 
 def reset_launches() -> None:
-    launches.clear()
+    with _count_lock:
+        launches.clear()
 
 
 def _nvcc() -> str:
@@ -67,6 +77,11 @@ def _target(name: str) -> Path:
 def build(names: Iterable[str]) -> Dict[str, float]:
     """Compile every named source that has no current build, all nvcc
     processes started together. Returns seconds per compiled name."""
+    with _build_lock:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, float]:
     todo = []
     for n in names:
         if _target(n).exists():
@@ -81,7 +96,8 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     t0 = time.perf_counter()
     procs = {}
     for name in todo:
-        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+        tmp = _target(name).with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -105,7 +121,10 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _libs[name] = lib
+        with _build_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(_target(name)))
+                _libs[name] = lib
     return lib

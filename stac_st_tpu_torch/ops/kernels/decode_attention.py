@@ -20,12 +20,18 @@ head), split over positions into a thread-block cluster, one pass, the
 splits combined in the launch) and ``simt`` for fp32 (one block per (row,
 head), two passes), which ``card_vs_cpu`` holds to the CPU at 1e-3.
 
+``decode_self_attention`` also takes a per-row index (the ragged form
+continuous batching steps with): an int32 tensor of one index per row, each
+row attending to its positions ``0..min(idx[r], S - 1)``. Both kernels read
+it on the device and size the launch on S, so the host reads no index.
+
 A wrapper given CPU tensors returns its ``*_ref`` plain version. Given CUDA
 tensors it checks dtype, shape and contiguity, launches the kernel on the
 current stream, raises if the launch failed, and counts the launch under
 ``<name>`` and ``<name>/<variant>``, the kernel it asked the library to
-launch. There is no fallback from a CUDA tensor to the plain version, nor
-from one kernel to the other.
+launch; a ragged self launch also under ``<name>/rows`` and
+``<name>/rows/<variant>``. There is no fallback from a CUDA tensor to the
+plain version, nor from one kernel to the other.
 """
 
 from __future__ import annotations
@@ -65,14 +71,20 @@ KERNELS = {
 
 
 # ------------------------------------------------------------ plain versions
-def _position_bias(S: int, idx: int, device) -> torch.Tensor:
+def _position_bias(S: int, idx, device) -> torch.Tensor:
+    """(S,) for a host int ``idx``; (BB, 1, 1, S) for a (BB,) tensor."""
     pos = torch.arange(S, device=device)
+    if isinstance(idx, torch.Tensor):
+        pos = pos[None, None, None, :]
+        idx = idx.to(device).reshape(-1, 1, 1, 1)
     return torch.where(pos > idx, NEG_INF, 0.0).to(torch.float32)
 
 
-def decode_self_attention_ref(q, kT, v, idx: int):
+def decode_self_attention_ref(q, kT, v, idx):
     """q (BB, H, Dh) pre-scaled; kT (BB, H, Dh, S); v (BB, H, S, Dh);
-    attend positions 0..idx. Returns (BB, H, Dh) in q's dtype."""
+    attend positions 0..idx. ``idx`` is a host int or a (BB,) integer
+    tensor of one index per row (an index >= S sees all S positions).
+    Returns (BB, H, Dh) in q's dtype."""
     s = torch.matmul(q.float()[:, :, None, :], kT.float())  # (BB, H, 1, S)
     s = s + _position_bias(kT.shape[-1], idx, q.device)
     p = torch.softmax(s, dim=-1)
@@ -119,11 +131,14 @@ def _lib():
     if not getattr(lib, "_stac_bound", False):
         lib.stac_decode_self_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I,
                                                    _I, _I, _I, _P]
+        lib.stac_decode_self_attention_rows.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.stac_decode_self_attention_anc.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.stac_decode_cross_attention.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         for fn in (lib.stac_decode_self_attention,
+                   lib.stac_decode_self_attention_rows,
                    lib.stac_decode_self_attention_anc,
                    lib.stac_decode_cross_attention,
                    lib.stac_decode_head_dim, lib.stac_decode_max_beam):
@@ -154,8 +169,8 @@ def _check(lib, name: str, q, tensors, shapes):
         raise ValueError(f"{name}: head dim {q.shape[-1]} != "
                          f"{lib.stac_decode_head_dim()}")
     for label, t in tensors.items():
-        want_dtype = q.dtype if label not in ("anc", "bias") else (
-            torch.int32 if label == "anc" else torch.float32)
+        want_dtype = {"anc": torch.int32, "idx": torch.int32,
+                      "bias": torch.float32}.get(label, q.dtype)
         if t.dtype != want_dtype:
             raise TypeError(f"{name}: {label} is {t.dtype}, "
                             f"expected {want_dtype}")
@@ -189,35 +204,51 @@ def decode_variant(dtype: torch.dtype) -> str:
     return "split" if dtype in (torch.bfloat16, torch.float16) else "simt"
 
 
-def _launch(lib, name: str, fn, dtype: torch.dtype, *args) -> None:
+def _launch(lib, name: str, fn, dtype: torch.dtype, *args,
+            form: str = "") -> None:
     """Call library entry point ``fn`` with ``args``, the dtype code and
     the variant of :func:`decode_variant`; raise if it failed, else count
-    the launch."""
+    the launch (and, for a ``form`` such as ``rows``, under that form
+    too)."""
     variant = decode_variant(dtype)
     _raise_on(lib, name, fn(*args, _DTYPES[dtype], int(variant == "split"),
                             _stream()))
     count_launch(name)
     count_launch(f"{name}/{variant}")
+    if form:
+        count_launch(f"{name}/{form}")
+        count_launch(f"{name}/{form}/{variant}")
 
 
-def decode_self_attention(q, kT, v, idx: int):
-    """See :func:`decode_self_attention_ref`. ``idx`` is a host int."""
-    if _on_cpu(q, kT, v):
+def decode_self_attention(q, kT, v, idx):
+    """See :func:`decode_self_attention_ref`. ``idx`` is a host int in
+    [0, S), or a (BB,) int32 tensor on q's device (the ragged form; each
+    index >= 0)."""
+    if _on_cpu(q, kT, v, idx if isinstance(idx, torch.Tensor) else None):
         return decode_self_attention_ref(q, kT, v, idx)
     return _launch_self(q, kT, v, idx)
 
 
-def _launch_self(q, kT, v, idx: int):
+def _launch_self(q, kT, v, idx):
     """Launch the self kernel of :func:`decode_variant` on CUDA tensors."""
     name = "decode_self_attention"
     lib = _lib()
     BB, H, Dh = q.shape
     S = kT.shape[-1]
-    _check(lib, name, q, {"q": q, "kT": kT, "v": v},
-           {"q": (BB, H, Dh), "kT": (BB, H, Dh, S), "v": (BB, H, S, Dh)})
+    tensors = {"q": q, "kT": kT, "v": v}
+    shapes = {"q": (BB, H, Dh), "kT": (BB, H, Dh, S), "v": (BB, H, S, Dh)}
+    ragged = isinstance(idx, torch.Tensor)
+    if ragged:
+        tensors["idx"], shapes["idx"] = idx, (BB,)
+    _check(lib, name, q, tensors, shapes)
+    out = torch.empty_like(q)
+    if ragged:
+        _launch(lib, name, lib.stac_decode_self_attention_rows, q.dtype,
+                q.data_ptr(), kT.data_ptr(), v.data_ptr(), idx.data_ptr(),
+                out.data_ptr(), BB, H, S, form="rows")
+        return out
     if not 0 <= idx < S:
         raise ValueError(f"{name}: idx {idx} outside [0, {S})")
-    out = torch.empty_like(q)
     _launch(lib, name, lib.stac_decode_self_attention, q.dtype,
             q.data_ptr(), kT.data_ptr(), v.data_ptr(), out.data_ptr(),
             BB, H, S, int(idx))

@@ -10,7 +10,10 @@ path). One call runs PCM16 or float audio through
 and ``speaker_turns`` runs the CTC head's frame argmax into ``[turn]`` /
 ``[xt]`` events. Inputs are grouped into fixed audio-length buckets; ASR
 and ST differ only in the decoder prompt, so ``transcribe_and_translate``
-encodes once and searches both prompts in one fused search.
+encodes once and searches both prompts in one fused search. ``long_form``
+serves a whole conversation: VAD segments (``prep.shas``), then per bucket
+one encoder pass feeding the dual-prompt search and the CTC events, merged
+into conversation texts and absolute-time RTTM.
 
 Weights are cast to bf16 when ``bf16`` is set; fbank, CMVN and beam
 scoring stay fp32. The engine runs on ``cuda`` unless ``device="cpu"`` is
@@ -22,15 +25,17 @@ A trained experiment loads through ``from_saved_experiment(exp_dir)``
 ``overrides.yaml`` by the port's config loader) or ``from_experiment``
 (dimensions given); both load the average of the ACC-top-k checkpoints
 (written by either package) and the CMVN statistics saved beside them.
-Not ported yet: ``mesh``, ``kv_cache_dtype``, ``weights_int8``,
-``long_form`` and ``SpeculativeSTEngine``.
+The serving front (``serving_stream``, ``serving_http``,
+``serving_continuous``, ``recipes.serve``) drives this engine. Not ported
+yet: ``mesh``, ``kv_cache_dtype``, ``weights_int8`` and
+``SpeculativeSTEngine``.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,8 +167,12 @@ class STEngine:
     @classmethod
     def _load_from_save(cls, cnn, transformer, seq_lin, ctc_lin,
                         ckpt_dir: str, tokenizer, n_mels: int,
+                        avg_checkpoints: Optional[int] = None,
                         **kw) -> "STEngine":
-        ckpts = Checkpointer(ckpt_dir).find_checkpoints(max_key="ACC")
+        """``avg_checkpoints``: average the top N by ACC (None: all
+        kept)."""
+        ckpts = Checkpointer(ckpt_dir).find_checkpoints(
+            max_key="ACC", max_num_checkpoints=avg_checkpoints)
         if not ckpts:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
         raw = average_checkpoints(ckpts, "model")
@@ -241,29 +250,57 @@ class STEngine:
         return [self.searcher.bos_token, sp.encode_as_ids(f"[{src}]")[-1],
                 sp.encode_as_ids(f"[{tgt}]")[-1]]
 
+    def _ctc_frames(self, enc: torch.Tensor, lens: torch.Tensor
+                    ) -> np.ndarray:
+        """The CTC head's frame argmax (rows, frames) on the host; frames
+        past each input's ceil(len · frames) are forced to blank, so bucket
+        padding cannot fake speaker-change spikes."""
+        am = torch.argmax(self._ctc_lin(enc), dim=-1)
+        n_frames = enc.shape[1]
+        valid = torch.ceil(lens * n_frames).to(torch.long)
+        frames = torch.arange(n_frames, device=am.device)
+        am = torch.where(frames[None, :] < valid[:, None], am,
+                         self.searcher.config.blank_index)
+        return am.cpu().numpy()
+
     @torch.inference_mode()
-    def _texts(self, wavs, prompts: List[List[int]]) -> List[List[str]]:
+    def _texts(self, wavs, prompts: List[List[int]],
+               rttm_ids: Optional[List[str]] = None):
         """texts[p][i]: input i decoded under prompt p. Per bucket, one
         encoder pass and ONE search over all prompts (the encoder output
-        tiled once per prompt)."""
+        tiled once per prompt). With ``rttm_ids`` (one utterance id per
+        input) the same encoder pass also feeds the CTC head, and its
+        [turn]/[xt] RTTM lines come back as well. Returns (texts, rttm or
+        None)."""
         out = [[""] * len(wavs) for _ in prompts]
+        rttm = None
+        if rttm_ids is not None and self._ctc_lin is not None:
+            rttm = {"turn": [], "xt": []}
         for idx, batch, lens in self._prepare(wavs):
             enc = self._encode(batch, lens)
+            if rttm is not None:
+                events = extract_turn_events(
+                    [rttm_ids[i] for i in idx],
+                    self._ctc_frames(enc, lens)[: len(idx)],
+                    {"turn": self.turn_id, "xt": self.xt_id})
+                for name in rttm:
+                    rttm[name].extend(events[name])
             for p, (hyps, _) in enumerate(
                     self.searcher.call_multi(enc, prompts=prompts)):
                 for row, i in enumerate(idx):
                     out[p][i] = self.tokenizer.decode_ids(hyps[row])
-        return out
+        return out, rttm
 
     # ------------------------------------------------------------------ API
     def load_audio(self, path: str) -> np.ndarray:
         return read_audio(path, sample_rate=self.sample_rate)[0]
 
-    def warmup(self) -> int:
+    def warmup(self, dual: bool = False) -> int:
         """Serve silence once at every (bucket, pad rung) shape, so a fresh
         server pays its first-call costs (cuBLAS and cuDNN set-up, the
-        kernels' first launch) before traffic. Returns the number of
-        shapes served."""
+        kernels' first launch) before traffic; ``dual`` also serves
+        ``transcribe_and_translate`` at each. Returns the number of shapes
+        served."""
         rungs = (self.pad_batch_rows
                  if isinstance(self.pad_batch_rows, tuple)
                  else (self.pad_batch_rows or 1,))
@@ -273,6 +310,8 @@ class STEngine:
                            np.float32)
             for r in rungs:
                 self.translate([wav] * int(r))
+                if dual:
+                    self.transcribe_and_translate([wav] * int(r))
                 n += 1
         return n
 
@@ -281,12 +320,12 @@ class STEngine:
                   target_lang: Optional[str] = None) -> List[str]:
         src = source_lang or self.source_lang
         return self._texts(wavs, [self._prompt(
-            src, target_lang or self.target_lang)])[0]
+            src, target_lang or self.target_lang)])[0][0]
 
     def transcribe(self, wavs: Sequence[np.ndarray],
                    source_lang: Optional[str] = None) -> List[str]:
         lang = source_lang or self.source_lang
-        return self._texts(wavs, [self._prompt(lang, lang)])[0]
+        return self._texts(wavs, [self._prompt(lang, lang)])[0][0]
 
     def transcribe_and_translate(
         self, wavs: Sequence[np.ndarray], source_lang: Optional[str] = None,
@@ -297,7 +336,7 @@ class STEngine:
         (transcriptions, translations)."""
         src = source_lang or self.source_lang
         tgt = target_lang or self.target_lang
-        asr, st = self._texts(
+        (asr, st), _ = self._texts(
             wavs, [self._prompt(src, src), self._prompt(src, tgt)])
         return asr, st
 
@@ -308,19 +347,13 @@ class STEngine:
         padding cannot fake speaker-change spikes."""
         if self._ctc_lin is None:
             raise RuntimeError("engine built without a CTC head")
-        blank = self.searcher.config.blank_index
         results: List[Optional[Dict]] = [None] * len(wavs)
         for idx, batch, lens in self._prepare(wavs):
             enc = self._encode(batch, lens)
-            am = torch.argmax(self._ctc_lin(enc), dim=-1)
-            n_frames = enc.shape[1]
-            valid = torch.ceil(lens * n_frames).to(torch.long)
-            frames = torch.arange(n_frames, device=am.device)
-            am = torch.where(frames[None, :] < valid[:, None], am, blank)
             ids = [f"utt{i}-0-0-0" for i in idx]
             events = extract_turn_events(
-                ids, am.cpu().numpy(), {"turn": self.turn_id,
-                                        "xt": self.xt_id})
+                ids, self._ctc_frames(enc, lens),
+                {"turn": self.turn_id, "xt": self.xt_id})
             for row, i in enumerate(idx):
                 results[i] = {
                     name: [float(line.split()[3]) for line in events[name]
@@ -328,3 +361,82 @@ class STEngine:
                     for name in ("turn", "xt")
                 }
         return results  # type: ignore[return-value]
+
+    def long_form(
+        self,
+        wav: np.ndarray,
+        source_lang: Optional[str] = None,
+        target_lang: Optional[str] = None,
+        *,
+        segmentation: str = "pause",
+        dac_min_segment_length: float = 10.0,
+        dac_max_segment_length: float = 15.0,
+        frame_ms: int = 10,
+        aggressiveness: int = 1,
+        padding_ms: int = 300,
+        prob_fn: Optional[Callable[[np.ndarray, int], np.ndarray]] = None,
+        uri: str = "conversation",
+    ) -> Dict:
+        """A whole conversation in one call: segment the waveform
+        (``segmentation='pause'``: the pause-based VAD at frame 10 ms,
+        aggressiveness 1; ``'shas'``: pDAC at min/max 10/15 s, over
+        ``prob_fn``'s frame probabilities when given), then per bucket one
+        encoder pass feeding the dual-prompt (ASR + ST) search and the CTC
+        [turn]/[xt] events, merged.
+
+        Returns ``segments`` (start / end seconds, raw ``transcription`` and
+        ``translation`` with their markers), the conversation's merged
+        texts without markers, and absolute-time RTTM lines per marker,
+        sorted by time (utterance ids ``<uri>-0-<start_cs>-<end_cs>``, the
+        reference's centisecond convention)."""
+        from .prep.shas import pause_based_segments, shas_segments
+
+        wav = np.asarray(wav)
+        if wav.dtype == np.int16:
+            wav = wav.astype(np.float32) / 32768.0
+        else:
+            wav = wav.astype(np.float32)
+        if segmentation == "pause":
+            segs = pause_based_segments(
+                wav, self.sample_rate, frame_ms, aggressiveness, padding_ms)
+        elif segmentation == "shas":
+            segs = shas_segments(
+                wav, self.sample_rate, dac_min_segment_length,
+                dac_max_segment_length, prob_fn)
+        else:
+            raise ValueError(f"segmentation must be 'pause' or 'shas', got "
+                             f"{segmentation!r}")
+        if not segs:
+            return {"segments": [], "transcription": "", "translation": "",
+                    "rttm": {"turn": [], "xt": []}}
+        segs = sorted(segs)
+        sr = self.sample_rate
+        seg_wavs, seg_ids = [], []
+        for off, dur in segs:
+            a, b = int(round(off * sr)), int(round((off + dur) * sr))
+            seg_wavs.append(wav[a:b])
+            seg_ids.append(f"{uri}-0-{int(round(off * 100)):06d}-"
+                           f"{int(round((off + dur) * 100)):06d}")
+        src = source_lang or self.source_lang
+        tgt = target_lang or self.target_lang
+        (asr, st), rttm = self._texts(
+            seg_wavs, [self._prompt(src, src), self._prompt(src, tgt)],
+            rttm_ids=seg_ids)
+        rttm = rttm or {"turn": [], "xt": []}
+        for name in rttm:
+            rttm[name].sort(key=lambda ln: float(ln.split()[3]))
+
+        def clean(texts: List[str]) -> str:
+            words = " ".join(t for t in texts if t).split()
+            return " ".join(w for w in words if w not in ("[turn]", "[xt]"))
+
+        return {
+            "segments": [
+                {"start": round(off, 6), "end": round(off + dur, 6),
+                 "transcription": asr[i], "translation": st[i]}
+                for i, (off, dur) in enumerate(segs)
+            ],
+            "transcription": clean(asr),
+            "translation": clean(st),
+            "rttm": rttm,
+        }

@@ -173,6 +173,44 @@ def test_decode_variant_rule(monkeypatch):
     kernels.reset_launches()
 
 
+def test_ragged_self_launcher_counts_rows(monkeypatch):
+    """The ragged form (a (BB,) int32 index tensor) goes to its own entry
+    point with the index array's address and S, no host index; it is
+    counted under the name, the variant, ``/rows`` and ``/rows/<variant>``
+    (driven with a stand-in for the library)."""
+    monkeypatch.setattr(K, "_stream", lambda: 0)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(K, "_lib", lambda: SimpleNamespace(
+        stac_decode_head_dim=lambda: 64,
+        stac_decode_self_attention_rows=entry))
+    kernels.reset_launches()
+    for dt, split in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q = torch.zeros(3, 4, 64, dtype=dt)
+        kT, v = torch.zeros(3, 4, 64, 5, dtype=dt), torch.zeros(3, 4, 5, 64,
+                                                                 dtype=dt)
+        idx = torch.tensor([0, 4, 9], dtype=torch.int32)
+        out = K._launch_self(q, kT, v, idx)
+        assert out.shape == q.shape
+        assert calls[-1] == (q.data_ptr(), kT.data_ptr(), v.data_ptr(),
+                             idx.data_ptr(), out.data_ptr(), 3, 4, 5,
+                             K._DTYPES[dt], split, 0)
+        with pytest.raises(TypeError, match="idx"):
+            K._launch_self(q, kT, v, idx.long())
+        with pytest.raises(ValueError, match="idx"):
+            K._launch_self(q, kT, v, idx[:2])
+    assert kernels.launches == {
+        "decode_self_attention": 2, "decode_self_attention/split": 1,
+        "decode_self_attention/simt": 1, "decode_self_attention/rows": 2,
+        "decode_self_attention/rows/split": 1,
+        "decode_self_attention/rows/simt": 1}
+    kernels.reset_launches()
+
+
 def test_wrappers_take_the_plain_version_on_cpu_tensors(rng):
     """CPU tensors go to the plain version, and that is no kernel launch."""
     kernels.reset_launches()
@@ -295,6 +333,39 @@ def test_split_cross_kernel_matches_plain_on_card(card, rng, dtype, beam):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("beam", [1, 3])
+def test_cross_kernel_at_slot_loop_shapes_on_card(card, rng, dtype, beam):
+    """Continuous batching's cross-attention: 16 slots padded to 801
+    encoder frames (the 32 s bucket), each masked past floor(rel · S_w) of
+    its own bucket as admission builds the bias; beam 1 (the chunk step)
+    and 3 (prompt priming). ``simt`` for fp32, ``split`` for bf16, which
+    gives the same bits over two launches."""
+    dt, tol = _DTYPES[dtype]
+    S, R = 801, 16
+    seconds = np.asarray([0.4, 2.0, 2.7, 3.1, 4.0, 5.5, 8.0, 9.9, 12.3, 16.0,
+                          17.2, 20.0, 24.5, 28.0, 31.0, 32.0])
+    bucket = np.asarray([min(b for b in (2.0, 4.0, 8.0, 16.0, 32.0)
+                             if b >= s) for s in seconds])
+    abs_len = np.floor(seconds / bucket * (25 * bucket + 1))
+    bias = np.where(np.arange(S)[None, :] > abs_len[:, None], NEG_INF,
+                    0.0).astype(np.float32)
+    q, kT, v, _ = _cross_inputs(rng, B=R, beam=beam, H=4, S=S, pad=False)
+    q, kT, v = _on(card, dt, q, kT, v)
+    bias = torch.from_numpy(bias).to(card)
+    variant = K.decode_variant(dt)
+    outs = [_launched("decode_cross_attention", lambda: (
+        K.decode_cross_attention(q, kT, v, bias, beam)), variant)
+        for _ in range(2)]
+    ref = K.decode_cross_attention_ref(q, kT, v, bias, beam)
+    assert torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol,
+                               rtol=0)
+    if variant == "split":
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(_SPLIT))
 @pytest.mark.parametrize("beam", [1, 4, 10, 16])
 def test_split_anc_kernel_matches_plain_on_card(card, rng, dtype, beam):
@@ -388,3 +459,49 @@ def test_split_self_kernel_matches_plain_on_card(card, rng, dtype, S):
             torch.testing.assert_close(outs[0].float(), ref.float(),
                                        atol=tol, rtol=0)
             assert torch.equal(outs[0], outs[1]), (rows, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("S", [13, 195, 1100])
+def test_ragged_self_kernel_matches_plain_on_card(card, rng, dtype, S):
+    """The ragged form: 16 rows, each at its own index (0, tile edges,
+    mid, S - 1, and past S, which reads all S), on ``split`` (bf16, fp16)
+    and ``simt`` (fp32). Positions past each row's index hold NaN (rows
+    within the cache): no weight, never read. Two launches give the same
+    bits; the launch is counted under ``/rows``."""
+    dt = getattr(torch, dtype)
+    variant, tol = K.decode_variant(dt), 5e-5 if dtype == "float32" else 1e-2
+    rows = 16
+    q, kT, v = _self_inputs(rng, BB=rows, S=S)
+    idx = np.asarray([0, 31, 32, 63, S // 2, S - 1, S, S + 7, 3 * S,
+                      1, 2, 97, 130, 194, 5, 64], np.int64)
+    idx = np.minimum(idx, np.where(np.arange(rows) < 6, S - 1, 10 * S))
+    idx = idx.astype(np.int32)
+    kT_nan, v_nan = kT.copy(), v.copy()
+    for r, i in enumerate(idx):
+        kT_nan[r, ..., i + 1:] = np.nan
+        v_nan[r, :, i + 1:] = np.nan
+    qd, kd, vd = _on(card, dt, q, kT_nan, v_nan)
+    idx_d = torch.from_numpy(idx).to(card)
+    outs = []
+    for _ in range(2):
+        before = dict(kernels.launches)
+        outs.append(K.decode_self_attention(qd, kd, vd, idx_d))
+        torch.cuda.synchronize()
+        added = {k: n - before.get(k, 0) for k, n in kernels.launches.items()
+                 if n != before.get(k, 0)}
+        name = "decode_self_attention"
+        assert added == {name: 1, f"{name}/{variant}": 1, f"{name}/rows": 1,
+                         f"{name}/rows/{variant}": 1}, added
+    ref = K.decode_self_attention_ref(*_on(card, dt, q, kT, v), idx_d)
+    assert torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol,
+                               rtol=0)
+    assert torch.equal(outs[0], outs[1])
+    # a row at a host index gives what the scalar form gives
+    for r in (1, 4):
+        one = K.decode_self_attention(qd[r:r + 1], kd[r:r + 1], vd[r:r + 1],
+                                      int(idx[r]))
+        torch.testing.assert_close(outs[0][r:r + 1].float(), one.float(),
+                                   atol=tol, rtol=0)

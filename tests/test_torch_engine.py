@@ -7,7 +7,9 @@ identical batches, for every call, on inputs that fall into two buckets.
 This file runs at beam ``BEAM`` = 4; ``test_torch_engine_beam1.py`` runs
 the same tests at beam 1, in a file of its own so that the two JAX
 reference engines (each built once per module) compile on different
-test workers.
+test workers. ``long_form`` (a conversation of noise bursts between quiet
+pauses) is held to the JAX dict, segments, texts and RTTM, for both
+segmentations (``shas`` with a seeded frame classifier).
 """
 
 import os
@@ -170,3 +172,42 @@ def test_pcm16_transfer_matches_float(shared):
     assert eng_i._prepare([wav])[0][1].dtype == torch.int16
     assert eng_i.translate([wav, ints]) == \
         _port_engine(shared).translate([wav, wav])
+
+
+def _conversation(seed=0, bursts=(0.35, 0.5, 0.3, 0.55), pause=0.5):
+    """Noise bursts (about -8 dB) between pauses of about -60 dB."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for dur in bursts:
+        parts.append(0.001 * rng.standard_normal(int(pause * 16000)))
+        parts.append(0.4 * rng.standard_normal(int(dur * 16000)))
+    parts.append(0.001 * rng.standard_normal(int(pause * 16000)))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def _seeded_probs(samples, sample_rate):
+    """20 ms energy frames through a sigmoid, plus seeded noise."""
+    n = int(sample_rate * 0.02)
+    m = len(samples) // n
+    db = 10 * np.log10(np.maximum(
+        (samples[: m * n].astype(np.float64).reshape(m, n) ** 2).mean(1),
+        1e-12))
+    noise = np.random.default_rng(9).normal(0, 1.5, m)
+    return (1 / (1 + np.exp(-(db + 30 + noise) / 3))).astype(np.float32)
+
+
+def test_long_form_matches_jax(engines):
+    """The whole-conversation call, both segmentations, equal to the JAX
+    engine's dict: segment times, raw texts, merged texts and the
+    absolute-time RTTM lines, with events in it."""
+    jax_engine, port = engines
+    wav = _conversation()
+    pause = port.long_form(wav, uri="conv")
+    assert pause == jax_engine.long_form(wav, uri="conv")
+    assert len(pause["segments"]) == 4
+    assert pause["rttm"]["turn"] or pause["rttm"]["xt"]
+    kw = dict(segmentation="shas", dac_min_segment_length=0.3,
+              dac_max_segment_length=0.9, prob_fn=_seeded_probs)
+    shas = port.long_form(wav, **kw)
+    assert shas == jax_engine.long_form(wav, **kw)
+    assert shas["segments"] and shas["segments"] != pause["segments"]

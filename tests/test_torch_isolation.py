@@ -70,7 +70,8 @@ except ImportError as err:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
              or m == "stac_st_tpu" or m.startswith("stac_st_tpu."))
-print(json.dumps({"modules": len(names), "bad": bad, "yamls": len(yamls),
+print(json.dumps({"modules": len(names), "names": names, "bad": bad,
+                  "yamls": len(yamls),
                   "foreign": found, "missing": missing,
                   "device_speed_perturb": f"{type(sp).__module__}."
                                           f"{type(sp).__qualname__}"}))
@@ -95,9 +96,16 @@ def imported_all():
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+# the serving front's modules, which the import-all subprocess must reach
+SERVING_MODULES = ("serving_stream", "serving_http", "serving_continuous",
+                   "recipes.serve", "prep.shas", "eval.long_form")
+
+
 def test_importing_every_module_pulls_in_no_jax(imported_all):
-    # every module of the package was imported
-    assert imported_all["modules"] >= 65
+    # every module of the package was imported, the serving front's too
+    assert imported_all["modules"] >= 76
+    for name in SERVING_MODULES:
+        assert f"stac_st_tpu_torch.{name}" in imported_all["names"]
     assert imported_all["bad"] == []
 
 
@@ -214,6 +222,35 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
         STEngine(*_tiny_engine_parts(), device="cuda")
     engine = STEngine(*_tiny_engine_parts(), device="cpu")
     assert engine.device.type == "cpu"
+
+
+def test_serving_front_runs_on_cuda_unless_asked(monkeypatch):
+    """The serve recipe asks for ``cuda`` unless ``--device cpu`` is given;
+    the continuous engine and the HTTP front run on their engine's device,
+    which raises without CUDA."""
+    from stac_st_tpu_torch.recipes import serve
+
+    assert serve.build_parser().parse_args(["exp"]).device == "cuda"
+    assert serve.build_parser().parse_args(
+        ["exp", "--device", "cpu"]).device == "cpu"
+    from stac_st_tpu_torch.serving import STEngine
+
+    from stac_st_tpu_torch.serving_continuous import (
+        ContinuousBatchingEngine,
+    )
+
+    cont = ContinuousBatchingEngine(
+        STEngine(*_tiny_engine_parts(), device="cpu",
+                 bucket_seconds=(0.5,)), slots=1, chunk=1)
+    try:
+        assert cont._state["pos"].device.type == "cpu"
+        assert cont._state["layers"][0]["self"]["k"].device.type == "cpu"
+    finally:
+        cont.close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        STEngine(*_tiny_engine_parts(), device=serve.build_parser()
+                 .parse_args(["exp"]).device)
 
 
 def test_default_device_is_cuda(monkeypatch):
