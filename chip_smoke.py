@@ -43,7 +43,14 @@ Phases, each printed as one JSON line:
    padded to 801 encoder frames, each masked past floor(len · S_w) of its
    own 2-32 s bucket, at beam 1 (the chunk step) and beam 3 (prompt
    priming of a full rung), fp32 and bf16 (bitwise over two launches),
-   timed with its bound and the SDPA yardstick with the same mask;
+   timed with its bound and the SDPA yardstick with the same mask; and
+   the int8 cache's two kernels (decode_self_attention_int8, its ragged
+   form counted under .../rows, decode_cross_attention_int8) against their
+   plain versions, fp32 and bf16, bitwise over two launches, at self 160
+   rows x 195 and 16 rows idx 194, the ragged form at the 16 slots above,
+   cross at B16 x beam 10 x 251 and at the slot loop's 16 x 801 with the
+   per-slot bias, each beside the float kernel on the dequantized values
+   (no library call takes int8 K/V with scales);
 3. train_kernel: the four flash-attention kernels (inference forward,
    training forward, dQ, dK/dV) against their plain versions at the
    training path's shapes (encoder self-attention B32 x 376 frames with
@@ -67,6 +74,17 @@ Phases, each printed as one JSON line:
    (6 decoder layers x 195 steps per search), every bf16 decode launch on
    its split kernel; --profile also traces one warm beam-1 translate of
    the 2 utterances (the self kernel's device µs a launch in the loop);
+4b. int8: main_path's translate with the int8 KV cache (the searcher's
+   gather mode), with int8 weights, and with both: warm RTFx beside
+   main_path's, exact launch counts of the warm call (1170 int8 self and
+   1170 int8 cross, or 1170 anc and 1170 cross on split), token agreement
+   with bf16 (printed), one decoder step's weight products bf16 against
+   int8, and an fp32 engine with each option, card against CPU (one
+   decode step's logits; --profile traces the int8 cache's call);
+4c. speculative: SpeculativeSTEngine (flagship target, d256 2 + 2-layer
+   draft, k = 6, 64 tokens) on four utterances of 2-10 s: fp32 texts equal
+   to the target's beam-1 decode with float and with int8 caches, bf16
+   agreement printed, tokens per target step and RTFx;
 5. train: the flagship training configuration as bench_train.py builds it
    (dropout 0.1, CTC 0.3, label smoothing 0.1, batchmean, AdamW 1e-3,
    WarmCoolDecay, clip 5.0, bf16 compute, B32 x 15 s, U128, seeded
@@ -142,8 +160,10 @@ Phases, each printed as one JSON line:
    agreement is printed, not checked), the same concurrent load, and
    protocol_finalize on 6 requests closed right after submitting (every
    future resolves to its final). Then an fp32 engine of the experiment
-   (TF32 off): the same 8 requests must give the oracle's tokens exactly.
-   Launches of the phase (zeroed before): ragged self on ``split`` and
+   (TF32 off): the same 8 requests must give the oracle's tokens exactly;
+   and an fp32 engine with the int8 cache: its slot loop (ragged int8
+   self, int8 cross) token-equal to the int8 oracle on the 8 requests,
+   then 10 s of the same load. Launches of the phase (zeroed before): ragged self on ``split`` and
    cross in the slot loop, anc and cross in the batch front, no plain
    version called on a CUDA tensor. Prints sustained RTFx through HTTP
    per front, p50 / p95 / p99 latency, the formed-batch histogram, slot
@@ -155,8 +175,9 @@ Phases, each printed as one JSON line:
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through, and its
-launches in the recipe and serve phases; the ragged self form is a line
-of its own, its launches the serve phase's),
+launches in the recipe and serve phases; the ragged self forms are lines
+of their own, their launches the serve phase's; the int8 kernels' launches
+are phase int8's),
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
@@ -468,7 +489,7 @@ def kernel_phase(torch, K, timer):
     g_slots = torch.Generator(device="cpu").manual_seed(1)
     ragged = _self_rows(torch, K, timer, g_slots)
     _cross_slots(torch, K, timer, g_slots)
-    return rows + [ragged]
+    return rows + [ragged] + int8_kernel_cases(torch, K, timer)
 
 
 def _timed_case(torch, timer, name, label, run, plain, nbytes, flops,
@@ -655,6 +676,138 @@ def _cross_slots(torch, K, timer, g):
     rec["timer_floor_ms"] = timer.floor_ms()
     emit(rec)
     return rec
+
+
+def _int8_like(torch, t, dim):
+    """A float cache tensor quantized as the decode step appends it (one
+    fp32 scale over ``dim``), on the card: (int8 values, scale)."""
+    from stac_st_tpu_torch.models.transformer import quantize_rows
+
+    return quantize_rows(t.to("cuda"), dim)
+
+
+def _int8_case(torch, K, timer, label, run, plain, float_run, nbytes,
+               flops, dtype, name, form=""):
+    """One int8 kernel case: the launch counted by form, error against the
+    plain version, two launches bitwise equal, times (kernel, plain, the
+    float kernel on the dequantized values), bound and the timer's
+    floor."""
+    from stac_st_tpu_torch.ops import kernels
+
+    variant = K.INT8_VARIANT
+    want_added = {name: 1, f"{name}/{variant}": 1}
+    if form:
+        want_added.update({f"{name}/{form}": 1,
+                           f"{name}/{form}/{variant}": 1})
+    before = dict(kernels.launches)
+    out = run()
+    torch.cuda.synchronize()
+    added = {k: c - before.get(k, 0) for k, c in kernels.launches.items()
+             if c != before.get(k, 0)}
+    check(added == want_added, f"{label}: launched {added}")
+    want = plain()
+    err = (out.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(out).all()), f"{label} finite")
+    check(err <= TOL[dtype], f"{label}: max abs err {err} > {TOL[dtype]}")
+    check(torch.equal(out, run()), f"{label} not repeatable")
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    return {"max_abs_err": err, "tol": TOL[dtype], "variant": variant,
+            "bitwise_repeatable": True, "ms": timer.ms(run),
+            "plain_ms": timer.ms(plain), "library_ms": None,
+            "library": "none: no PyTorch call takes int8 K/V with scales",
+            "float_kernel_ms": timer.ms(float_run),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "timer_floor_ms": timer.floor_ms()}
+
+
+def int8_kernel_cases(torch, K, timer):
+    """The int8 cache's kernels against their plain versions at the main
+    path's shapes, fp32 (TF32 off) and bf16: self at 160 rows x 195
+    (idx 194) and at 16 rows idx 194, its ragged form at the slot loop's
+    16 slots (ROWS_IDX), cross at B16 x beam 10 x 251 and at the slot
+    loop's 16 x 801 with the per-slot bias (beam 1). Each beside the float
+    kernel on the dequantized values. Two lines of phase kernel."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    name_s = "decode_self_attention_int8"
+    name_c = "decode_cross_attention_int8"
+    rec_s = {"phase": "kernel", "name": name_s}
+    rec_c = {"phase": "kernel", "name": name_c}
+    rows_rec = {"phase": "kernel", "name": f"{name_s}/rows",
+                "rows": len(ROWS_IDX), "S": S_SELF, "idx": list(ROWS_IDX)}
+
+    def per_pos(rows, n_pos, es, extra=0):
+        # q read and output written, 2 Dh int8 and two fp32 scales a
+        # position read
+        return (2 * rows * H * DH * es + H * n_pos * (2 * DH + 8) + extra)
+
+    def cache(rows, S):
+        kT, ks = _int8_like(torch, torch.randn((rows, H, DH, S),
+                                               generator=g), 2)
+        v, vs = _int8_like(torch, torch.randn((rows, H, S, DH),
+                                              generator=g), 3)
+        return kT, v, ks, vs.transpose(2, 3).contiguous()
+
+    def dequant(dt, kT, v, ks, vs):
+        return ((kT.float() * ks).to(dt).contiguous(),
+                (v.float() * vs.transpose(2, 3)).to(dt).contiguous())
+
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        es = torch.finfo(dt).bits // 8
+        # self, scalar form: 160 rows (beam 10 in gather mode), 16 rows
+        for rows, key in ((B * BEAM, dtype), (B, f"{dtype}_rows16_idx194")):
+            idx = S_SELF - 1
+            kT, v, ks, vs = cache(rows, S_SELF)
+            q = (torch.randn((rows, H, DH), generator=g)).to("cuda", dt)
+            kf, vf = dequant(dt, kT, v, ks, vs)
+            qs = (q.float() / 8).to(dt)
+            rec_s[key] = _int8_case(
+                torch, K, timer, f"self int8 {rows} rows {dtype}",
+                partial(K.decode_self_attention_int8, q, kT, v, ks, vs, idx),
+                partial(K.decode_self_attention_int8_ref, q, kT, v, ks, vs,
+                        idx),
+                partial(K.decode_self_attention, qs, kf, vf, idx),
+                per_pos(rows, rows * S_SELF, es),
+                4.0 * rows * H * S_SELF * DH, dtype, name_s)
+        # the ragged form at the slot loop's 16 slots
+        R = len(ROWS_IDX)
+        kT, v, ks, vs = cache(R, S_SELF)
+        q = torch.randn((R, H, DH), generator=g).to("cuda", dt)
+        idx = torch.tensor(ROWS_IDX, dtype=torch.int32, device="cuda")
+        n = sum(min(i, S_SELF - 1) + 1 for i in ROWS_IDX)
+        kf, vf = dequant(dt, kT, v, ks, vs)
+        rows_rec[dtype] = _int8_case(
+            torch, K, timer, f"ragged self int8 {dtype}",
+            partial(K.decode_self_attention_int8, q, kT, v, ks, vs, idx),
+            partial(K.decode_self_attention_int8_ref, q, kT, v, ks, vs, idx),
+            partial(K.decode_self_attention, (q.float() / 8).to(dt), kf, vf,
+                    idx),
+            per_pos(R, n, es, 4 * R), 4.0 * H * n * DH, dtype, name_s,
+            form="rows")
+        # cross: B16 x beam 10 x 251, then the slot loop's 16 x 801 with
+        # the per-slot bias at beam 1
+        bias, vis = _slot_bias(torch)
+        for rows, S, beam, b, key in (
+                (B, S_ENC, BEAM, None, dtype),
+                (len(SLOT_SECONDS), S_MAX, 1, bias, f"{dtype}_slot_loop")):
+            kT, v, ks, vs = cache(rows, S)
+            q = torch.randn((rows * beam, H, DH), generator=g).to("cuda", dt)
+            kf, vf = dequant(dt, kT, v, ks, vs)
+            n_pos = rows * S if b is None else sum(vis)
+            rec_c[key] = _int8_case(
+                torch, K, timer, f"cross int8 {key}",
+                partial(K.decode_cross_attention_int8, q, kT, v, ks, vs, b,
+                        beam),
+                partial(K.decode_cross_attention_int8_ref, q, kT, v, ks, vs,
+                        b, beam),
+                partial(K.decode_cross_attention, (q.float() / 8).to(dt),
+                        kf, vf, b, beam),
+                per_pos(rows * beam, 0, es) + H * n_pos * (2 * DH + 8)
+                + (0 if b is None else rows * S * 4),
+                4.0 * beam * H * n_pos * DH, dtype, name_c)
+    for rec in (rec_s, rows_rec, rec_c):
+        emit(rec)
+    return [rec_s, rows_rec, rec_c]
 
 
 def _anc_mid(torch, K, timer, g):
@@ -1050,6 +1203,224 @@ def main_path_phase(torch, kernels, profile: bool):
             watch=("anc_split_kernel", "cross_split_kernel"))
         rec["profile_beam1"] = profile_beam1(torch, eng1, wavs[:2],
                                              "translate_beam1")
+    emit(rec)
+    return rec, st
+
+
+# the int8 phase: the main path's engine with the int8 KV cache, int8
+# weights, and both; 6 decoder layers x 195 steps a search
+INT8_OPTIONS = (("kv_int8", dict(kv_cache_dtype="int8")),
+                ("weights_int8", dict(weights_int8=True)),
+                ("both", dict(kv_cache_dtype="int8", weights_int8=True)))
+# fp32 card vs CPU, one decode step's logits: int8 weights quantize the
+# same fp32 values on both devices into the same int8, so the float
+# tolerance holds; the int8 cache quantizes K/V rows that agree to fp32
+# rounding, and a value whose x/s lies within rounding of a .5 moves by
+# one int8 step (about 1/127 of its row's largest value, then averaged
+# by the attention weights)
+INT8_CARD_VS_CPU_ATOL = {"weights_int8": 1e-3, "kv_int8": 1e-2,
+                         "both": 1e-2}
+
+
+def int8_phase(torch, kernels, bf16_texts, main_rec, profile: bool):
+    """translate of B16 x 10 s at the main path's settings (bf16, beam 10,
+    192 tokens, PCM16) with the int8 KV cache (the searcher's gather mode),
+    int8 weights, and both: warm RTFx beside main_path's bf16 number from
+    this run, exact launch counts of the warm call (zeroed just before),
+    token agreement with the bf16 engine (printed: int8 reorders
+    near-tied beams); --profile traces the int8 cache's call (the gather
+    copy's device time). Then an fp32 engine (TF32 off) with each option,
+    card against CPU: one decode step's logits."""
+    wavs = serving_wavs()
+    audio_s = B * SECONDS
+    per_search = 6 * S_SELF
+    rec = {"phase": "int8", "batch": B, "seconds": SECONDS, "beam": BEAM,
+           "bf16_translate_warm_rtfx": main_rec["translate_warm_rtfx"]}
+    t_phase = time.perf_counter()
+    for label, opts in INT8_OPTIONS:
+        eng = engine(flagship(0), "cuda", bf16=True, beam_size=BEAM,
+                     max_decode_tokens=192, transfer_dtype="int16", **opts)
+        eng.translate(wavs)  # first call: set-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = eng.translate(wavs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        if "kv_cache_dtype" in opts:
+            want = {"decode_self_attention_int8": per_search,
+                    "decode_cross_attention_int8": per_search}
+        else:
+            want = {"decode_self_attention_anc": per_search,
+                    "decode_self_attention_anc/split": per_search,
+                    "decode_cross_attention": per_search,
+                    "decode_cross_attention/split": per_search}
+        got = {k: v for k, v in launches.items() if "/" not in k
+               or k.endswith("/split")}
+        check(got == want, f"int8 {label}: launches {launches}, want {want}")
+        case = {"options": opts, "translate_warm_s": wall,
+                "translate_warm_rtfx": audio_s / wall, "launches": launches,
+                "bf16_agreement": {"equal": sum(a == b for a, b in
+                                                zip(out, bf16_texts)),
+                                   "of": B}}
+        if profile and label == "kv_int8":
+            case["profile"] = profile_call(
+                torch, lambda: eng.translate(wavs), wall,
+                "translate_int8_cache",
+                # index_select runs as the gather kernel: the reorder
+                watch=("vectorized_gather_kernel", "self_i8_kernel",
+                       "cross_i8_kernel"))
+        rec[label] = case
+        del eng
+    rec["projections"] = decoder_projections(torch)
+    # fp32, TF32 off: one decode step on the card against the CPU
+    rng = np.random.default_rng(1)
+    short = [(0.1 * rng.standard_normal(int(2 * SR))).astype(np.float32)
+             for _ in range(2)]
+    for label, opts in INT8_OPTIONS:
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            eng = engine(flagship(1), dev, bf16=False, beam_size=BEAM,
+                         max_decode_tokens=16, **opts)
+            with torch.inference_mode():
+                (_, batch, lens), = eng._prepare(short)
+                enc = eng._encode(batch, lens)
+                model = eng._transformer
+                kv = opts.get("kv_cache_dtype")
+                cache = model.init_decode_cache(
+                    enc, 4, None, BEAM, anc_mode=kv is None, cache_dtype=kv)
+                for p, tok in enumerate(eng._prompt("es", "en")):
+                    toks = torch.full((2 * BEAM,), tok, dtype=torch.long,
+                                      device=enc.device)
+                    out = eng.searcher.seq_lin(
+                        model.decode_step(toks, p, cache))
+            logits[dev] = out.float().cpu()
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        tol = INT8_CARD_VS_CPU_ATOL[label]
+        check(err <= tol, f"int8 {label} card vs CPU logits: {err} > {tol}")
+        rec[label]["card_vs_cpu_fp32"] = {"logits_max_abs_err": err,
+                                          "atol": tol}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def decoder_projections(torch):
+    """The weight products of one decoder step at the main path's 160
+    rows (6 layers: the self-attention q/k/v and out-projection, the
+    cross-attention q and out-projection, fc1 and fc2; the seq_lin head),
+    bf16 weights against int8 ones (the engine's int8 modules, plain
+    PyTorch), each timed as one call over all of them with the L2
+    flushed: ms, calls and the weight bytes read."""
+    from stac_st_tpu_torch.utils.quantize import quantize_decode_weights
+
+    out = {}
+    for label in ("bfloat16", "int8"):
+        mods = flagship(0)
+        tr, head = mods["transformer"], mods["seq_lin"]
+        for m in (tr, head):
+            m.to("cuda", torch.bfloat16).eval()
+        if label == "int8":
+            quantize_decode_weights(tr, head)
+        x = torch.randn((B * BEAM, 256), device="cuda", dtype=torch.bfloat16)
+        h = torch.randn((B * BEAM, 1024), device="cuda", dtype=torch.bfloat16)
+        calls, nbytes = [], 0
+        for layer in tr.decoder.layers:
+            sa, ca, ffn = layer.self_attn, layer.cross_attn, layer.ffn
+            calls += [partial(sa.in_proj, x), partial(sa.out_proj, x),
+                      partial(ca._proj, x, 0), partial(ca.out_proj, x),
+                      partial(ffn.fc1, x), partial(ffn.fc2, h)]
+            q = ca.in_proj.q if label == "int8" else None
+            for m in (sa.in_proj, sa.out_proj, q, ca.out_proj, ffn.fc1,
+                      ffn.fc2):
+                # the weights read (int8 with their scales); the float
+                # cross q reads the first d rows of its in_proj
+                nbytes += (256 * 256 * 2 if m is None else
+                           m.weight.numel() * m.weight.element_size()
+                           + getattr(m, "scale", m.weight[:0]).numel() * 4)
+        calls.append(partial(head, x))
+        w = head.linear.weight
+        nbytes += w.numel() * w.element_size() + (
+            head.linear.scale.numel() * 4 if label == "int8" else 0)
+
+        def step():
+            with torch.inference_mode():
+                for c in calls:
+                    c()
+
+        out[label] = {"ms": Timer(torch).ms(step), "calls": len(calls),
+                      "weight_bytes": nbytes}
+    return out
+
+
+# the speculative phase: a flagship target, a d256 2 + 2-layer draft of its
+# own seeded weights, k = 6, four utterances of 2-10 s decoded one at a time
+SPEC_K, SPEC_SECONDS, SPEC_TOKENS = 6, (2.0, 4.5, 7.0, 10.0), 64
+
+
+def _spec_texts(torch, spec, target, wavs):
+    """The speculative engine's and the target's beam-1 texts of each
+    utterance alone (the fbank's top-dB clamp couples a batch's rows), the
+    speculative wall seconds and its stats."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, stats = [], []
+    for w in wavs:
+        got += spec.translate([w])
+        stats += spec.last_stats
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = [target.translate([w])[0] for w in wavs]
+    # the speculative text keeps an emitted eos (w2), as the reference's
+    # does; the search's hypotheses never hold it
+    got = [" ".join(t.split()[:-1]) if t.split()[-1:] == ["w2"] else t
+           for t in got]
+    return got, want, wall, stats
+
+
+def speculative_phase(torch, kernels):
+    """SpeculativeSTEngine (target: flagship width, 12 + 6 layers; draft:
+    d256, 2 + 2 layers, its own seeded weights; the synthetic tokenizer;
+    k = 6; at most SPEC_TOKENS tokens) on four utterances of 2-10 s. In
+    fp32 (TF32 off) its texts must equal the target's beam-1 translate of
+    each utterance, with float caches and with both engines on the int8
+    cache; in bf16 the agreement is printed. Tokens per target step, RTFx
+    and the launches of the fp32 float run."""
+    from stac_st_tpu_torch.serving import SpeculativeSTEngine
+
+    rng = np.random.default_rng(5)
+    wavs = [(0.1 * rng.standard_normal(int(sec * SR))).astype(np.float32)
+            for sec in SPEC_SECONDS]
+    audio_s = sum(SPEC_SECONDS)
+    rec = {"phase": "speculative", "k": SPEC_K, "seconds": SPEC_SECONDS,
+           "max_decode_tokens": SPEC_TOKENS}
+    t_phase = time.perf_counter()
+    for label, bf16, kv in (("fp32", False, None), ("fp32_int8", False,
+                                                    "int8"),
+                            ("bf16", True, None)):
+        opts = dict(bf16=bf16, beam_size=1, max_decode_tokens=SPEC_TOKENS,
+                    kv_cache_dtype=kv)
+        target = engine(flagship(0), "cuda", **opts)
+        draft = engine(flagship(7, enc=2, dec=2), "cuda", **opts)
+        spec = SpeculativeSTEngine(target, draft, k=SPEC_K)
+        spec.warmup()
+        kernels.reset_launches()
+        got, want, wall, stats = _spec_texts(torch, spec, target, wavs)
+        launches = dict(kernels.launches)
+        equal = sum(a == b for a, b in zip(got, want))
+        if not bf16:
+            check(equal == len(wavs), f"speculative {label}: {equal} of "
+                  f"{len(wavs)} equal to the target's beam-1 decode")
+        tokens = sum(st["tokens"] for st in stats)
+        steps = sum(st["target_steps"] for st in stats)
+        rec[label] = {"equal_to_target_beam1": equal, "of": len(wavs),
+                      "tokens": tokens, "target_steps": steps,
+                      "tokens_per_target_step": tokens / steps,
+                      "drafted": sum(st["drafted"] for st in stats),
+                      "wall_s": wall, "rtfx": audio_s / wall,
+                      "launches": launches}
+    rec["phase_s"] = time.perf_counter() - t_phase
     emit(rec)
     return rec
 
@@ -1971,6 +2342,7 @@ SLOTS, CHUNK = 16, 16           # bench_serve.py's continuous defaults
 CLIENTS, LOAD_S = 16, 20.0      # concurrent clients, load window (s)
 REQUEST_S = (2.0, 16.0)         # request lengths (s)
 N_EXACT, N_FINAL = 8, 6         # continuous vs oracle; protocol finals
+INT8_LOAD_S = 10.0              # the int8 slot loop's load window (s)
 CONVERSATION_S = 60.0           # the long-form input, at least
 
 
@@ -2163,7 +2535,8 @@ def _greedy_oracle(torch, eng, S_max, cap, wav, src, tgt):
     bias = torch.where(torch.arange(S_max, device=dev)[None, :]
                        > abs_len[:, None], -1e9, 0.0)
     enc = torch.nn.functional.pad(enc, (0, 0, 0, S_max - S_w))
-    cache = model.init_decode_cache(enc, 3 + cap, bias)
+    cache = model.init_decode_cache(enc, 3 + cap, bias,
+                                    cache_dtype=eng.searcher.kv_cache_dtype)
     sp = eng.tokenizer
     prompt = torch.tensor([[eng.searcher.bos_token,
                             sp.encode_as_ids(f"[{src}]")[-1],
@@ -2390,6 +2763,40 @@ def serve_phase(torch, kernels, K, smi: str, root: str, profile: bool):
     rec["fp32_exact"] = {"requests": N_EXACT, "equal": len(got),
                          "tokens": [len(x) for x in got],
                          "launches": fp32, "s": time.perf_counter() - t}
+
+    # ---- the slot loop with the int8 cache: an fp32 engine, exact against
+    # the sequential int8 greedy oracle, then the same load for INT8_LOAD_S
+    t = time.perf_counter()
+    eng8 = STEngine.from_saved_experiment(exp, device="cuda", bf16=False,
+                                          pad_batch_rows=(4, 16),
+                                          kv_cache_dtype="int8")
+    snap = dict(kernels.launches)
+    cont = ContinuousBatchingEngine(eng8, slots=SLOTS, chunk=CHUNK)
+    server = STHttpServer(cont, port=0).start()
+    try:
+        got = one_at_a_time(cont, reqs)
+        want = [greedy_oracle(eng8, cont._S_max, cont.cap, w, "es",
+                              "en" if task == "translate" else "es")
+                for w, task in reqs]
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        check(not bad, f"int8 continuous tokens differ from the oracle: "
+              f"requests {bad}")
+        load = load_window(server.port, pool, INT8_LOAD_S)
+    finally:
+        server.close()
+        cont.close()
+    i8 = since(snap)
+    name = "decode_self_attention_int8"
+    check(i8.get(f"{name}/rows", 0) > 0 and i8.get(name, 0)
+          > i8[f"{name}/rows"] and i8.get("decode_cross_attention_int8", 0)
+          > 0 and not i8.get("decode_self_attention/rows", 0),
+          f"int8 slot loop: ragged and scalar int8 self, int8 cross: {i8}")
+    rec["int8_continuous"] = {
+        "requests": N_EXACT, "equal": len(got),
+        "tokens": [len(x) for x in got], "load": load, "launches": i8,
+        "s": time.perf_counter() - t}
+    rec["launches"] = {k: rec["launches"].get(k, 0) + i8.get(k, 0)
+                       for k in set(rec["launches"]) | set(i8)}
     rec["phase_s"] = time.perf_counter() - t_phase
     emit(rec)
     return rec
@@ -2579,7 +2986,9 @@ def main() -> int:
     timer = Timer(torch)
     rows = kernel_phase(torch, K, timer)
     train_rows = train_kernel_phase(torch, kernels, timer)
-    main_rec = main_path_phase(torch, kernels, args.profile)
+    main_rec, main_texts = main_path_phase(torch, kernels, args.profile)
+    int8_rec = int8_phase(torch, kernels, main_texts, main_rec, args.profile)
+    speculative_phase(torch, kernels)
     _, train_launches = train_phase(torch, kernels, args.profile)
     data_train_phase(torch, kernels, args.profile)
     with tempfile.TemporaryDirectory() as root:
@@ -2591,25 +3000,26 @@ def main() -> int:
     kernel_line = []
     for rec in rows:
         bf = rec["bfloat16"]
-        # the ragged self form: its launches are the serve phase's
+        # the ragged self forms: their launches are the serve phase's; the
+        # int8 kernels' the int8 phase's (the int8 cache's translate)
         ragged = rec["name"].endswith("/rows")
         replaces, source = K.KERNELS[rec["name"].split("/")[0]]
+        path = (served["launches"] if ragged
+                else int8_rec["kv_int8"]["launches"] if "int8" in rec["name"]
+                else main_rec["launches"])
         kernel_line.append({
             "name": rec["name"], "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (served["launches"].get(rec["name"], 0) if ragged
-                         else main_rec["launches"].get(rec["name"], 0)),
+            "launches": path.get(rec["name"], 0),
             "recipe_launches": recipe["launches"].get(rec["name"], 0),
             "serve_launches": served["launches"].get(rec["name"], 0),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
         })
-        if rec["name"] in DECODE_SPLIT or ragged:
-            counts = served["launches"] if ragged else main_rec["launches"]
+        if rec["name"] in DECODE_SPLIT or ragged or "int8" in rec["name"]:
             kernel_line[-1]["variant"] = "/".join(
-                v for v in (SPLIT, "simt")
-                if counts.get(f"{rec['name']}/{v}"))
+                v for v in (SPLIT, "simt") if path.get(f"{rec['name']}/{v}"))
     flash_kernels = {**A.KERNELS, **TA.KERNELS}
     for rec in train_rows:
         enc = rec["encoder_self"]  # the shape of 12 of the 18 launches

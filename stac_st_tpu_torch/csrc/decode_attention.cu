@@ -89,6 +89,25 @@
 //   shared memory, an exact two-pass softmax. card_vs_cpu holds fp32
 //   decoding to the CPU at 1e-3.
 //
+// Two kernels replace no Pallas kernel: the int8 cache's
+//   decode_self_attention_int8   (self_i8_kernel, ragged self_i8_rows_kernel)
+//   decode_cross_attention_int8  (cross_i8_kernel)
+// stand for the reference's XLA code in stac_st_tpu/models/transformer.py
+// _step_int8 (:295) and _step_cross_int8 (:508), whose int8 -> bf16 convert
+// XLA fuses into the matmul's operand load (PyTorch would write a copy).
+// K^T and V are int8 with one fp32 scale per (row, head, position),
+// k_scale / v_scale (rows, H, 1, S); the query arrives unscaled. Per (row,
+// head): logit_p = (q . k_p) * (k_scale_p * Dh^-1/2) in fp32, positions past
+// the row's count skipped (the reference scores them -1e9: weight 0), the
+// cross bias added; an exact softmax in fp32; w_p = softmax_p * v_scale_p
+// rounded to the query's type, as the reference rounds it; out = sum w_p *
+// v_p in fp32, stored in the query's type. Bound: bytes, 2 * Dh int8 and 8
+// bytes of scales per position read (self at 160 rows x 195 positions ~5.1
+// us, cross at B16 x 251 ~0.65 us). One simple design for every dtype
+// (variant "simt"): one block of 256 threads per (query row, head) -- for
+// cross the beam queries of an utterance read its K/V from L2 after the
+// first -- the scores in shared memory, two passes.
+//
 // Plain C interface, loaded with ctypes; every launcher returns the
 // cudaError_t of the launch (0 = success) or one of the ERR_* codes below.
 // Kernels run on the caller's stream, allocate nothing and never
@@ -1159,6 +1178,136 @@ constexpr int ERR_ALIGN = 10002;    // a split kernel's tensor not 16-byte align
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// ---- the int8 cache: one block per (row, head), two passes --------------
+namespace i8 {
+
+constexpr float QK_SCALE = 0.125f;  // DH^-1/2, exact for DH = 64
+
+// One query (64 values at q) against n positions of one (row, head)'s int8
+// K^T (Dh, S: row stride S) and V (S, Dh) with their scales, plus the
+// additive bias bp[0..n) (null: none); the 64 outputs go to out.
+template <typename T>
+__device__ __forceinline__ void attend(const T* __restrict__ q, const int8_t* __restrict__ kp,
+                                       const int8_t* __restrict__ vp,
+                                       const float* __restrict__ ksp,
+                                       const float* __restrict__ vsp,
+                                       const float* __restrict__ bp, T* __restrict__ out,
+                                       int S, int n) {
+  extern __shared__ float sc[];  // [S] scores, then weights
+  __shared__ float qs[DH];
+  __shared__ float red[WARPS];
+  __shared__ float part[THREADS];
+  if (threadIdx.x < DH) qs[threadIdx.x] = to_f(q[threadIdx.x]);
+  __syncthreads();
+  for (int s = threadIdx.x; s < n; s += THREADS) {
+    float acc = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < DH; ++d) acc += qs[d] * (float)kp[(size_t)d * S + s];
+    const float l = acc * (ksp[s] * QK_SCALE);
+    sc[s] = bp == nullptr ? l : l + bp[s];
+  }
+  __syncthreads();
+  block_softmax(sc, n, red);
+  for (int s = threadIdx.x; s < n; s += THREADS) sc[s] = to_f(from_f<T>(sc[s] * vsp[s]));
+  __syncthreads();
+  const int d = threadIdx.x % DH;
+  const int g = threadIdx.x / DH;
+  float acc = 0.f;
+#pragma unroll 8  // eight V loads in flight, the sum in position order
+  for (int s = g; s < n; s += GROUPS) acc += sc[s] * (float)vp[(size_t)s * DH + d];
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < DH) {
+    float o = 0.f;
+    for (int i = 0; i < GROUPS; ++i) o += part[i * DH + d];
+    out[d] = from_f<T>(o);
+  }
+}
+
+// Self, one block per (row, head): positions 0..idx.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+self_i8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kT,
+               const int8_t* __restrict__ v, const float* __restrict__ ks,
+               const float* __restrict__ vs, T* __restrict__ out, int S, int idx) {
+  const size_t bh = blockIdx.x;  // row * H + head
+  attend<T>(q + bh * DH, kT + bh * DH * S, v + bh * S * DH, ks + bh * S, vs + bh * S,
+            nullptr, out + bh * DH, S, idx + 1);
+}
+
+// The ragged form: row r reads its own positions, from rows[r].
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+self_i8_rows_kernel(const T* __restrict__ q, const int8_t* __restrict__ kT,
+                    const int8_t* __restrict__ v, const float* __restrict__ ks,
+                    const float* __restrict__ vs, const int32_t* __restrict__ rows,
+                    T* __restrict__ out, int H, int S) {
+  const size_t bh = blockIdx.x;
+  attend<T>(q + bh * DH, kT + bh * DH * S, v + bh * S * DH, ks + bh * S, vs + bh * S,
+            nullptr, out + bh * DH, S, row_positions(rows, (int)(bh / H), S));
+}
+
+// Cross, one block per (query row, head): query row r = b * beam + j reads
+// utterance b's K^T / V (read once from device memory, again by the other
+// beam queries from L2), all S positions, with bias (B, S) or null.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+cross_i8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kT,
+                const int8_t* __restrict__ v, const float* __restrict__ ks,
+                const float* __restrict__ vs, const float* __restrict__ bias,
+                T* __restrict__ out, int H, int S, int beam) {
+  const size_t rh = blockIdx.x;  // query row * H + head
+  const int b = (int)(rh / H) / beam, h = (int)(rh % H);
+  const size_t bh = (size_t)b * H + h;
+  attend<T>(q + rh * DH, kT + bh * DH * S, v + bh * S * DH, ks + bh * S, vs + bh * S,
+            bias == nullptr ? nullptr : bias + (size_t)b * S, out + rh * DH, S, S);
+}
+
+template <typename T>
+cudaError_t launch_self(const void* q, const void* kT, const void* v, const void* ks,
+                        const void* vs, void* out, int BB, int H, int S, int idx,
+                        cudaStream_t st) {
+  const size_t smem = (size_t)S * sizeof(float);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(self_i8_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  self_i8_kernel<T><<<BB * H, THREADS, smem, st>>>(
+      (const T*)q, (const int8_t*)kT, (const int8_t*)v, (const float*)ks,
+      (const float*)vs, (T*)out, S, idx);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_self_rows(const void* q, const void* kT, const void* v, const void* ks,
+                             const void* vs, const void* rows, void* out, int BB, int H,
+                             int S, cudaStream_t st) {
+  const size_t smem = (size_t)S * sizeof(float);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(self_i8_rows_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  self_i8_rows_kernel<T><<<BB * H, THREADS, smem, st>>>(
+      (const T*)q, (const int8_t*)kT, (const int8_t*)v, (const float*)ks,
+      (const float*)vs, (const int32_t*)rows, (T*)out, H, S);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_cross(const void* q, const void* kT, const void* v, const void* ks,
+                         const void* vs, const void* bias, void* out, int B, int H,
+                         int S, int beam, cudaStream_t st) {
+  const size_t smem = (size_t)S * sizeof(float);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(cross_i8_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  cross_i8_kernel<T><<<B * beam * H, THREADS, smem, st>>>(
+      (const T*)q, (const int8_t*)kT, (const int8_t*)v, (const float*)ks,
+      (const float*)vs, (const float*)bias, (T*)out, H, S, beam);
+  return cudaGetLastError();
+}
+
+}  // namespace i8
+
+
 }  // namespace
 
 extern "C" {
@@ -1236,6 +1385,57 @@ int stac_decode_cross_attention(const void* q, const void* kT, const void* v,
   return dtype == BF16
              ? launch_cross_split<__nv_bfloat16>(q, kT, v, bias, out, B, H, S, beam, st)
              : launch_cross_split<__half>(q, kT, v, bias, out, B, H, S, beam, st);
+}
+
+// The int8 cache (one kernel per form for every dtype): idx a host int, or
+// idx_rows (BB,) int32 on the device; k_scale / v_scale (rows, H, 1, S) fp32.
+int stac_decode_self_attention_int8(const void* q, const void* kT, const void* v,
+                                    const void* k_scale, const void* v_scale, void* out,
+                                    int BB, int H, int S, int idx, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case F32: return i8::launch_self<float>(q, kT, v, k_scale, v_scale, out, BB, H, S, idx, st);
+    case BF16:
+      return i8::launch_self<__nv_bfloat16>(q, kT, v, k_scale, v_scale, out, BB, H, S, idx, st);
+    case F16: return i8::launch_self<__half>(q, kT, v, k_scale, v_scale, out, BB, H, S, idx, st);
+  }
+  return ERR_VARIANT;
+}
+
+int stac_decode_self_attention_int8_rows(const void* q, const void* kT, const void* v,
+                                         const void* k_scale, const void* v_scale,
+                                         const void* idx_rows, void* out, int BB, int H,
+                                         int S, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case F32:
+      return i8::launch_self_rows<float>(q, kT, v, k_scale, v_scale, idx_rows, out, BB, H, S,
+                                         st);
+    case BF16:
+      return i8::launch_self_rows<__nv_bfloat16>(q, kT, v, k_scale, v_scale, idx_rows, out, BB,
+                                                 H, S, st);
+    case F16:
+      return i8::launch_self_rows<__half>(q, kT, v, k_scale, v_scale, idx_rows, out, BB, H, S,
+                                          st);
+  }
+  return ERR_VARIANT;
+}
+
+int stac_decode_cross_attention_int8(const void* q, const void* kT, const void* v,
+                                     const void* k_scale, const void* v_scale,
+                                     const void* bias, void* out, int B, int H, int S,
+                                     int beam, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case F32:
+      return i8::launch_cross<float>(q, kT, v, k_scale, v_scale, bias, out, B, H, S, beam, st);
+    case BF16:
+      return i8::launch_cross<__nv_bfloat16>(q, kT, v, k_scale, v_scale, bias, out, B, H, S,
+                                             beam, st);
+    case F16:
+      return i8::launch_cross<__half>(q, kT, v, k_scale, v_scale, bias, out, B, H, S, beam, st);
+  }
+  return ERR_VARIANT;
 }
 
 }  // extern "C"

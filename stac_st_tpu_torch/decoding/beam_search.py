@@ -7,9 +7,10 @@ temperature, the eos threshold gate, length normalization, ONE top-k over
 beam·V (a hypothesis finishes only when eos itself wins a slot), a merged
 finished set, an exact early exit, segmented cache growth and the
 budget-normalized alive fallback. Hypotheses come back without prompt or
-eos. Joint-CTC and LM fusion, ``mask_encoder_padding`` and the int8 cache
-are not ported: the constructor refuses them, naming the field
-(``models.settings.require``).
+eos. ``kv_cache_dtype='int8'`` decodes with the int8 KV cache (its
+scales per (row, head, position)). Joint-CTC and LM fusion and
+``mask_encoder_padding`` are not ported: the constructor refuses them,
+naming the field (``models.settings.require``).
 
 ``MultiTaskBeamSearch`` takes the YAML's form (``modules=[Transformer,
 seq_lin, ctc_lin]``) or ``(model, seq_lin)``, and the reference's prompt
@@ -19,9 +20,13 @@ weights: the trainer's modules read its flat parameter buffer, so a
 search always sees the current weights, without a bind or a copy.
 
 Cache mode: beam 1 decodes with the Kᵀ/V layout and no reorder (the parent
-of a single hypothesis is itself); beam > 1 always uses anc mode — the
-K/V caches are never reordered, only the (B, beam, S) ancestor table is.
-Gather mode (the JAX default on its XLA path) computes the same thing.
+of a single hypothesis is itself). A float cache at beam > 1 uses anc mode:
+the K/V caches are never reordered, only the (B, beam, S) ancestor table
+is. The int8 cache at beam > 1 uses gather mode, as the reference does on
+its XLA path: after each top-k every per-row leaf of each layer's self
+cache (K, V and their scales) is reordered by the flat parent index, then
+the step appends at the shared index. Both modes compute the same
+search; segmented growth applies to both.
 
 Tie order: ``jax.lax.top_k`` puts the lower index first among equal
 values, and the finished-set merge ties constantly on its NEG_INF entries,
@@ -39,7 +44,7 @@ import torch
 from ..models.settings import require
 
 __all__ = ["BeamSearchConfig", "beam_search", "MultiTaskBeamSearch",
-           "plan_segments"]
+           "plan_segments", "gather_rows"]
 
 NEG_INF = -1.0e9
 
@@ -77,9 +82,21 @@ def _topk_stable(x: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
+def gather_rows(cache, flat_parent: torch.Tensor) -> None:
+    """Gather mode's reorder, in place of each layer's self cache: every
+    per-row leaf (K, V and the int8 scales) takes the rows ``flat_parent``
+    (B·beam,) names; the shared index stays."""
+    for layer in cache["layers"]:
+        sc = layer["self"]
+        for name, leaf in sc.items():
+            if name != "index":
+                sc[name] = leaf.index_select(0, flat_parent)
+
+
 def beam_search(model, seq_lin, enc_out: torch.Tensor, prompt: torch.Tensor,
                 max_steps: int, config: BeamSearchConfig,
-                cache_growth: Optional[int] = None):
+                cache_growth: Optional[int] = None,
+                kv_cache_dtype: Optional[str] = None):
     """Run the search.
 
     Args:
@@ -89,6 +106,7 @@ def beam_search(model, seq_lin, enc_out: torch.Tensor, prompt: torch.Tensor,
         prompts (the fused multi-prompt decode).
       max_steps: step budget.
       cache_growth: first segment of the geometric cache growth, or None.
+      kv_cache_dtype: None (anc mode at beam > 1) or 'int8' (gather mode).
 
     Returns tokens (B, max_steps) int64, lengths (B,), scores (B,).
     """
@@ -98,8 +116,11 @@ def beam_search(model, seq_lin, enc_out: torch.Tensor, prompt: torch.Tensor,
     dev = enc_out.device
     prompt_len = prompt.shape[-1]
     segments = plan_segments(max_steps, cache_growth)
+    anc_mode = beam > 1 and kv_cache_dtype is None
     cache = model.init_decode_cache(enc_out, prompt_len + segments[0],
-                                    beam=beam, anc_mode=beam > 1)
+                                    beam=beam, anc_mode=anc_mode,
+                                    cache_dtype=kv_cache_dtype)
+    flat_base = torch.arange(B, device=dev)[:, None] * beam
 
     def step_logits(tokens: torch.Tensor, position: int) -> torch.Tensor:
         return seq_lin(model.decode_step(tokens, position, cache))
@@ -186,7 +207,9 @@ def beam_search(model, seq_lin, enc_out: torch.Tensor, prompt: torch.Tensor,
             alive_tokens[:, :, t] = new_tok
             alive_scores = torch.where(is_eos, NEG_INF, new_cum)
 
-            if beam > 1:
+            if beam > 1 and not anc_mode:
+                gather_rows(cache, (flat_base + parent).reshape(-1))
+            elif beam > 1:
                 # anc mode: reorder only the ancestor table; the slot about
                 # to be written maps to each hypothesis's own row
                 anc = torch.gather(
@@ -249,7 +272,10 @@ class MultiTaskBeamSearch:
         require(owner, "lm_weight", float(lm_weight), 0.0)
         require(owner, "mask_encoder_padding", bool(mask_encoder_padding),
                 False)
-        require(owner, "kv_cache_dtype", kv_cache_dtype, None)
+        if kv_cache_dtype not in (None, "int8"):
+            raise ValueError(f"kv_cache_dtype: {kv_cache_dtype!r} "
+                             "(supported: None, 'int8')")
+        self.kv_cache_dtype = kv_cache_dtype
         self.model, self.seq_lin, self.ctc_lin = model, seq_lin, ctc_lin
         self.config = BeamSearchConfig(
             beam_size=int(beam_size), bos_index=int(bos_index),
@@ -304,7 +330,8 @@ class MultiTaskBeamSearch:
         return beam_search(self.model, self.seq_lin, enc_out.to(dtype),
                            prompt.to(enc_out.device),
                            self.max_steps(enc_out.shape[1]), self.config,
-                           cache_growth=self.cache_growth)
+                           cache_growth=self.cache_growth,
+                           kv_cache_dtype=self.kv_cache_dtype)
 
     def call_multi(self, enc_out: torch.Tensor, wav_lens=None,
                    prompts: Sequence[Sequence[int]] = ()):

@@ -10,7 +10,11 @@ changes:
   (out, in, k_time, k_freq), H = time and W = freq as in the reference;
 * q/k/v kernels -> one ``in_proj`` (3·d, d), concatenated in the order of
   the reference's ``_fused_qkv`` (q | k | v);
-* LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``.
+* LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
+* a quantized tree (the reference's ``quantize_decode_weights``: an int8
+  ``kernel`` beside its fp32 ``kernel_scale``) loads into port modules
+  quantized the same way (``utils.quantize.quantize_decode_weights``
+  first): the int8 values, transposed, and the scales as they are.
 
 Strict: a key of the tree that nothing consumed, or a port parameter that
 nothing set, raises. A transformer tree carries neither its head count nor
@@ -20,8 +24,9 @@ the port cannot run (``PORT_SETTINGS``).
 
 ``to_jax_params`` is the inverse: the port's modules as the JAX tree (the
 same key set, each module under ``{"params": ...}``, numpy fp32 in the JAX
-layouts). The port writes its ``model`` checkpoints in that layout, so
-each package reads the other's.
+layouts, int8 kernels and their scales for quantized modules). The port
+writes its ``model`` checkpoints in that layout, so each package reads the
+other's.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..models import ConvolutionFrontEnd, LinearHead, TransformerMultiTask
 from ..models.settings import PORT_SETTINGS, require_transformer
 from ..models.transformer import MultiHeadAttention
 from ..ops.cmvn import CmvnState
+from ..utils.quantize import CrossInProjInt8, Int8Linear
 
 __all__ = ["load_jax_params", "to_jax_params", "cmvn_from_jax",
            "PORT_SETTINGS"]
@@ -65,16 +71,35 @@ class _Loader:
         self.used.add(key)
         return np.asarray(self.flat[key], dtype=np.float32)
 
+    def take_int8(self, key: str) -> np.ndarray:
+        if key not in self.flat:
+            raise KeyError(f"JAX parameter tree has no {key!r}")
+        value = np.asarray(self.flat[key])
+        if value.dtype != np.int8:
+            raise ValueError(f"{key}: {value.dtype}, expected an int8 "
+                             "kernel for a quantized port module")
+        self.used.add(key)
+        return value
+
     def assign(self, param: torch.Tensor, value: np.ndarray, key: str):
         if tuple(param.shape) != value.shape:
             raise ValueError(f"{key}: shape {value.shape} does not fit "
                              f"{tuple(param.shape)}")
+        dtype = np.int8 if param.dtype == torch.int8 else np.float32
         with torch.no_grad():
-            param.copy_(torch.from_numpy(np.array(value, np.float32)))
+            param.copy_(torch.from_numpy(np.array(value, dtype)))
         self.assigned.add(id(param))
 
-    def linear(self, lin: nn.Linear, key: str) -> None:
-        self.assign(lin.weight, self.take(f"{key}/kernel").T, key)
+    def linear(self, lin: nn.Module, key: str) -> None:
+        if isinstance(lin, Int8Linear):
+            self.assign(lin.weight, self.take_int8(f"{key}/kernel").T, key)
+            self.assign(lin.scale, self.take(f"{key}/kernel_scale"), key)
+        elif f"{key}/kernel_scale" in self.flat:
+            raise ValueError(f"{key}: an int8 kernel for a float port "
+                             "module (quantize the port's modules first: "
+                             "utils.quantize.quantize_decode_weights)")
+        else:
+            self.assign(lin.weight, self.take(f"{key}/kernel").T, key)
         if lin.bias is not None:
             self.assign(lin.bias, self.take(f"{key}/bias"), key)
 
@@ -84,11 +109,20 @@ class _Loader:
 
     def mha(self, mha: MultiHeadAttention, key: str) -> None:
         parts = ("q_proj", "k_proj", "v_proj")
-        w = np.concatenate([self.take(f"{key}/{p}/kernel") for p in parts],
+        ip = mha.in_proj
+        if isinstance(ip, CrossInProjInt8):  # int8 q, float k/v
+            self.linear(ip.q, f"{key}/q_proj")
+            parts, ip = parts[1:], ip.kv
+        take = self.take
+        if isinstance(ip, Int8Linear):
+            take = self.take_int8
+            self.assign(ip.scale, np.concatenate(
+                [self.take(f"{key}/{p}/kernel_scale") for p in parts]), key)
+        w = np.concatenate([take(f"{key}/{p}/kernel") for p in parts],
                            axis=1)
         b = np.concatenate([self.take(f"{key}/{p}/bias") for p in parts])
-        self.assign(mha.in_proj.weight, w.T, key)
-        self.assign(mha.in_proj.bias, b, key)
+        self.assign(ip.weight, w.T, key)
+        self.assign(ip.bias, b, key)
         self.linear(mha.out_proj, f"{key}/out_proj")
 
     def ffn(self, ffn, key: str) -> None:
@@ -131,6 +165,9 @@ def load_jax_params(params: Mapping,
                if m is not None]
     unset = [n for m in modules for n, p in m.named_parameters()
              if id(p) not in ld.assigned]
+    unset += [f"{n}.{b}" for m in modules for n, q in m.named_modules()
+              if isinstance(q, Int8Linear) for b, t in q.named_buffers()
+              if t is not None and id(t) not in ld.assigned]
     if unset:
         raise KeyError(f"port parameters left unset: {unset}")
 
@@ -184,11 +221,14 @@ def _load_transformer(ld: _Loader, tr: TransformerMultiTask) -> None:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return np.ascontiguousarray(t.detach().to("cpu", torch.float32).numpy())
+    dtype = torch.int8 if t.dtype == torch.int8 else torch.float32
+    return np.ascontiguousarray(t.detach().to("cpu", dtype).numpy())
 
 
-def _dense(lin: nn.Linear) -> Dict[str, np.ndarray]:
+def _dense(lin: nn.Module) -> Dict[str, np.ndarray]:
     out = {"kernel": _np(lin.weight).T.copy()}
+    if isinstance(lin, Int8Linear):
+        out["kernel_scale"] = _np(lin.scale)
     if lin.bias is not None:
         out["bias"] = _np(lin.bias)
     return out
@@ -199,12 +239,19 @@ def _norm(ln: nn.LayerNorm) -> Dict[str, np.ndarray]:
 
 
 def _mha(mha: MultiHeadAttention) -> Dict[str, Any]:
-    w = _np(mha.in_proj.weight).T  # (d, 3d): q | k | v
-    b = _np(mha.in_proj.bias)
+    names, ip, out = ("q", "k", "v"), mha.in_proj, {}
+    if isinstance(ip, CrossInProjInt8):  # int8 q, float k/v
+        out["q_proj"] = _dense(ip.q)
+        names, ip = names[1:], ip.kv
+    w = _np(ip.weight).T  # (d, n·d): q | k | v, or k | v
+    b = _np(ip.bias)
     d = w.shape[0]
-    out = {f"{name}_proj": {"kernel": w[:, i * d:(i + 1) * d].copy(),
-                            "bias": b[i * d:(i + 1) * d].copy()}
-           for i, name in enumerate(("q", "k", "v"))}
+    for i, name in enumerate(names):
+        sl = slice(i * d, (i + 1) * d)
+        out[f"{name}_proj"] = {"kernel": w[:, sl].copy(),
+                               "bias": b[sl].copy()}
+        if isinstance(ip, Int8Linear):
+            out[f"{name}_proj"]["kernel_scale"] = _np(ip.scale)[sl].copy()
     out["out_proj"] = _dense(mha.out_proj)
     return out
 

@@ -6,10 +6,12 @@ Port of ``stac_st_tpu/models/multitask.py``: linear source projection
 target padding), the serving ``encode`` (floor-based key padding, plain
 attention), the oracle full-prefix ``decode``, and the KV-cached
 ``decode_step`` with its cache (``init_decode_cache`` /
-``grow_decode_cache``), plus the two steps continuous batching runs:
-``decode_window`` (the prompt, w positions at once) and
-``decode_step_rows`` (one step of R slots, each at its own position). The task is selected by the decoder prompt
-``[bos, source_lang, target_lang]``.
+``grow_decode_cache``, ``set_cache_index``), plus the two steps
+continuous batching runs: ``decode_window`` (the prompt, w positions at
+once; speculative decoding's verify step) and ``decode_step_rows`` (one
+step of R slots, each at its own position). The cache may be int8
+(``cache_dtype='int8'``, beam-1 layout). The task is selected by the
+decoder prompt ``[bos, source_lang, target_lang]``.
 
 The YAML-facing classes (``TransformerMultiTask``, ``LinearHead``,
 ``ModuleGroup``, ``EncoderWrapper``) are what the registry resolves the
@@ -170,19 +172,25 @@ class TransformerMultiTask(nn.Module):
     # --------------------------------------------------- KV-cached decode
     def init_decode_cache(self, encoder_out: torch.Tensor, max_len: int,
                           enc_mask_bias: Optional[torch.Tensor] = None,
-                          beam: int = 1, anc_mode: bool = False
+                          beam: int = 1, anc_mode: bool = False,
+                          cache_dtype: Optional[str] = None
                           ) -> Dict[str, Any]:
         """encoder_out (B, S, d), untiled; self caches get B·beam rows.
         enc_mask_bias: additive fp32 cross-attention bias, (B, S) or the
         reference's (B, 1, 1, S), kept as (B, S); or None. anc_mode adds
         the ancestor table ``anc`` (B, beam, max_len) int32, initially the
-        identity."""
+        identity. ``cache_dtype``: None (the model's dtype) or 'int8' (the
+        quantized self and cross caches with their fp32 scales; not with
+        anc_mode)."""
+        if cache_dtype not in (None, "int8"):
+            raise ValueError(f"cache_dtype: {cache_dtype!r} (supported: "
+                             "None, 'int8')")
         B, S = encoder_out.shape[:2]
         if enc_mask_bias is not None:
             enc_mask_bias = enc_mask_bias.reshape(B, S).float().contiguous()
         cache = {
             "layers": self.decoder.init_cache(B * beam, max_len, encoder_out,
-                                              anc_mode),
+                                              anc_mode, cache_dtype),
             "enc_bias": enc_mask_bias,
         }
         if anc_mode:
@@ -195,8 +203,9 @@ class TransformerMultiTask(nn.Module):
     @staticmethod
     def grow_decode_cache(cache: Dict[str, Any], new_max_len: int
                           ) -> Dict[str, Any]:
-        """Re-allocate the self caches (and the ancestor table) at a larger
-        step budget, zero-padded, keeping contents and the write index."""
+        """Re-allocate the self caches (their int8 scales, the ancestor
+        table) at a larger step budget, zero-padded, keeping contents and
+        the write index."""
         anc_mode = cache.get("anc") is not None
 
         def pad(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -210,9 +219,21 @@ class TransformerMultiTask(nn.Module):
             sc = layer["self"]
             sc["k"] = pad(sc["k"], 2 if anc_mode else 3)
             sc["v"] = pad(sc["v"], 2)
+            for name in ("k_scale", "v_scale"):  # int8 cache
+                if name in sc:
+                    sc[name] = pad(sc[name], 3)
         if anc_mode:
             cache["anc"] = pad(cache["anc"], 2)
         return cache
+
+    @staticmethod
+    def set_cache_index(cache: Dict[str, Any], index: int) -> None:
+        """Rewind (or set) every self cache's write index, in place.
+        Speculative decoding appends a whole window and keeps the accepted
+        prefix: rows past the index are masked, and the next window, which
+        starts at the index, overwrites them before they can be read."""
+        for layer in cache["layers"]:
+            layer["self"]["index"] = index
 
     def decode_step(self, tokens: torch.Tensor, position: int,
                     cache: Dict[str, Any]) -> torch.Tensor:

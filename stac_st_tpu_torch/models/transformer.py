@@ -15,6 +15,18 @@ Decode mode keeps the reference's cache layouts:
 * cross-attention K/V are projected once per utterance (B rows, untiled)
   and shared by the beam queries (``decode_cross_attention``).
 
+With ``cache_dtype='int8'`` (beam-1 layout only) the self Kᵀ and V are
+int8 with one fp32 scale per (row, head, position), ``k_scale`` and
+``v_scale`` (BB, H, 1, S): each new row is quantized over Dh when it is
+appended (max|x|/127, at least 1e-6/127); the cross K/V are quantized
+once per utterance the same way (``cross_k_scale``, ``cross_v_scale``
+(B, H, 1, S)). The unscaled query goes to ``decode_self_attention_int8``
+/ ``decode_cross_attention_int8``, where K's scale rides the logits and
+V's the softmax weights (the reference's ``_step_int8`` and
+``_step_cross_int8``). An unwritten position has scale 0 and is masked.
+Modules quantized by ``utils.quantize`` (int8 weights) serve this decode
+path only; the full-sequence ``forward`` raises on them.
+
 Unlike the functional JAX cache, the port appends to its caches in place
 (one row write per step, no copy) and keeps the write index as a host int.
 Continuous batching keeps it as a (BB,) int32 device tensor instead, one
@@ -52,8 +64,10 @@ from torch.nn import functional as F
 from ..ops.kernels.attention import flash_attention
 from ..ops.kernels.decode_attention import (
     decode_cross_attention,
+    decode_cross_attention_int8,
     decode_self_attention,
     decode_self_attention_anc,
+    decode_self_attention_int8,
 )
 from ..ops.kernels.train_attention import flash_attention_train
 from ..ops.masks import NEG_INF
@@ -94,6 +108,8 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
 
     def _proj(self, x: torch.Tensor, part: int) -> torch.Tensor:
+        if not isinstance(self.in_proj, nn.Linear):  # int8 cross in_proj
+            return self.in_proj.part(x, part)
         d = self.d_model
         sl = slice(part * d, (part + 1) * d)
         return F.linear(x, self.in_proj.weight[sl], self.in_proj.bias[sl])
@@ -103,6 +119,10 @@ class MultiHeadAttention(nn.Module):
                 rng: Optional[StepRandom] = None):
         """query (B, Tq, d), key/value (B, Tk, d); bias broadcastable to
         (B, H, Tq, Tk), additive fp32. ``mode`` as in the module note."""
+        if not (isinstance(self.in_proj, nn.Linear)
+                and isinstance(self.out_proj, nn.Linear)):
+            raise RuntimeError("int8-quantized attention serves the "
+                               "KV-cached decode path only")
         B, Tq, _ = query.shape
         Tk = key.shape[1]
         H, Dh = self.nhead, self.head_dim
@@ -155,25 +175,35 @@ class MultiHeadAttention(nn.Module):
         """Beam-1 layout step: appends this step's K/V at ``cache["index"]``
         (in place) and attends positions 0..index. A tensor index (BB,) is
         the ragged step: row r appends at index[r] (nothing where
-        index[r] >= S) and attends its positions 0..min(index[r], S - 1)."""
+        index[r] >= S) and attends its positions 0..min(index[r], S - 1).
+        An int8 cache quantizes the new row first and appends its scales
+        too."""
         q, k_new, v_new = self.fused_qkv(x)
         idx = cache["index"]
-        if isinstance(idx, torch.Tensor):
-            _append_rows(cache["k"], cache["v"], k_new, v_new, idx)
+        if cache["k"].dtype == torch.int8:
+            k_new, s_k = quantize_rows(k_new, -1)  # scale (BB, H, 1)
+            v_new, s_v = quantize_rows(v_new, -1)
+            _append(cache["k_scale"], s_k, idx, 3)
+            _append(cache["v_scale"], s_v, idx, 3)
+        _append(cache["k"], k_new, idx, 3)
+        _append(cache["v"], v_new, idx, 2)
+        if cache["k"].dtype == torch.int8:
+            attn = decode_self_attention_int8(
+                q.contiguous(), cache["k"], cache["v"], cache["k_scale"],
+                cache["v_scale"], idx)
         else:
-            cache["k"][:, :, :, idx] = k_new
-            cache["v"][:, :, idx, :] = v_new
-        attn = decode_self_attention(self._scaled(q), cache["k"], cache["v"],
-                                     idx)
+            attn = decode_self_attention(self._scaled(q), cache["k"],
+                                         cache["v"], idx)
         cache["index"] = idx + 1
         return self.out_proj(attn.reshape(x.shape[0], self.d_model))
 
     def step_window(self, x: torch.Tensor, cache: Dict[str, Any]
                     ) -> torch.Tensor:
         """Windowed step, x (B, w, d) at positions index..index+w-1 (a
-        host int index): appends the w K/V rows, attends causally (key j
-        is visible to window row r iff j <= index + r) and advances the
-        index by w. Equal to w ``step`` calls."""
+        host int index): appends the w K/V rows (quantized, with their
+        scales, into an int8 cache), attends causally (key j is visible to
+        window row r iff j <= index + r) and advances the index by w.
+        Equal to w ``step`` calls."""
         B, w, _ = x.shape
         H, Dh = self.nhead, self.head_dim
         q, k_new, v_new = self.fused_qkv(x.reshape(B * w, self.d_model))
@@ -181,13 +211,25 @@ class MultiHeadAttention(nn.Module):
                            for t in (q, k_new, v_new))  # (B, H, w, Dh)
         idx = cache["index"]
         S = cache["k"].shape[-1]
+        int8 = cache["k"].dtype == torch.int8
+        if int8:
+            k_new, s_k = quantize_rows(k_new, -1)  # (B,H,w,Dh), (B,H,w,1)
+            v_new, s_v = quantize_rows(v_new, -1)
+            cache["k_scale"][:, :, :, idx:idx + w] = s_k.transpose(-1, -2)
+            cache["v_scale"][:, :, :, idx:idx + w] = s_v.transpose(-1, -2)
         cache["k"][:, :, :, idx:idx + w] = k_new.transpose(-1, -2)
         cache["v"][:, :, idx:idx + w, :] = v_new
         pos = torch.arange(S, device=x.device)
         rows = idx + torch.arange(w, device=x.device)
         bias = torch.where(pos[None, :] > rows[:, None], NEG_INF, 0.0)
-        logits = torch.matmul(q.float(), cache["k"].float()) * self.scale
-        weights = torch.softmax(logits + bias, dim=-1).to(q.dtype)
+        logits = torch.matmul(q.float(), cache["k"].float())
+        if int8:  # K's scale rides the logits, V's the softmax weights
+            logits = logits * (cache["k_scale"] * self.scale)
+            weights = torch.softmax(logits + bias, dim=-1)
+            weights = (weights * cache["v_scale"]).to(q.dtype)
+        else:
+            weights = torch.softmax(logits * self.scale + bias,
+                                    dim=-1).to(q.dtype)
         out = torch.matmul(weights.float(), cache["v"].float()).to(q.dtype)
         cache["index"] = idx + w
         return self.out_proj(out.transpose(1, 2).reshape(B, w, self.d_model))
@@ -206,26 +248,46 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(attn.reshape(x.shape[0], self.d_model))
 
     def step_cross(self, x: torch.Tensor, kT: torch.Tensor, v: torch.Tensor,
-                   bias: Optional[torch.Tensor], beam: int) -> torch.Tensor:
-        """x (B·beam, d) against per-utterance Kᵀ/V; bias (B, S) or None."""
+                   bias: Optional[torch.Tensor], beam: int,
+                   scales=None) -> torch.Tensor:
+        """x (B·beam, d) against per-utterance Kᵀ/V; bias (B, S) or None;
+        ``scales`` (k_scale, v_scale), each (B, H, 1, S), for int8 K/V."""
         BB = x.shape[0]
         q = self._proj(x, 0).reshape(BB, self.nhead, self.head_dim)
-        attn = decode_cross_attention(self._scaled(q), kT, v, bias, beam)
+        if scales is not None:
+            attn = decode_cross_attention_int8(q, kT, v, *scales, bias, beam)
+        else:
+            attn = decode_cross_attention(self._scaled(q), kT, v, bias, beam)
         return self.out_proj(attn.reshape(BB, self.d_model))
 
 
-def _append_rows(kT: torch.Tensor, v: torch.Tensor, k_new: torch.Tensor,
-                 v_new: torch.Tensor, idx: torch.Tensor) -> None:
-    """Row r of Kᵀ (BB, H, Dh, S) / V (BB, H, S, Dh) takes k_new[r] /
-    v_new[r] (BB, H, Dh) at position idx[r]; rows whose index is past S
-    keep their cache (the reference's where-append writes nothing there).
-    One gather and one scatter of BB rows, no host read."""
-    S = kT.shape[-1]
+def quantize_rows(x: torch.Tensor, dim: int):
+    """x as int8 with one fp32 scale over ``dim`` (kept, size 1):
+    max|x|/127, at least 1e-6/127, the value in its own dtype cast to
+    fp32, divided by the scale, rounded half to even and clipped to
+    ±127. Returns (values, scale)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=dim, keepdim=True), min=1e-6) / 127.0
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _append(t: torch.Tensor, new: torch.Tensor, idx, axis: int) -> None:
+    """Write new (BB, H, X) into t (BB, H, ·, ·) at position ``idx`` of
+    ``axis`` (3: Kᵀ-like, 2: V-like), in place. A tensor ``idx`` (BB,) is
+    one position per row: rows whose index is past S keep their cache
+    (the reference's where-append writes nothing there), with one gather
+    and one scatter of BB rows and no host read."""
+    if not isinstance(idx, torch.Tensor):
+        t.select(axis, idx).copy_(new)
+        return
+    S = t.shape[axis]
     pos = idx.clamp(max=S - 1).long()
-    rows = torch.arange(kT.shape[0], device=kT.device)
+    rows = torch.arange(t.shape[0], device=t.device)
     keep = (idx >= S)[:, None, None]
-    kT[rows, :, :, pos] = torch.where(keep, kT[rows, :, :, pos], k_new)
-    v[rows, :, pos, :] = torch.where(keep, v[rows, :, pos, :], v_new)
+    if axis == 3:
+        t[rows, :, :, pos] = torch.where(keep, t[rows, :, :, pos], new)
+    else:
+        t[rows, :, pos, :] = torch.where(keep, t[rows, :, pos, :], new)
 
 
 class FeedForward(nn.Module):
@@ -300,21 +362,47 @@ class DecoderLayer(nn.Module):
         return _residual(x, h, p, mode, rng)
 
     def init_cache(self, batch: int, max_len: int, memory: torch.Tensor,
-                   anc_mode: bool) -> Dict[str, Any]:
+                   anc_mode: bool, cache_dtype: Optional[str] = None
+                   ) -> Dict[str, Any]:
         """Self caches for ``batch`` (= B·beam) rows, cross K/V once per
-        utterance of ``memory`` (B, S, d)."""
+        utterance of ``memory`` (B, S, d). ``cache_dtype='int8'``: the
+        int8 caches and their scales (beam-1 layout only)."""
         k_cross, v_cross = self.cross_attn.project_kv_decode(memory)
         H, Dh = self.nhead, self.head_dim
         k_shape = ((batch, H, max_len, Dh) if anc_mode
                    else (batch, H, Dh, max_len))
-        zeros = dict(dtype=memory.dtype, device=memory.device)
-        return {
+        dtype = memory.dtype
+        if cache_dtype == "int8":
+            if anc_mode:
+                raise ValueError("the int8 cache has no anc-mode layout")
+            dtype = torch.int8
+        zeros = dict(dtype=dtype, device=memory.device)
+        cache = {
             "self": {"k": torch.zeros(k_shape, **zeros),
                      "v": torch.zeros((batch, H, max_len, Dh), **zeros),
                      "index": 0},
             "cross_k": k_cross,
             "cross_v": v_cross,
         }
+        if cache_dtype == "int8":
+            scale = dict(dtype=torch.float32, device=memory.device)
+            cache["self"]["k_scale"] = torch.zeros((batch, H, 1, max_len),
+                                                   **scale)
+            cache["self"]["v_scale"] = torch.zeros((batch, H, 1, max_len),
+                                                   **scale)
+            # read every step: quantized once per utterance, one scale per
+            # (utterance, head, position) over Dh
+            cache["cross_k"], cache["cross_k_scale"] = quantize_rows(
+                k_cross, 2)  # (B, H, Dh, S), (B, H, 1, S)
+            cache["cross_v"], s_v = quantize_rows(v_cross, 3)
+            cache["cross_v_scale"] = s_v.transpose(2, 3).contiguous()
+        return cache
+
+    @staticmethod
+    def _cross_scales(cache):
+        if "cross_k_scale" not in cache:
+            return None
+        return cache["cross_k_scale"], cache["cross_v_scale"]
 
     def step(self, x, cache, cross_bias=None, beam: int = 1, anc=None):
         h = self.norm1(x)
@@ -325,7 +413,7 @@ class DecoderLayer(nn.Module):
         x = x + h
         x = x + self.cross_attn.step_cross(
             self.norm2(x), cache["cross_k"], cache["cross_v"], cross_bias,
-            beam)
+            beam, self._cross_scales(cache))
         return x + self.ffn(self.norm3(x))
 
     def step_window(self, x, cache, cross_bias=None):
@@ -336,7 +424,7 @@ class DecoderLayer(nn.Module):
         x = x + self.self_attn.step_window(self.norm1(x), cache["self"])
         h = self.cross_attn.step_cross(
             self.norm2(x).reshape(B * w, d), cache["cross_k"],
-            cache["cross_v"], cross_bias, w)
+            cache["cross_v"], cross_bias, w, self._cross_scales(cache))
         x = x + h.reshape(B, w, d)
         return x + self.ffn(self.norm3(x))
 
@@ -374,8 +462,10 @@ class TransformerDecoder(nn.Module):
         return self.final_norm(x)
 
     def init_cache(self, batch: int, max_len: int, memory,
-                   anc_mode: bool) -> List[Dict[str, Any]]:
-        return [layer.init_cache(batch, max_len, memory, anc_mode)
+                   anc_mode: bool, cache_dtype: Optional[str] = None
+                   ) -> List[Dict[str, Any]]:
+        return [layer.init_cache(batch, max_len, memory, anc_mode,
+                                 cache_dtype)
                 for layer in self.layers]
 
     def step(self, x, caches, cross_bias=None, beam: int = 1, anc=None):

@@ -25,6 +25,26 @@ continuous batching steps with): an int32 tensor of one index per row, each
 row attending to its positions ``0..min(idx[r], S - 1)``. Both kernels read
 it on the device and size the launch on S, so the host reads no index.
 
+Two kernels replace no TPU kernel: ``decode_self_attention_int8`` (also
+in the ragged form) and ``decode_cross_attention_int8`` attend an int8
+cache with one fp32 scale per (row, head, position) -- the reference's
+XLA code in ``_step_int8`` (``stac_st_tpu/models/transformer.py:295``)
+and ``_step_cross_int8`` (:508), whose int8 -> bf16 convert XLA fuses into
+the matmul's operand load. In PyTorch that convert would read the int8
+cache and write a copy in the query's dtype before the product read it
+again: more bytes than the cache it replaces. Per (row, head): logit_p =
+(q . k_p) * (k_scale_p / sqrt(Dh)) in fp32 from the unscaled query,
+positions past the index (self) score -1e9, the bias (cross) is added,
+softmax in fp32, w_p = softmax_p * v_scale_p rounded to q's dtype, and
+out = sum w_p * v_p accumulated in fp32, stored in q's dtype. Their bound
+is bytes: 2 * Dh int8 and 8 bytes of scales per position read, about 5.1
+us for self at 160 rows x 195 positions (bf16: 9.6) and 0.65 us for cross
+at B16 x 251 (bf16: 1.3), on an H100 at 3.35 TB/s. Each is one simple
+kernel for every dtype, counted under the variant ``simt``
+(``INT8_VARIANT``): one block of 256 threads per (query row, head) -- for
+cross the beam queries of an utterance read its K/V from L2 after the
+first -- the scores in shared memory and an exact two-pass softmax.
+
 A wrapper given CPU tensors returns its ``*_ref`` plain version. Given CUDA
 tensors it checks dtype, shape and contiguity, launches the kernel on the
 current stream, raises if the launch failed, and counts the launch under
@@ -47,7 +67,9 @@ __all__ = [
     "decode_self_attention", "decode_self_attention_ref",
     "decode_self_attention_anc", "decode_self_attention_anc_ref",
     "decode_cross_attention", "decode_cross_attention_ref",
-    "decode_variant", "KERNELS",
+    "decode_self_attention_int8", "decode_self_attention_int8_ref",
+    "decode_cross_attention_int8", "decode_cross_attention_int8_ref",
+    "decode_variant", "INT8_VARIANT", "KERNELS",
 ]
 
 NEG_INF = -1e9
@@ -66,6 +88,14 @@ KERNELS = {
         "stac_st_tpu_torch/csrc/decode_attention.cu"),
     "decode_cross_attention": (
         "stac_st_tpu/ops/pallas/decode_attention.py:159",
+        "stac_st_tpu_torch/csrc/decode_attention.cu"),
+    "decode_self_attention_int8": (
+        "none: the XLA dequant in stac_st_tpu/models/transformer.py:295 "
+        "(_step_int8)",
+        "stac_st_tpu_torch/csrc/decode_attention.cu"),
+    "decode_cross_attention_int8": (
+        "none: the XLA dequant in stac_st_tpu/models/transformer.py:508 "
+        "(_step_cross_int8)",
         "stac_st_tpu_torch/csrc/decode_attention.cu"),
 }
 
@@ -125,6 +155,40 @@ def decode_cross_attention_ref(q, kT, v, bias: Optional[torch.Tensor],
     return out.transpose(1, 2).reshape(BB, H, Dh).to(q.dtype)
 
 
+def _qk_scale(dh: int) -> float:
+    """1/sqrt(Dh) as the reference computes it, in fp32."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(dh))))
+
+
+def decode_self_attention_int8_ref(q, kT, v, k_scale, v_scale, idx):
+    """q (BB, H, Dh) unscaled; kT (BB, H, Dh, S) and v (BB, H, S, Dh)
+    int8; k_scale, v_scale (BB, H, 1, S) fp32; attend positions 0..idx
+    (a host int, or a (BB,) integer tensor of one index per row as in
+    :func:`decode_self_attention_ref`). Returns (BB, H, Dh) in q's
+    dtype."""
+    s = torch.matmul(q.float()[:, :, None, :], kT.float())  # (BB, H, 1, S)
+    s = s * (k_scale * _qk_scale(q.shape[-1]))
+    s = s + _position_bias(kT.shape[-1], idx, q.device)
+    w = (torch.softmax(s, dim=-1) * v_scale).to(q.dtype)
+    return torch.matmul(w.float(), v.float())[:, :, 0, :].to(q.dtype)
+
+
+def decode_cross_attention_int8_ref(q, kT, v, k_scale, v_scale,
+                                    bias: Optional[torch.Tensor], beam: int):
+    """q (B·beam, H, Dh) unscaled; kT (B, H, Dh, S) and v (B, H, S, Dh)
+    int8; k_scale, v_scale (B, H, 1, S) fp32; bias (B, S) additive fp32 or
+    None. Returns (B·beam, H, Dh) in q's dtype."""
+    BB, H, Dh = q.shape
+    B = kT.shape[0]
+    qg = q.float().reshape(B, beam, H, Dh).transpose(1, 2)  # (B,H,beam,Dh)
+    s = torch.matmul(qg, kT.float()) * (k_scale * _qk_scale(Dh))
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    w = (torch.softmax(s, dim=-1) * v_scale).to(q.dtype)
+    out = torch.matmul(w.float(), v.float()).to(q.dtype)  # (B, H, beam, Dh)
+    return out.transpose(1, 2).reshape(BB, H, Dh)
+
+
 # ------------------------------------------------------------------ kernels
 def _lib():
     lib = load_library(_LIB)
@@ -137,10 +201,19 @@ def _lib():
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.stac_decode_cross_attention.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        lib.stac_decode_self_attention_int8.argtypes = [
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.stac_decode_self_attention_int8_rows.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.stac_decode_cross_attention_int8.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         for fn in (lib.stac_decode_self_attention,
                    lib.stac_decode_self_attention_rows,
                    lib.stac_decode_self_attention_anc,
                    lib.stac_decode_cross_attention,
+                   lib.stac_decode_self_attention_int8,
+                   lib.stac_decode_self_attention_int8_rows,
+                   lib.stac_decode_cross_attention_int8,
                    lib.stac_decode_head_dim, lib.stac_decode_max_beam):
             fn.restype = _I
         lib.stac_decode_head_dim.argtypes = []
@@ -162,7 +235,10 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _check(lib, name: str, q, tensors, shapes):
+def _check(lib, name: str, q, tensors, shapes, dtypes=None):
+    """dtype, shape and contiguity of each of ``tensors``: int32 for
+    ``anc`` and ``idx``, fp32 for ``bias``, ``dtypes[label]`` where given,
+    else q's dtype."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported")
     if q.shape[-1] != lib.stac_decode_head_dim():
@@ -170,7 +246,8 @@ def _check(lib, name: str, q, tensors, shapes):
                          f"{lib.stac_decode_head_dim()}")
     for label, t in tensors.items():
         want_dtype = {"anc": torch.int32, "idx": torch.int32,
-                      "bias": torch.float32}.get(label, q.dtype)
+                      "bias": torch.float32, **(dtypes or {})
+                      }.get(label, q.dtype)
         if t.dtype != want_dtype:
             raise TypeError(f"{name}: {label} is {t.dtype}, "
                             f"expected {want_dtype}")
@@ -300,4 +377,89 @@ def decode_cross_attention(q, kT, v, bias: Optional[torch.Tensor],
             q.data_ptr(), kT.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             B, H, S, beam)
+    return out
+
+
+# ---------------------------------------------------------- the int8 cache
+_INT8 = {"kT": torch.int8, "v": torch.int8, "k_scale": torch.float32,
+         "v_scale": torch.float32}
+
+
+# the one design of the int8 kernels, for every dtype: one block per
+# (query row, head), two passes
+INT8_VARIANT = "simt"
+
+
+def _launch_int8(lib, name: str, fn, dtype: torch.dtype, *args,
+                 form: str = "") -> None:
+    """As :func:`_launch`, for the int8 kernels (no variant argument)."""
+    _raise_on(lib, name, fn(*args, _DTYPES[dtype], _stream()))
+    count_launch(name)
+    count_launch(f"{name}/{INT8_VARIANT}")
+    if form:
+        count_launch(f"{name}/{form}")
+        count_launch(f"{name}/{form}/{INT8_VARIANT}")
+
+
+def decode_self_attention_int8(q, kT, v, k_scale, v_scale, idx):
+    """See :func:`decode_self_attention_int8_ref`. ``idx`` is a host int
+    in [0, S), or a (BB,) int32 tensor on q's device (the ragged form,
+    counted under ``decode_self_attention_int8/rows`` too; each index
+    >= 0)."""
+    ragged = isinstance(idx, torch.Tensor)
+    if _on_cpu(q, kT, v, k_scale, v_scale, idx if ragged else None):
+        return decode_self_attention_int8_ref(q, kT, v, k_scale, v_scale,
+                                              idx)
+    name = "decode_self_attention_int8"
+    lib = _lib()
+    BB, H, Dh = q.shape
+    S = kT.shape[-1]
+    tensors = {"q": q, "kT": kT, "v": v, "k_scale": k_scale,
+               "v_scale": v_scale}
+    shapes = {"q": (BB, H, Dh), "kT": (BB, H, Dh, S), "v": (BB, H, S, Dh),
+              "k_scale": (BB, H, 1, S), "v_scale": (BB, H, 1, S)}
+    if ragged:
+        tensors["idx"], shapes["idx"] = idx, (BB,)
+    _check(lib, name, q, tensors, shapes, _INT8)
+    out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), kT.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr())
+    if ragged:
+        _launch_int8(lib, name, lib.stac_decode_self_attention_int8_rows,
+                     q.dtype, *ptrs, idx.data_ptr(), out.data_ptr(), BB, H,
+                     S, form="rows")
+        return out
+    if not 0 <= idx < S:
+        raise ValueError(f"{name}: idx {idx} outside [0, {S})")
+    _launch_int8(lib, name, lib.stac_decode_self_attention_int8, q.dtype,
+                 *ptrs, out.data_ptr(), BB, H, S, int(idx))
+    return out
+
+
+def decode_cross_attention_int8(q, kT, v, k_scale, v_scale,
+                                bias: Optional[torch.Tensor], beam: int):
+    """See :func:`decode_cross_attention_int8_ref`."""
+    if _on_cpu(q, kT, v, k_scale, v_scale, bias):
+        return decode_cross_attention_int8_ref(q, kT, v, k_scale, v_scale,
+                                               bias, beam)
+    name = "decode_cross_attention_int8"
+    lib = _lib()
+    BB, H, Dh = q.shape
+    B, S = kT.shape[0], kT.shape[-1]
+    if BB != B * beam:
+        raise ValueError(f"{name}: {BB} query rows != {B} x beam {beam}")
+    _check_beam(lib, name, beam)
+    tensors = {"q": q, "kT": kT, "v": v, "k_scale": k_scale,
+               "v_scale": v_scale}
+    shapes = {"q": (BB, H, Dh), "kT": (B, H, Dh, S), "v": (B, H, S, Dh),
+              "k_scale": (B, H, 1, S), "v_scale": (B, H, 1, S)}
+    if bias is not None:
+        tensors["bias"], shapes["bias"] = bias, (B, S)
+    _check(lib, name, q, tensors, shapes, _INT8)
+    out = torch.empty_like(q)
+    _launch_int8(lib, name, lib.stac_decode_cross_attention_int8, q.dtype,
+                 q.data_ptr(), kT.data_ptr(), v.data_ptr(),
+                 k_scale.data_ptr(), v_scale.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 B, H, S, beam)
     return out

@@ -13,15 +13,17 @@ finalized by the beam search with ``--protocol-finalize``).
 Usage::
 
     python -m stac_st_tpu_torch.recipes.serve results/transformer_multitask/8886 \\
-        --http-port 8080 [--continuous] [--device cpu]
+        --http-port 8080 [--continuous] [--kv-cache-dtype int8] \\
+        [--weights-int8] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given. What the port does not
-serve yet raises, naming the flag: ``--transport grpc|both`` and
-``--grpc-port`` (the gRPC adapter), ``--data-parallel`` > 1 (meshes), ``--kv-cache-dtype`` and
-``--weights-int8`` (int8 decode). The reference's ``--compile-cache``
-persists XLA executables and means nothing here (the port compiles its CUDA
-kernels once per checkout into ``build/torch_kernels/``), so the parser has
-no such flag.
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--kv-cache-dtype
+int8`` and ``--weights-int8`` reach the engine (the int8 KV cache, int8
+decode weights) under either front. What the port does not serve yet
+raises, naming the flag: ``--transport grpc|both`` and ``--grpc-port``
+(the gRPC adapter) and ``--data-parallel`` > 1 (meshes). The reference's
+``--compile-cache`` persists XLA executables and means nothing here (the
+port compiles its CUDA kernels once per checkout into
+``build/torch_kernels/``), so the parser has no such flag.
 """
 
 from __future__ import annotations
@@ -74,9 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "smallest rung >= the formed batch. Default: "
                         "--max-batch")
     p.add_argument("--kv-cache-dtype", choices=("int8",), default=None,
-                   help="int8 decode cache (not ported)")
+                   help="decode with the int8 KV cache (per-(row, head, "
+                        "position) fp32 scales)")
     p.add_argument("--weights-int8", action="store_true",
-                   help="int8 decode weights (not ported)")
+                   help="weight-only int8 on the decode path (decoder "
+                        "projections, FFN, seq_lin; fp32 scales)")
     p.add_argument("--continuous", action="store_true",
                    help="serve through the continuous batching engine: a "
                         "persistent greedy decode loop over --slots slots "
@@ -122,12 +126,6 @@ def refuse_unported(args) -> None:
     if args.data_parallel not in (0, 1):
         raise ValueError(f"--data-parallel {args.data_parallel}: the port "
                          "serves one device; meshes are a later slice")
-    if args.kv_cache_dtype is not None:
-        raise ValueError(f"--kv-cache-dtype {args.kv_cache_dtype}: int8 "
-                         "decode is a later slice of the port")
-    if args.weights_int8:
-        raise ValueError("--weights-int8: int8 decode is a later slice of "
-                         "the port")
 
 
 def start_servers(args):
@@ -155,6 +153,8 @@ def start_servers(args):
                         if args.pad_batch is not None else args.max_batch),
         device=args.device,
         avg_checkpoints=args.avg_checkpoints,
+        kv_cache_dtype=args.kv_cache_dtype,
+        weights_int8=args.weights_int8,
     )
     logger.info("loading experiment %s", args.experiment_dir)
     engine = STEngine.from_saved_experiment(
@@ -211,11 +211,13 @@ def main(argv=None) -> None:
         logger.info("signal %d: shutting down", signum)
         done.set()
 
-    signal.signal(signal.SIGTERM, _stop)
-    signal.signal(signal.SIGINT, _stop)
+    previous = {sig: signal.signal(sig, _stop)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
         done.wait()
     finally:
+        for sig, handler in previous.items():  # leave the caller's
+            signal.signal(sig, handler)
         server.close()
         front.close()
 

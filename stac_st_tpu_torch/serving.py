@@ -16,7 +16,11 @@ one encoder pass feeding the dual-prompt search and the CTC events, merged
 into conversation texts and absolute-time RTTM.
 
 Weights are cast to bf16 when ``bf16`` is set; fbank, CMVN and beam
-scoring stay fp32. The engine runs on ``cuda`` unless ``device="cpu"`` is
+scoring stay fp32. ``weights_int8`` then quantizes the decode-path
+weights (``utils.quantize``; their scales stay fp32), and
+``kv_cache_dtype='int8'`` decodes with the int8 KV cache (the searcher's
+gather mode at beam > 1); both are opt-in, since quantization noise can
+reorder near-tied beams. The engine runs on ``cuda`` unless ``device="cpu"`` is
 given, and owns the modules it is handed (it moves and casts them).
 
 The tokenizer is duck-typed: ``encode_as_ids(text)`` and ``decode_ids``.
@@ -26,9 +30,9 @@ A trained experiment loads through ``from_saved_experiment(exp_dir)``
 (dimensions given); both load the average of the ACC-top-k checkpoints
 (written by either package) and the CMVN statistics saved beside them.
 The serving front (``serving_stream``, ``serving_http``,
-``serving_continuous``, ``recipes.serve``) drives this engine. Not ported
-yet: ``mesh``, ``kv_cache_dtype``, ``weights_int8`` and
-``SpeculativeSTEngine``.
+``serving_continuous``, ``recipes.serve``) drives this engine, and
+``SpeculativeSTEngine`` pairs two engines for draft-and-verify greedy
+decoding. Not ported yet: ``mesh``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import yaml
 
 from .data.audio import read_audio
 from .decoding.beam_search import MultiTaskBeamSearch
+from .decoding.speculative import bind_spec_model, speculative_greedy_search
 from .device import model_dtype, resolve_device, set_tf32
 from .interop.from_jax import load_jax_params
 from .models import ConvolutionFrontEnd, LinearHead, TransformerMultiTask
@@ -50,9 +55,10 @@ from .ops.cmvn import CmvnState, cmvn_apply, cmvn_init
 from .ops.fbank import Fbank
 from .tokenizer import SentencePieceProcessor
 from .training.checkpoint import Checkpointer, average_checkpoints
+from .utils.quantize import quantize_decode_weights
 from .utils.rttm import extract_turn_events
 
-__all__ = ["STEngine"]
+__all__ = ["STEngine", "SpeculativeSTEngine"]
 
 _BUCKET_SECONDS = (2.0, 4.0, 8.0, 16.0, 32.0)
 
@@ -65,11 +71,14 @@ class STEngine:
                  bucket_seconds: Sequence[float] = _BUCKET_SECONDS,
                  bf16: bool = True, pad_batch_rows=None,
                  transfer_dtype: str = "float32", turn_id: int = 7,
-                 xt_id: int = 8, device=None):
+                 xt_id: int = 8, kv_cache_dtype: Optional[str] = None,
+                 weights_int8: bool = False, device=None):
         """pad_batch_rows: None, an int (round rows up to a multiple) or a
         ladder of row counts (pad to the smallest rung that fits; beyond
         the top rung, round up to a multiple of it). Padded rows are
-        full-length silence and are dropped on output."""
+        full-length silence and are dropped on output. kv_cache_dtype:
+        None or 'int8'; weights_int8: quantize the decode-path weights
+        after the dtype cast."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_tf32(False)
@@ -96,6 +105,9 @@ class STEngine:
             [ctc_lin] if ctc_lin is not None else [])
         for m in mods:
             m.to(device=self.device, dtype=self.dtype).eval()
+        if weights_int8:
+            quantize_decode_weights(transformer, seq_lin)
+        self.weights_int8 = bool(weights_int8)
         self._cnn, self._transformer = cnn, transformer
         self._ctc_lin = ctc_lin
         self.cmvn = cmvn.to(self.device)
@@ -105,6 +117,7 @@ class STEngine:
             beam_size=int(beam_size), using_eos_threshold=True,
             length_normalization=True, temperature=1.15,
             max_decode_tokens=max_decode_tokens,
+            kv_cache_dtype=kv_cache_dtype,
         )
 
     # ------------------------------------------------------------ factories
@@ -440,3 +453,81 @@ class STEngine:
             "translation": clean(st),
             "rttm": rttm,
         }
+
+
+class SpeculativeSTEngine:
+    """Single-stream speculative serving: a draft engine proposes ``k``
+    tokens a round and the target engine verifies them in one windowed
+    decode step. The output is the target's greedy decode (beam 1),
+    token for token, whatever the draft proposes; the draft changes only
+    how many target steps it takes. Port of the reference's
+    ``SpeculativeSTEngine``.
+
+    The two ``STEngine``s share a tokenizer and a sample rate, and each
+    may use int8 weights and the int8 cache. Each utterance is encoded
+    by both engines' own encoders at the target's bucket width and
+    decoded alone (``decoding.speculative``); ``last_stats`` holds, per
+    utterance of the last call, its tokens, target steps, tokens per
+    target step and drafted tokens.
+    """
+
+    def __init__(self, target: STEngine, draft: STEngine, k: int = 6):
+        if target.sample_rate != draft.sample_rate:
+            raise ValueError("target/draft sample rates differ")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.target, self.draft, self.k = target, draft, int(k)
+        self.last_stats: List[Dict] = []
+        self._bound = [bind_spec_model(e._transformer, e.searcher.seq_lin,
+                                       e.searcher.kv_cache_dtype)
+                       for e in (target, draft)]
+
+    @torch.inference_mode()
+    def _decode_one(self, wav: np.ndarray, src: str, tgt: str) -> str:
+        target, draft = self.target, self.draft
+        wav = np.asarray(wav)
+        if wav.dtype == np.int16:
+            wav = wav.astype(np.float32) / 32768.0
+        width = target._bucket_width(len(wav))
+        batch = np.zeros((1, width), np.float32)
+        batch[0, : len(wav)] = wav
+        lens = np.asarray([len(wav) / width], np.float32)
+        enc = [e._encode(torch.from_numpy(batch).to(e.device),
+                         torch.from_numpy(lens).to(e.device))
+               for e in (target, draft)]
+        S = enc[0].shape[1]
+        cap = target.searcher.max_decode_tokens
+        max_steps = S if cap is None else min(S, cap)
+        prompt = torch.tensor(target._prompt(src, tgt))
+        res = speculative_greedy_search(
+            *self._bound, *enc, prompt, max_steps, self.k,
+            eos_index=target.searcher.config.eos_index)
+        n = res.length
+        self.last_stats.append({
+            "tokens": n, "target_steps": res.target_steps,
+            "tokens_per_target_step": n / max(res.target_steps, 1),
+            "drafted": res.drafted})
+        return target.tokenizer.decode_ids(res.tokens[:n].tolist())
+
+    # ------------------------------------------------------------------ API
+    def transcribe(self, wavs: Sequence[np.ndarray],
+                   source_lang: Optional[str] = None) -> List[str]:
+        lang = source_lang or self.target.source_lang
+        self.last_stats = []
+        return [self._decode_one(w, lang, lang) for w in wavs]
+
+    def translate(self, wavs: Sequence[np.ndarray],
+                  source_lang: Optional[str] = None,
+                  target_lang: Optional[str] = None) -> List[str]:
+        src = source_lang or self.target.source_lang
+        tgt = target_lang or self.target.target_lang
+        self.last_stats = []
+        return [self._decode_one(w, src, tgt) for w in wavs]
+
+    def warmup(self) -> int:
+        """Serve silence once at every target bucket. Returns the number
+        of buckets served."""
+        for sec in self.target.buckets:
+            self.translate([np.zeros((max(int(sec * self.target.sample_rate),
+                                          1),), np.float32)])
+        return len(self.target.buckets)

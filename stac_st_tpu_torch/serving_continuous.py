@@ -26,9 +26,12 @@ slots keep generating.
   past it masked), prime the three-token language prompt through
   ``decode_window``, take the first token from the prompt's last position,
   and scatter the valid rows into their slots, whole rows of every cache
-  tensor (self K/V and index, cross K/V, bias, position, last token, done,
-  count and budget), so nothing of a slot's previous occupant is read.
-  Padding rows are never scattered.
+  tensor (self K/V and index, cross K/V, their scales with the int8 cache,
+  bias, position, last token, done, count and budget), so nothing of a
+  slot's previous occupant is read. Padding rows are never scattered.
+* The engine's int8 options carry over: int8 weights drive every step,
+  and with the int8 cache the chunk step runs the ragged int8 self
+  kernel and the int8 cross kernel.
 
 Decoding in the slot loop is greedy (beam 1): one hypothesis per slot is
 what makes slot swapping exact. For the reference's test protocol (beam 10,
@@ -43,7 +46,7 @@ just before the loop ended is finalized, not failed by ``close()``.
 
 Worker threads enter ``torch.inference_mode`` themselves (it is
 thread-local) and share the default CUDA stream. What the loop cannot take
-it refuses by name: an engine with a mesh, an int8 cache or int8 weights.
+it refuses by name: an engine with a mesh.
 """
 
 from __future__ import annotations
@@ -119,13 +122,10 @@ class ContinuousBatchingEngine:
                  protocol_finalize: bool = False):
         owner = "ContinuousBatchingEngine"
         require(owner, "mesh", getattr(engine, "mesh", None), None)
-        require(owner, "kv_cache_dtype",
-                getattr(engine.searcher, "kv_cache_dtype", None), None)
-        require(owner, "weights_int8",
-                bool(getattr(engine, "weights_int8", False)), False)
         if slots < 1 or chunk < 1:
             raise ValueError("slots and chunk must be >= 1")
         self.engine = engine
+        self.kv_cache_dtype = engine.searcher.kv_cache_dtype
         self.slots = int(slots)
         self.chunk = int(chunk)
         self.eos = int(engine.searcher.config.eos_index)
@@ -190,7 +190,8 @@ class ContinuousBatchingEngine:
         enc0 = torch.zeros((R, S_max, probe.shape[2]), dtype=probe.dtype,
                            device=dev)
         bias0 = torch.full((R, S_max), NEG_INF, device=dev)
-        cache = eng._transformer.init_decode_cache(enc0, cap, bias0)
+        cache = eng._transformer.init_decode_cache(
+            enc0, cap, bias0, cache_dtype=self.kv_cache_dtype)
         for layer in cache["layers"]:
             layer["self"]["index"] = torch.zeros((R,), dtype=torch.int32,
                                                  device=dev)
@@ -223,7 +224,8 @@ class ContinuousBatchingEngine:
             torch.arange(S_max, device=dev)[None, :] > abs_len[:, None],
             NEG_INF, 0.0)
         enc_p = torch.nn.functional.pad(enc, (0, 0, 0, S_max - S_w))
-        cache = model.init_decode_cache(enc_p, _PROMPT_LEN + self.cap, bias)
+        cache = model.init_decode_cache(enc_p, _PROMPT_LEN + self.cap, bias,
+                                        cache_dtype=self.kv_cache_dtype)
         hidden = model.decode_window(
             torch.from_numpy(prompts).to(dev), 0, cache)  # (A, P, d)
         first = torch.argmax(eng.searcher.seq_lin(hidden[:, -1, :]), dim=-1)
@@ -235,11 +237,14 @@ class ContinuousBatchingEngine:
         n = len(slot_ids)
         tgt = torch.tensor(slot_ids, dtype=torch.long, device=dev)
         for big, row in zip(st["layers"], cache["layers"]):
-            big["self"]["k"][tgt] = row["self"]["k"][:n]
-            big["self"]["v"][tgt] = row["self"]["v"][:n]
+            for name, leaf in row["self"].items():  # K, V (and scales)
+                if name != "index":
+                    big["self"][name][tgt] = leaf[:n]
             big["self"]["index"][tgt] = _PROMPT_LEN
-            big["cross_k"][tgt] = row["cross_k"][:n]
-            big["cross_v"][tgt] = row["cross_v"][:n]
+            for name in ("cross_k", "cross_v", "cross_k_scale",
+                         "cross_v_scale"):
+                if name in row:
+                    big[name][tgt] = row[name][:n]
         st["enc_bias"][tgt] = cache["enc_bias"][:n]
         st["pos"][tgt] = _PROMPT_LEN
         st["last"][tgt] = first[:n]

@@ -215,10 +215,12 @@ def serve_forever(engine, host: str = "127.0.0.1", port: int = 8080,
         logger.info("signal %d: shutting down", signum)
         done.set()
 
-    signal.signal(signal.SIGTERM, _stop)
-    signal.signal(signal.SIGINT, _stop)
+    previous = {sig: signal.signal(sig, _stop)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
         while not done.is_set():
             time.sleep(0.5)
     finally:
+        for sig, handler in previous.items():  # leave the caller's
+            signal.signal(sig, handler)
         server.close()

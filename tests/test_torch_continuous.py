@@ -26,6 +26,7 @@ import threading
 import time
 from concurrent.futures import Future
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -76,9 +77,10 @@ def _caches(tiny, rng, R, S_enc, cap, lens):
     enc = rng.standard_normal((R, S_enc, D)).astype(np.float32)
     bias = np.where(np.arange(S_enc)[None, :] < np.asarray(lens)[:, None],
                     0.0, -1e9).astype(np.float32)
-    cj = t.apply(jx["params"]["Transformer"], jnp.asarray(enc), cap,
-                 jnp.asarray(bias[:, None, None, :]), 1, False, None,
-                 method=t.init_decode_cache)
+    cj = jax.jit(lambda e, b: t.apply(
+        jx["params"]["Transformer"], e, cap, b, 1, False, None,
+        method=t.init_decode_cache))(jnp.asarray(enc),
+                                     jnp.asarray(bias[:, None, None, :]))
     cp = pt["transformer"].init_decode_cache(_t(enc), cap, _t(bias))
     for lj, lp in zip(cj["layers"], cp["layers"]):
         k = rng.standard_normal(lp["self"]["k"].shape).astype(np.float32)
@@ -113,11 +115,12 @@ def test_decode_step_rows_matches_jax(tiny):
         lj["self"]["index"] = jnp.asarray(idx.reshape(R, 1, 1, 1))
         lp["self"]["index"] = _t(idx)
     model = pt["transformer"].eval()
+    step_j = jax.jit(lambda tok, pos, c: t.apply(
+        jx["params"]["Transformer"], tok, pos, c, method=t.decode_step_rows))
     for step in range(2):
         tokens = rng.integers(3, 150, R).astype(np.int32)
         pos = idx + step
-        hj, cj = t.apply(jx["params"]["Transformer"], jnp.asarray(tokens),
-                         jnp.asarray(pos), cj, method=t.decode_step_rows)
+        hj, cj = step_j(jnp.asarray(tokens), jnp.asarray(pos), cj)
         with torch.no_grad():
             hp = model.decode_step_rows(_t(tokens).long(), _t(pos), cp)
         np.testing.assert_allclose(hp.numpy(), np.asarray(hj), atol=ATOL,
@@ -137,9 +140,9 @@ def test_decode_window_matches_jax(tiny, start):
         lj["self"]["index"] = jnp.asarray(start, jnp.int32)
         lp["self"]["index"] = start
     tokens = rng.integers(3, 150, (2, 3)).astype(np.int32)
-    hj, cj = t.apply(jx["params"]["Transformer"], jnp.asarray(tokens),
-                     jnp.asarray(start, jnp.int32), cj,
-                     method=t.decode_window)
+    hj, cj = jax.jit(lambda tok, pos, c: t.apply(
+        jx["params"]["Transformer"], tok, pos, c, method=t.decode_window))(
+            jnp.asarray(tokens), jnp.asarray(start, jnp.int32), cj)
     with torch.no_grad():
         hp = pt["transformer"].decode_window(_t(tokens).long(), start, cp)
     np.testing.assert_allclose(hp.numpy(), np.asarray(hj), atol=ATOL, rtol=0)
@@ -325,12 +328,6 @@ def test_refuses_what_it_cannot_serve(served):
             ContinuousBatchingEngine(port, slots=2)
     finally:
         del port.mesh
-    port.weights_int8 = True
-    try:
-        with pytest.raises(ValueError, match="weights_int8"):
-            ContinuousBatchingEngine(port, slots=2)
-    finally:
-        del port.weights_int8
     pc = ContinuousBatchingEngine(port, slots=2, chunk=2)
     try:
         with pytest.raises(ValueError, match="speaker_turns"):

@@ -505,3 +505,123 @@ def test_ragged_self_kernel_matches_plain_on_card(card, rng, dtype, S):
                                       int(idx[r]))
         torch.testing.assert_close(outs[0][r:r + 1].float(), one.float(),
                                    atol=tol, rtol=0)
+
+
+# ---------------------------------------------- the int8 cache's kernels
+def _int8_cache(rng, rows, S, H=4, Dh=64, unwritten=0):
+    """int8 Kᵀ (rows, H, Dh, S) / V (rows, H, S, Dh) with their scales
+    (rows, H, 1, S), quantized as the decode step appends them; the last
+    ``unwritten`` positions left as an unwritten cache holds them (zeros,
+    scale 0)."""
+    from stac_st_tpu_torch.models.transformer import quantize_rows
+
+    kT, ks = quantize_rows(torch.from_numpy(_randn(rng, rows, H, Dh, S)), 2)
+    v, vs = quantize_rows(torch.from_numpy(_randn(rng, rows, H, S, Dh)), 3)
+    vs = vs.transpose(2, 3).contiguous()
+    if unwritten:
+        for t in (kT, ks, vs):
+            t[..., S - unwritten:] = 0
+        v[:, :, S - unwritten:] = 0
+    return kT, v, ks, vs
+
+
+def test_int8_launchers_check_and_count(monkeypatch, rng):
+    """The int8 wrappers hand the library their tensors' addresses (the
+    ragged form its own entry point, no host index) and count each launch
+    under the name and ``simt`` (``/rows`` too for the ragged form);
+    a float cache or a scale of another dtype raises (a stand-in for the
+    library)."""
+    monkeypatch.setattr(K, "_stream", lambda: 0)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(K, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(K, "_lib", lambda: SimpleNamespace(
+        stac_decode_head_dim=lambda: 64, stac_decode_max_beam=lambda: 16,
+        stac_decode_self_attention_int8=entry,
+        stac_decode_self_attention_int8_rows=entry,
+        stac_decode_cross_attention_int8=entry))
+    kernels.reset_launches()
+    kT, v, ks, vs = _int8_cache(rng, 3, 5)
+    q = torch.zeros(3, 4, 64, dtype=torch.bfloat16)
+    K.decode_self_attention_int8(q, kT, v, ks, vs, 2)
+    assert calls[-1][-6:] == (3, 4, 5, 2, K._DTYPES[torch.bfloat16], 0)
+    idx = torch.tensor([0, 4, 9], dtype=torch.int32)
+    K.decode_self_attention_int8(q, kT, v, ks, vs, idx)
+    assert calls[-1][5] == idx.data_ptr() and calls[-1][-5:-2] == (3, 4, 5)
+    K.decode_cross_attention_int8(q, kT[:1], v[:1], ks[:1], vs[:1], None, 3)
+    assert calls[-1][5] is None and calls[-1][-6:-2] == (1, 4, 5, 3)
+    name, cross = "decode_self_attention_int8", "decode_cross_attention_int8"
+    assert kernels.launches == {
+        name: 2, f"{name}/simt": 2, f"{name}/rows": 1,
+        f"{name}/rows/simt": 1, cross: 1, f"{cross}/simt": 1}
+    with pytest.raises(TypeError, match="kT"):
+        K.decode_self_attention_int8(q, kT.float(), v, ks, vs, 2)
+    with pytest.raises(TypeError, match="k_scale"):
+        K.decode_self_attention_int8(q, kT, v, ks.double(), vs, 2)
+    with pytest.raises(ValueError, match="idx"):
+        K.decode_self_attention_int8(q, kT, v, ks, vs, 5)
+    kernels.reset_launches()
+
+
+_ALL_DTYPES = {"float32": (torch.float32, 5e-5),
+               "bfloat16": (torch.bfloat16, 1e-2),
+               "float16": (torch.float16, 1e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_ALL_DTYPES))
+@pytest.mark.parametrize("S", [13, 195, 1100])
+def test_int8_self_kernel_matches_plain_on_card(card, rng, dtype, S):
+    """decode_self_attention_int8, scalar (idx S - 1 and mid-cache, the
+    rest unwritten) and ragged (16 rows at their own indices, past S
+    too): within ``_ALL_DTYPES``' tolerance of the plain version, two
+    launches bitwise equal, counted by form."""
+    dt, tol = _ALL_DTYPES[dtype]
+    rows = 16
+    kT, v, ks, vs = _int8_cache(rng, rows, S, unwritten=S // 3)
+    q = torch.from_numpy(_randn(rng, rows, 4, 64))
+    qd = q.to(card, dt)
+    kd, vd, ksd, vsd = (t.to(card) for t in (kT, v, ks, vs))
+    idx = np.asarray([0, 1, 31, 32, 63, 64, S // 2, S - 1, S, 3 * S, 5, 97,
+                      130, 194, 2, S + 1], np.int64)
+    idx = np.minimum(idx, np.where(np.arange(rows) < 8, S - 1, 10 * S))
+    for at in (S - 1, S // 2, torch.from_numpy(idx.astype(np.int32))):
+        at = at.to(card) if isinstance(at, torch.Tensor) else at
+        outs = [K.decode_self_attention_int8(qd, kd, vd, ksd, vsd, at)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        ref = K.decode_self_attention_int8_ref(qd, kd, vd, ksd, vsd, at)
+        assert torch.isfinite(outs[0]).all()
+        torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol,
+                                   rtol=0)
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_ALL_DTYPES))
+@pytest.mark.parametrize("beam", [1, 3, 10, 16])
+@pytest.mark.parametrize("S", [251, 801])
+def test_int8_cross_kernel_matches_plain_on_card(card, rng, dtype, beam, S):
+    """decode_cross_attention_int8: B 4 utterances, with no bias and with a
+    bias that masks a tail, most keys, and every key of one row (the
+    reference's uniform softmax); two launches bitwise equal."""
+    dt, tol = _ALL_DTYPES[dtype]
+    B = 4
+    kT, v, ks, vs = (t.to(card) for t in _int8_cache(rng, B, S))
+    q = torch.from_numpy(_randn(rng, B * beam, 4, 64)).to(card, dt)
+    lens = torch.tensor([S, S // 2, 7, 0], device=card)
+    mask = torch.where(torch.arange(S, device=card)[None, :] < lens[:, None],
+                       0.0, NEG_INF).float()
+    for bias in (None, mask):
+        outs = [K.decode_cross_attention_int8(q, kT, v, ks, vs, bias, beam)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        ref = K.decode_cross_attention_int8_ref(q, kT, v, ks, vs, bias, beam)
+        assert torch.isfinite(outs[0]).all()
+        torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol,
+                                   rtol=0)
+        assert torch.equal(outs[0], outs[1])

@@ -96,14 +96,16 @@ def imported_all():
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-# the serving front's modules, which the import-all subprocess must reach
+# the serving front's modules and int8 / speculative decoding's, which the
+# import-all subprocess must reach
 SERVING_MODULES = ("serving_stream", "serving_http", "serving_continuous",
-                   "recipes.serve", "prep.shas", "eval.long_form")
+                   "recipes.serve", "prep.shas", "eval.long_form",
+                   "utils.quantize", "decoding.speculative")
 
 
 def test_importing_every_module_pulls_in_no_jax(imported_all):
     # every module of the package was imported, the serving front's too
-    assert imported_all["modules"] >= 76
+    assert imported_all["modules"] >= 78
     for name in SERVING_MODULES:
         assert f"stac_st_tpu_torch.{name}" in imported_all["names"]
     assert imported_all["bad"] == []

@@ -317,9 +317,7 @@ def test_serve_parser_refuses_what_the_port_cannot_serve():
                         (["--transport", "both"], "--transport"),
                         (["--grpc-port", "50051"], "--grpc-port"),
                         (["--data-parallel", "2"], "--data-parallel"),
-                        (["--data-parallel", "-1"], "--data-parallel"),
-                        (["--kv-cache-dtype", "int8"], "--kv-cache-dtype"),
-                        (["--weights-int8"], "--weights-int8")):
+                        (["--data-parallel", "-1"], "--data-parallel")):
         with pytest.raises(ValueError, match=name):
             serve.start_servers(p.parse_args(["exp", *flags]))
     with pytest.raises(SystemExit):
@@ -381,17 +379,24 @@ SERVE_TINY = ["--device", "cpu", "--no-bf16", "--buckets", "0.5",
               "--avg-checkpoints", "1", "--warmup-dual"]
 
 
-@pytest.mark.parametrize("continuous", [False, True])
-def test_serve_recipe_starts_and_answers(saved_experiment, continuous):
-    """The batch front, and the slot loop finalized by the beam search:
-    either answers with the engine's own translate."""
+@pytest.mark.parametrize("continuous,int8", [(False, False), (True, False),
+                                             (True, True)])
+def test_serve_recipe_starts_and_answers(saved_experiment, continuous, int8):
+    """The batch front, and the slot loop finalized by the beam search
+    (with ``--kv-cache-dtype int8 --weights-int8`` too, which reach the
+    engine): either answers with the engine's own translate."""
     from stac_st_tpu_torch.recipes import serve
 
+    int8_flags = ["--kv-cache-dtype", "int8", "--weights-int8"]
     args = serve.build_parser().parse_args(
         [saved_experiment, "--http-port", "0", *SERVE_TINY]
-        + (["--continuous", "--protocol-finalize"] if continuous else []))
+        + (["--continuous", "--protocol-finalize"] if continuous else [])
+        + (int8_flags if int8 else []))
     front, server = serve.start_servers(args)
     try:
+        assert front.engine.weights_int8 == int8
+        assert front.engine.searcher.kv_cache_dtype == ("int8" if int8
+                                                        else None)
         wav = _wavs(6, (0.4,))[0]
         code, r = _post(server.port, "/v1/translate",
                         {"audio": wav.tolist()})
