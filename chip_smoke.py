@@ -16,8 +16,10 @@ Phases, each printed as one JSON line:
    tensor-core kernels (fwd_tc_kernel, four instantiations; dq_tc_kernel
    and dkv_tc_kernel, two each) and for the split decode kernels
    (self_split_kernel and its ragged form self_split_rows_kernel,
-   cross_split_kernel and anc_split_kernel, two instantiations each), whose
-   registers are reported;
+   cross_split_kernel, anc_split_kernel, and the int8 cache's
+   self_i8_split_kernel, self_i8_split_rows_kernel and
+   cross_i8_split_kernel, two instantiations each), whose registers are
+   reported;
 2. kernel: each decode-attention kernel against its plain PyTorch version
    at the serving path's shapes (B 16 x 10 s, beam 10: 160 rows, 4 heads of
    64, self cache 3 + 192 positions, 251 encoder frames), in fp32 with TF32
@@ -46,11 +48,12 @@ Phases, each printed as one JSON line:
    timed with its bound and the SDPA yardstick with the same mask; and
    the int8 cache's two kernels (decode_self_attention_int8, its ragged
    form counted under .../rows, decode_cross_attention_int8) against their
-   plain versions, fp32 and bf16, bitwise over two launches, at self 160
-   rows x 195 and 16 rows idx 194, the ragged form at the 16 slots above,
-   cross at B16 x beam 10 x 251 and at the slot loop's 16 x 801 with the
-   per-slot bias, each beside the float kernel on the dequantized values
-   (no library call takes int8 K/V with scales);
+   plain versions, fp32 (``simt``) and bf16 (``split``, ptxas: no
+   spills), bitwise over two launches, at self 160 rows x 195 and 16 rows
+   idx 194, the ragged form at the 16 slots above, cross at B16 x beam 10
+   x 251 and at the slot loop's 16 x 801 with the per-slot bias, each
+   beside the float kernel on the dequantized values (no library call
+   takes int8 K/V with scales);
 3. train_kernel: the four flash-attention kernels (inference forward,
    training forward, dQ, dK/dV) against their plain versions at the
    training path's shapes (encoder self-attention B32 x 376 frames with
@@ -77,10 +80,13 @@ Phases, each printed as one JSON line:
 4b. int8: main_path's translate with the int8 KV cache (the searcher's
    gather mode), with int8 weights, and with both: warm RTFx beside
    main_path's, exact launch counts of the warm call (1170 int8 self and
-   1170 int8 cross, or 1170 anc and 1170 cross on split), token agreement
-   with bf16 (printed), one decoder step's weight products bf16 against
-   int8, and an fp32 engine with each option, card against CPU (one
-   decode step's logits; --profile traces the int8 cache's call);
+   1170 int8 cross, all on split, or 1170 anc and 1170 cross on split),
+   token agreement with bf16 (printed), main_path's beam-1 call with the
+   int8 cache (1170 scalar int8 self and 1170 int8 cross on split; its
+   texts against the bf16 beam-1 call's printed), one decoder step's
+   weight products bf16 against int8, and an fp32 engine with each
+   option, card against CPU (one decode step's logits; --profile traces
+   the int8 cache's call);
 4c. speculative: SpeculativeSTEngine (flagship target, d256 2 + 2-layer
    draft, k = 6, 64 tokens) on four utterances of 2-10 s: fp32 texts equal
    to the target's beam-1 decode with float and with int8 caches, bf16
@@ -162,8 +168,11 @@ Phases, each printed as one JSON line:
    future resolves to its final). Then an fp32 engine of the experiment
    (TF32 off): the same 8 requests must give the oracle's tokens exactly;
    and an fp32 engine with the int8 cache: its slot loop (ragged int8
-   self, int8 cross) token-equal to the int8 oracle on the 8 requests,
-   then 10 s of the same load. Launches of the phase (zeroed before): ragged self on ``split`` and
+   self, int8 cross, on simt) token-equal to the int8 oracle on the 8
+   requests, then 10 s of the same load; then the bf16 slot loop with the
+   int8 cache as ``recipes.serve --continuous --kv-cache-dtype int8``
+   builds it, 5 s of the same load (ragged int8 self and int8 cross on
+   split), its RTFx and utilization beside the float cache's. Launches of the phase (zeroed before): ragged self on ``split`` and
    cross in the slot loop, anc and cross in the batch front, no plain
    version called on a CUDA tensor. Prints sustained RTFx through HTTP
    per front, p50 / p95 / p99 latency, the formed-batch histogram, slot
@@ -694,7 +703,7 @@ def _int8_case(torch, K, timer, label, run, plain, float_run, nbytes,
     floor."""
     from stac_st_tpu_torch.ops import kernels
 
-    variant = K.INT8_VARIANT
+    variant = K.decode_variant(getattr(torch, dtype))
     want_added = {name: 1, f"{name}/{variant}": 1}
     if form:
         want_added.update({f"{name}/{form}": 1,
@@ -871,7 +880,9 @@ DECODE_SPLIT = ("decode_self_attention", "decode_self_attention_anc",
 # the split decode kernels and their instantiations (ptxas: no spills)
 # (self: bf16 and fp16; its ragged form is a kernel of its own)
 SPLIT_KERNELS = {"self_split_kernel": 2, "self_split_rows_kernel": 2,
-                 "cross_split_kernel": 2, "anc_split_kernel": 2}
+                 "cross_split_kernel": 2, "anc_split_kernel": 2,
+                 "self_i8_split_kernel": 2, "self_i8_split_rows_kernel": 2,
+                 "cross_i8_split_kernel": 2}
 FLASH = ("flash_attention", "flash_attention_train_fwd",
          "flash_attention_train_dq", "flash_attention_train_dkv")
 TC = "wgmma"     # the tensor-core kernels' variant (bf16 / fp16, Dh 64)
@@ -1204,7 +1215,7 @@ def main_path_phase(torch, kernels, profile: bool):
         rec["profile_beam1"] = profile_beam1(torch, eng1, wavs[:2],
                                              "translate_beam1")
     emit(rec)
-    return rec, st
+    return rec, st, st1
 
 
 # the int8 phase: the main path's engine with the int8 KV cache, int8
@@ -1222,14 +1233,49 @@ INT8_CARD_VS_CPU_ATOL = {"weights_int8": 1e-3, "kv_int8": 1e-2,
                          "both": 1e-2}
 
 
-def int8_phase(torch, kernels, bf16_texts, main_rec, profile: bool):
+def int8_beam1(torch, kernels, bf16_texts):
+    """main_path's beam-1 translate of 2 x 10 s with the int8 KV cache: the
+    scalar split self form in a decode loop. Exact launch counts of the
+    warm call (1170 int8 self and 1170 int8 cross, all split), its wall
+    time, and its texts against the bf16 beam-1 call's (printed: int8
+    reorders near ties)."""
+    wavs = serving_wavs()[:2]
+    per_search = 6 * S_SELF
+    eng = engine(flagship(0), "cuda", bf16=True, beam_size=1,
+                 max_decode_tokens=192, transfer_dtype="int16",
+                 kv_cache_dtype="int8")
+    eng.translate(wavs)  # first call: set-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.translate(wavs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    want = {f"{n}{v}": per_search
+            for n in ("decode_self_attention_int8",
+                      "decode_cross_attention_int8")
+            for v in ("", f"/{SPLIT}")}
+    check(launches == want, f"int8 beam 1: launches {launches}, want {want}")
+    check(len(out) == 2 and all(out), "int8 beam-1 texts")
+    return {"translate_warm_s": wall, "rtfx": 2 * SECONDS / wall,
+            "launches": launches,
+            "bf16_agreement": {"equal": sum(a == b for a, b in
+                                            zip(out, bf16_texts)),
+                               "of": 2}}
+
+
+def int8_phase(torch, kernels, bf16_texts, bf16_beam1, main_rec,
+               profile: bool):
     """translate of B16 x 10 s at the main path's settings (bf16, beam 10,
     192 tokens, PCM16) with the int8 KV cache (the searcher's gather mode),
     int8 weights, and both: warm RTFx beside main_path's bf16 number from
-    this run, exact launch counts of the warm call (zeroed just before),
-    token agreement with the bf16 engine (printed: int8 reorders
-    near-tied beams); --profile traces the int8 cache's call (the gather
-    copy's device time). Then an fp32 engine (TF32 off) with each option,
+    this run, exact launch counts of the warm call (zeroed just before;
+    the int8 kernels by variant, all split), token agreement with the bf16
+    engine (printed: int8 reorders near-tied beams); --profile traces the
+    int8 cache's call (the gather copy's and the int8 kernels' device
+    time). Then main_path's beam-1 call with the int8 cache
+    (:func:`int8_beam1`), and an fp32 engine (TF32 off) with each option,
     card against CPU: one decode step's logits."""
     wavs = serving_wavs()
     audio_s = B * SECONDS
@@ -1250,7 +1296,9 @@ def int8_phase(torch, kernels, bf16_texts, main_rec, profile: bool):
         launches = dict(kernels.launches)
         if "kv_cache_dtype" in opts:
             want = {"decode_self_attention_int8": per_search,
-                    "decode_cross_attention_int8": per_search}
+                    "decode_self_attention_int8/split": per_search,
+                    "decode_cross_attention_int8": per_search,
+                    "decode_cross_attention_int8/split": per_search}
         else:
             want = {"decode_self_attention_anc": per_search,
                     "decode_self_attention_anc/split": per_search,
@@ -1269,10 +1317,11 @@ def int8_phase(torch, kernels, bf16_texts, main_rec, profile: bool):
                 torch, lambda: eng.translate(wavs), wall,
                 "translate_int8_cache",
                 # index_select runs as the gather kernel: the reorder
-                watch=("vectorized_gather_kernel", "self_i8_kernel",
-                       "cross_i8_kernel"))
+                watch=("vectorized_gather_kernel", "self_i8_split_kernel",
+                       "cross_i8_split_kernel"))
         rec[label] = case
         del eng
+    rec["beam1_kv_int8"] = int8_beam1(torch, kernels, bf16_beam1)
     rec["projections"] = decoder_projections(torch)
     # fp32, TF32 off: one decode step on the card against the CPU
     rng = np.random.default_rng(1)
@@ -2342,7 +2391,8 @@ SLOTS, CHUNK = 16, 16           # bench_serve.py's continuous defaults
 CLIENTS, LOAD_S = 16, 20.0      # concurrent clients, load window (s)
 REQUEST_S = (2.0, 16.0)         # request lengths (s)
 N_EXACT, N_FINAL = 8, 6         # continuous vs oracle; protocol finals
-INT8_LOAD_S = 10.0              # the int8 slot loop's load window (s)
+INT8_LOAD_S = 10.0              # the fp32 int8 slot loop's load window (s)
+INT8_BF16_LOAD_S = 5.0          # the bf16 int8 slot loop's load window (s)
 CONVERSATION_S = 60.0           # the long-form input, at least
 
 
@@ -2791,12 +2841,50 @@ def serve_phase(torch, kernels, K, smi: str, root: str, profile: bool):
           > i8[f"{name}/rows"] and i8.get("decode_cross_attention_int8", 0)
           > 0 and not i8.get("decode_self_attention/rows", 0),
           f"int8 slot loop: ragged and scalar int8 self, int8 cross: {i8}")
+    check(i8.get(f"{name}/rows/simt", 0) == i8[f"{name}/rows"]
+          and i8.get("decode_cross_attention_int8/simt", 0)
+          == i8["decode_cross_attention_int8"],
+          f"fp32 int8 slot loop on simt: {i8}")
     rec["int8_continuous"] = {
         "requests": N_EXACT, "equal": len(got),
         "tokens": [len(x) for x in got], "load": load, "launches": i8,
         "s": time.perf_counter() - t}
-    rec["launches"] = {k: rec["launches"].get(k, 0) + i8.get(k, 0)
-                       for k in set(rec["launches"]) | set(i8)}
+
+    # ---- the bf16 slot loop with the int8 cache, as `recipes.serve
+    # --continuous --kv-cache-dtype int8` builds it, under the same load
+    t = time.perf_counter()
+    snap = dict(kernels.launches)
+    front, server = serve.start_servers(serve.build_parser().parse_args(
+        [exp, *SERVE_ARGS, "--continuous", "--slots", str(SLOTS), "--chunk",
+         str(CHUNK), "--kv-cache-dtype", "int8"]))
+    try:
+        warm_s = time.perf_counter() - t
+        snap_load = dict(kernels.launches)
+        load = load_window(server.port, pool, INT8_BF16_LOAD_S)
+        load["launches"] = since(snap_load)
+        load["utilization"] = front.utilization()
+    finally:
+        server.close()
+        front.close()
+    b8 = since(snap)
+    check(b8.get(f"{name}/rows/{SPLIT}", 0) > 0
+          and b8.get(f"{name}/rows/{SPLIT}") == b8.get(f"{name}/rows")
+          and b8.get(f"decode_cross_attention_int8/{SPLIT}", 0) > 0
+          and b8.get(f"decode_cross_attention_int8/{SPLIT}")
+          == b8.get("decode_cross_attention_int8")
+          and not b8.get("decode_self_attention/rows", 0),
+          f"bf16 int8 slot loop: ragged int8 self and int8 cross on "
+          f"{SPLIT}: {b8}")
+    fl = rec["continuous_load"]
+    rec["bf16_int8_continuous"] = {
+        "start_and_warmup_s": warm_s, "load": load, "launches": b8,
+        "bf16_float_cache": {"rtfx": fl["rtfx"],
+                             "utilization": fl["utilization"],
+                             "window_s": fl["window_s"]},
+        "s": time.perf_counter() - t}
+    for extra in (i8, b8):
+        rec["launches"] = {k: rec["launches"].get(k, 0) + extra.get(k, 0)
+                           for k in set(rec["launches"]) | set(extra)}
     rec["phase_s"] = time.perf_counter() - t_phase
     emit(rec)
     return rec
@@ -2986,8 +3074,10 @@ def main() -> int:
     timer = Timer(torch)
     rows = kernel_phase(torch, K, timer)
     train_rows = train_kernel_phase(torch, kernels, timer)
-    main_rec, main_texts = main_path_phase(torch, kernels, args.profile)
-    int8_rec = int8_phase(torch, kernels, main_texts, main_rec, args.profile)
+    main_rec, main_texts, beam1_texts = main_path_phase(torch, kernels,
+                                                        args.profile)
+    int8_rec = int8_phase(torch, kernels, main_texts, beam1_texts, main_rec,
+                          args.profile)
     speculative_phase(torch, kernels)
     _, train_launches = train_phase(torch, kernels, args.profile)
     data_train_phase(torch, kernels, args.profile)

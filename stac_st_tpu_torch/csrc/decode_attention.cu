@@ -90,8 +90,11 @@
 //   decoding to the CPU at 1e-3.
 //
 // Two kernels replace no Pallas kernel: the int8 cache's
-//   decode_self_attention_int8   (self_i8_kernel, ragged self_i8_rows_kernel)
-//   decode_cross_attention_int8  (cross_i8_kernel)
+//   decode_self_attention_int8   (split: i8::self_i8_split_kernel, ragged
+//                                 i8::self_i8_split_rows_kernel; simt:
+//                                 i8::self_i8_kernel, i8::self_i8_rows_kernel)
+//   decode_cross_attention_int8  (split: i8::cross_i8_split_kernel; simt:
+//                                 i8::cross_i8_kernel)
 // stand for the reference's XLA code in stac_st_tpu/models/transformer.py
 // _step_int8 (:295) and _step_cross_int8 (:508), whose int8 -> bf16 convert
 // XLA fuses into the matmul's operand load (PyTorch would write a copy).
@@ -103,11 +106,48 @@
 // rounded to the query's type, as the reference rounds it; out = sum w_p *
 // v_p in fp32, stored in the query's type. Bound: bytes, 2 * Dh int8 and 8
 // bytes of scales per position read (self at 160 rows x 195 positions ~5.1
-// us, cross at B16 x 251 ~0.65 us). One simple design for every dtype
-// (variant "simt"): one block of 256 threads per (query row, head) -- for
-// cross the beam queries of an utterance read its K/V from L2 after the
-// first -- the scores in shared memory, two passes.
-//
+// us, cross at B16 x 251 ~0.65 us). At the decode shapes what holds a
+// kernel back is latency (small launches: every round trip to memory and
+// every barrier is on the critical path) or, at 160 rows, device memory
+// itself: there the timer's flush leaves L2 full of dirty lines, and a sum
+// over the same bytes takes as long as the kernel (PERF.md). The variant
+// follows the same rule:
+// * split -- bf16 and fp16. Each (row, head) -- each (utterance, head) for
+//   cross -- is split over 32-position tiles among the warps of a cluster
+//   of up to 8 blocks, a warp per tile (or per two tiles when the launch
+//   holds many: every block then fits the card at once), sized at launch
+//   from the positions read and the (row, head)s (cross: from S, so the
+//   host never reads the bias). A one-block cluster uses the block's own
+//   barrier: a cluster barrier costs microseconds. A warp copies each
+//   tile into its shared memory with cp.async, keys first: K^T as the five
+//   aligned 8-byte chunks that cover a row's 32 bytes (S is odd), k_scale
+//   as nine 16-byte chunks; it scores a tile as its keys land, then copies
+//   the tile's V rows (16-byte chunks) and v_scale. int8 is converted in
+//   two ALU operations a byte, exact in bf16 and fp16. The exact softmax
+//   that the reference's rounding of w_p needs is split over the cluster:
+//   each warp keeps its logits and sends its per-row (max, sum of
+//   exp(l - max)) to every block through distributed shared memory; after
+//   one barrier every warp has the row's max M and sum L (sum_u l_u
+//   exp(m_u - M), in unit order), forms w_p = exp(l_p - M) / L * v_scale_p
+//   rounded to T and adds its w V. The partials, already normalised, are
+//   summed in a fixed order in the owner block after a second barrier: K
+//   and V are read once, no global scratch, no atomics, bitwise
+//   repeatable.
+//   - cross: the beam queries are the 16 rows of mma.sync.m16n8k16, so each
+//     int8 key and value is read once per utterance (W V takes V through
+//     ldmatrix.trans from a swizzled tile converted to T). With a bias the
+//     block first reads the bias row (4 bytes a position, against 136 for
+//     K, V and the scales) and skips every tile the bias masks whole, as
+//     long as the row has a position above NEG_INF / 2 (exact: see the
+//     kernel).
+//   - self: one query per (row, head), so the CUDA cores (a tensor-core
+//     product would waste 15 of its 16 rows): lane p scores position
+//     p0 + p; each lane weights 16-byte chunks of four V rows.
+// * simt -- fp32: one block of 256 threads per (query row, head) -- for
+//   cross the beam queries of an utterance read its K/V from L2 after the
+//   first -- the scores in shared memory, two passes. fp32 is held to the
+//   CPU at 5e-5 and the fp32 int8 slot loop token for token to its oracle.
+
 // Plain C interface, loaded with ctypes; every launcher returns the
 // cudaError_t of the launch (0 = success) or one of the ERR_* codes below.
 // Kernels run on the caller's stream, allocate nothing and never
@@ -1178,7 +1218,8 @@ constexpr int ERR_ALIGN = 10002;    // a split kernel's tensor not 16-byte align
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// ---- the int8 cache: one block per (row, head), two passes --------------
+// ---- the int8 cache ----------------------------------------------------
+// simt (fp32): one block per (row, head), two passes
 namespace i8 {
 
 constexpr float QK_SCALE = 0.125f;  // DH^-1/2, exact for DH = 64
@@ -1305,6 +1346,806 @@ cudaError_t launch_cross(const void* q, const void* kT, const void* v, const voi
   return cudaGetLastError();
 }
 
+// I8_MARK(k): a probe build (-DSTAC_I8_TRACE) records the global timer at
+// point k of each block (thread 0) into i8_trace[block * 8 + k]; empty in
+// the library.
+#ifdef STAC_I8_TRACE
+__device__ unsigned long long* i8_trace;
+#define I8_MARK(k)                                                         \
+  do {                                                                     \
+    if (threadIdx.x == 0 && i8_trace != nullptr) {                         \
+      unsigned long long t_;                                               \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));              \
+      i8_trace[blockIdx.x * 8 + (k)] = t_;                                 \
+    }                                                                      \
+  } while (0)
+#else
+#define I8_MARK(k)
+#endif
+
+// ---- split (bf16 / fp16): position tiles over the warps of a cluster --------
+// A unit is one warp; unit u = rank * warps + warp of the cluster takes the
+// contiguous tiles [u * tiles / units, (u + 1) * tiles / units). A warp
+// copies its tiles' K^T rows, V rows and scales straight into its shared
+// memory (cp.async), so no register holds a load and many warps fit an SM.
+constexpr int TILE = 32;        // positions per tile
+constexpr int KW = TILE + 8;    // bytes of a staged K^T row: 5 aligned 8-byte chunks
+constexpr int SW = TILE + 4;    // floats of a staged scale window: 9 aligned chunks
+constexpr int MAX_WARPS = 4;    // warps per block, at most (cross)
+constexpr int SELF_WARPS = 8;   // warps per block, at most (self)
+// registers a thread (self): five blocks of four warps an SM, every block of
+// the 160-row case resident at once
+constexpr int SELF_REGS = 96;
+constexpr int KT_BYTES = DH * KW;        // a tile's K^T rows, as read
+constexpr int V_BYTES = TILE * DH;       // a tile's V rows, int8
+constexpr int SW_BYTES = SW * 4;         // a scale window
+constexpr float MAGIC = 8388736.f;       // 2^23 + 128
+
+// int8 x from its byte u (zero-extended): the float 2^23 + 128 + x, less
+// 2^23 + 128 (exact, two ALU operations, no conversion unit).
+__device__ __forceinline__ float i8_byte(uint32_t u) {
+  return __int_as_float(u ^ 0x4B000080u) - MAGIC;
+}
+// Byte i of a word of four int8 already xor-ed with 0x80808080.
+__device__ __forceinline__ float i8_of(uint32_t wx, int i) {
+  return __int_as_float(__byte_perm(wx, 0x4B00u, 0x5440u | i)) - MAGIC;
+}
+
+// 16 bytes from p to shared memory at s, asynchronously; zeros when !ok
+// (nothing is read: the source then names `safe`, a valid address).
+__device__ __forceinline__ void cp16(void* s, const void* p, bool ok, const void* safe) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(s))),
+               "l"(ok ? p : safe), "r"(ok ? 16 : 0)
+               : "memory");
+}
+// 8 bytes, as cp16 (through L1: the 16-byte form bypasses it).
+__device__ __forceinline__ void cp8(void* s, const void* p, bool ok, const void* safe) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(s))),
+               "l"(ok ? p : safe), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// The K^T rows of positions [p0, pend) of one (row, head)'s slab kp (Dh x S,
+// row stride S, 16-byte aligned) into kt: for each head dim d, the five
+// aligned 8-byte chunks from floor8(d*S + p0) (a chunk holding none of the
+// row's bytes is zeros, not read). As p0 is a multiple of 32, position
+// p0 + p of dim d then sits at byte d*KW + ((d*S) & 7) + p of kt.
+__device__ __forceinline__ void copy_k(uint8_t* kt, const int8_t* kp, int S, int p0, int pend,
+                                       int lane) {
+#pragma unroll
+  for (int i = 0; i < DH * 5 / 32; ++i) {
+    const int idx = lane + 32 * i, d = idx / 5, c = idx % 5;
+    const int a = ((d * S + p0) & ~7) + 8 * c;
+    cp8(kt + d * KW + 8 * c, kp + a, a < d * S + pend, kp);
+  }
+}
+// The V rows of positions [p0, pend) (the rest zeros, not read), 64 bytes
+// each, into vt: lane takes chunk lane & 3 of rows (lane >> 2) + 8i.
+__device__ __forceinline__ void copy_v(uint8_t* vt, const int8_t* vp, int p0, int pend,
+                                       int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (lane >> 2) + 8 * i, c = 16 * (lane & 3);
+    cp16(vt + r * DH + c, vp + (size_t)(p0 + r) * DH + c, p0 + r < pend, vp);
+  }
+}
+// Chunk `lane` (< 9) of the scale window of positions [p0, pend) of the
+// scale row starting at element `row` of s (16-byte aligned) into sw:
+// position p0 + p then sits at sw[((row + p0) & 3) + p].
+__device__ __forceinline__ void copy_scales(float* sw, const float* s, size_t row, int p0,
+                                            int pend, int lane) {
+  if (lane >= SW / 4) return;
+  const size_t a = ((row + p0) & ~(size_t)3) + 4 * lane;
+  cp16(sw + 4 * lane, s + a, a < row + pend, s);
+}
+
+// 16 int8 (one 16-byte chunk) as two 16-byte chunks of T.
+template <typename T>
+__device__ __forceinline__ void i8x16_to(const uint4& x, uint4& lo, uint4& hi) {
+  const uint32_t w[4] = {x.x ^ 0x80808080u, x.y ^ 0x80808080u, x.z ^ 0x80808080u,
+                         x.w ^ 0x80808080u};
+  uint32_t r[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    r[2 * k] = split::pack2<T>(i8_of(w[k], 0), i8_of(w[k], 1));
+    r[2 * k + 1] = split::pack2<T>(i8_of(w[k], 2), i8_of(w[k], 3));
+  }
+  lo = make_uint4(r[0], r[1], r[2], r[3]);
+  hi = make_uint4(r[4], r[5], r[6], r[7]);
+}
+
+// The launch shape of a split int8 kernel: a cluster of `cs` blocks of
+// `warps` warps per (row, head) -- per (utterance, head) for cross.
+struct Shape {
+  int cs, warps;
+};
+constexpr int STAGES = 2;  // tiles a warp has in flight
+// From the tiles of one (row, head) and the (row, head)s of the launch: a
+// unit (warp) per tile while the launch has few tiles in all, else a unit
+// per STAGES tiles (fewer, fuller warps, every block resident at once), as
+// far as 8 blocks of `max_warps` allow.
+Shape split_shape(int tiles, int heads, int max_warps) {
+  const int per = (size_t)tiles * heads > 1024 ? STAGES : 1;
+  const int units = (tiles + per - 1) / per;
+  const int warps = units < max_warps ? units : max_warps;
+  const int cs = (units + warps - 1) / warps;
+  return {cs < split::MAX_SPLIT ? cs : split::MAX_SPLIT, warps};
+}
+// Cross: a warp with two tiles holds ~18 KB of shared memory, so such
+// units go two to a block (four left the 801-frame slot loop a second wave
+// of blocks; tools/probe_int8_split.py).
+Shape cross_shape(int tiles, int heads) {
+  return split_shape(tiles, heads, (size_t)tiles * heads > 1024 ? 2 : MAX_WARPS);
+}
+int slots_of(int tiles, Shape sh) {  // tiles of the busiest unit
+  const int units = sh.cs * sh.warps;
+  return (tiles + units - 1) / units;
+}
+
+// A stage: one tile's K^T rows and V rows as read, and its two scale
+// windows.
+constexpr int STAGE_BYTES = KT_BYTES + V_BYTES + 2 * SW_BYTES;
+struct Stage {
+  uint8_t* k;
+  uint8_t* v;
+  float* ks;
+  float* vs;
+  __device__ Stage(unsigned char* base, int j) {
+    k = base + j * STAGE_BYTES;
+    v = k + KT_BYTES;
+    ks = reinterpret_cast<float*>(v + V_BYTES);
+    vs = ks + SW;
+  }
+};
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most n (0 or 1) of this thread's copy groups are pending,
+// then for the warp.
+__device__ __forceinline__ void cp_wait(int n) {
+  if (n > 0)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+}
+
+// A cluster of one block synchronises with the block's barrier and keeps to
+// its own shared memory (a cluster barrier costs microseconds).
+__device__ __forceinline__ void cluster_start(int cs) {
+  if (cs > 1) split::cluster_arrive_relaxed();
+}
+__device__ __forceinline__ void cluster_started(int cs) {  // before the first send
+  if (cs > 1) split::cluster_wait();
+}
+__device__ __forceinline__ void cluster_sync(int cs) {  // release, then acquire
+  if (cs > 1) {
+    split::cluster_arrive();
+    split::cluster_wait();
+  } else {
+    __syncthreads();
+  }
+}
+template <typename U>
+__device__ __forceinline__ U* at_rank(U* p, int rank, int cs) {
+  return cs > 1 ? split::peer(p, rank) : p;
+}
+
+// ---- decode_cross_attention_int8, split ---------------------------------
+// Dynamic shared memory: the inbox [cs][own][Dh] of the rows this block
+// owns, the (max, sum) of every unit and row [units][16] and the bias row;
+// then per warp STAGES stages, a 4 KB buffer (the V tile in T, then the
+// warp's partial output) and the logits of its `slots` tiles (16 x 32 each).
+constexpr int TV_BYTES = MAX_BEAM * DH * 4;
+__host__ __device__ inline size_t cross_head_bytes(int cs, int own, int units, int S,
+                                                   bool bias) {
+  return (size_t)cs * own * DH * 4 + (size_t)units * MAX_BEAM * 8 +
+         (bias ? ((size_t)S / 4 + 2) * 16 : 0);
+}
+__host__ __device__ inline size_t cross_warp_bytes(int slots) {
+  return STAGES * STAGE_BYTES + TV_BYTES + (size_t)slots * MAX_BEAM * TILE * 4;
+}
+
+// One (utterance, head) split over `tiles` = ceil(S / TILE) position tiles,
+// all beam queries the 16 rows of mma.sync (zero past beam), so each int8
+// key and value is read from device memory once per utterance.
+//  1. With a bias, the block reads the utterance's bias row (4 bytes a
+//     position) first. If some position's bias is > NEG_INF / 2, a tile
+//     whose every bias is <= NEG_INF is skipped: no K/V read, no work. Its
+//     logits would lie >= 5e8 below the row's max, where expf is exactly 0,
+//     so the sums are the reference's either way. A row with no such
+//     position reads every tile (the reference's softmax is then uniform).
+//  2. A warp copies the K^T rows and k_scale of up to STAGES tiles at once
+//     (a copy group per tile) and scores each tile as its keys land: B
+//     fragments converted from the staged K^T bytes; logit = (q . k)_fp32 *
+//     (k_scale * Dh^-1/2) + bias, kept in shared memory with the unit's row
+//     maxima and sums of exp(l - max). Then it copies that tile's V rows
+//     and v_scale, which land while the cluster exchanges its statistics.
+//  3. Every unit sends its (max, sum) per row to every block (distributed
+//     shared memory); after one cluster barrier each takes the row's max M
+//     and sum L = sum_u l_u * exp(m_u - M), in unit order.
+//  4. Per tile: w_p = exp(l_p - M) / L * v_scale_p rounded to T, as the
+//     reference rounds it; O += W V on mma.sync with V converted into a
+//     swizzled tile (ldmatrix.trans).
+//  5. The warps' partials are summed in the block in warp order, sent to the
+//     row's owner block, and summed there in rank order after a second
+//     barrier. No global scratch, no atomics: bitwise repeatable.
+template <typename T>
+__global__ void __launch_bounds__(32 * MAX_WARPS, 3)
+cross_i8_split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kT,
+                      const int8_t* __restrict__ v, const float* __restrict__ ks,
+                      const float* __restrict__ vs, const float* __restrict__ bias,
+                      T* __restrict__ out, int H, int S, int beam, int tiles, int slots) {
+  using namespace split;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cs = cluster_size(), rank = cluster_rank();
+  cluster_start(cs);
+  I8_MARK(0);
+  const int W = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = cs * W, u = rank * W + warp;
+  const int bh = blockIdx.x / cs, b = bh / H, h = bh % H;
+  const int g = lane >> 2, qd = lane & 3;  // fragment row group, thread in quad
+  const int own = (beam + cs - 1) / cs;
+  const int t0 = u * tiles / units, t1 = (u + 1) * tiles / units;
+  float* inbox = reinterpret_cast<float*>(smem_raw);
+  float2* stats = reinterpret_cast<float2*>(inbox + cs * own * DH);
+  float* brow = reinterpret_cast<float*>(stats + units * MAX_BEAM);
+  auto warp_base = [&](int w) {
+    return smem_raw + cross_head_bytes(cs, own, units, S, bias != nullptr) +
+           w * cross_warp_bytes(slots);
+  };
+  unsigned char* mine = warp_base(warp);
+  unsigned char* tv_raw = mine + STAGES * STAGE_BYTES;  // the V tile, then the partial
+  float* lg = reinterpret_cast<float*>(tv_raw + TV_BYTES);
+  const int8_t* kp = kT + (size_t)bh * DH * S;
+  const int8_t* vp = v + (size_t)bh * S * DH;
+  const size_t srow = (size_t)bh * S;
+
+  // Q as the A operand: rows are the beam queries, zero past beam
+  uint32_t qa[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + (e & 1) * 8, dim = k * 16 + qd * 2 + (e >> 1) * 8;
+      qa[k][e] = row < beam ? *reinterpret_cast<const uint32_t*>(
+                                  q + (((size_t)b * beam + row) * H + h) * DH + dim)
+                            : 0u;
+    }
+
+  // 1. the bias row, as aligned 16-byte chunks: position p at brow[boff + p]
+  bool skip = false;
+  int boff = 0;
+  if (bias != nullptr) {
+    const size_t e0 = (size_t)b * S;
+    boff = (int)(e0 & 3);
+    const float4* src = reinterpret_cast<const float4*>(bias + (e0 - boff));
+    bool vis = false;
+    for (int c = threadIdx.x; c < (boff + S + 3) / 4; c += blockDim.x) {
+      const float4 x = __ldg(src + c);
+      reinterpret_cast<float4*>(brow)[c] = x;
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int p = 4 * c + k - boff;
+        vis |= p >= 0 && p < S && xs[k] > 0.5f * NEG_INF;
+      }
+    }
+    skip = __syncthreads_or(vis);
+    I8_MARK(1);
+  }
+  auto masked = [&](int t) {  // warp-uniform: tile t is skipped
+    const int p = t * TILE + lane;
+    return skip && __all_sync(0xffffffffu, p >= S || brow[boff + p] <= NEG_INF);
+  };
+  auto copy_v_of = [&](const Stage& st, int t) {
+    const int p0 = t * TILE, pend = min(p0 + TILE, S);
+    copy_v(st.v, vp, p0, pend, lane);
+    copy_scales(st.vs, vs, srow, p0, pend, lane);
+  };
+
+  // 2. logits of this unit's tiles, STAGES at a time; the first ones' V
+  // rows are copied with them and kept
+  float mrow[2] = {-INFINITY, -INFINITY};  // rows g, g + 8
+  int nv = -1;  // tiles whose V rows the first copies hold (stages 0..nv-1)
+  for (int t = t0;;) {
+    int gt[STAGES], c = 0;
+    for (; t < t1 && c < STAGES; ++t)
+      if (!masked(t)) gt[c++] = t;
+    if (c == 0) break;
+    __syncwarp();  // the previous tiles' reads of shared memory are done
+#pragma unroll
+    for (int j = 0; j < STAGES; ++j) {
+      if (j >= c) break;
+      const Stage st(mine, j);
+      const int p0 = gt[j] * TILE, pend = min(p0 + TILE, S);
+      copy_k(st.k, kp, S, p0, pend, lane);
+      copy_scales(st.ks, ks, srow, p0, pend, lane);
+      cp_commit();
+    }
+    const bool first = nv < 0;
+    if (first) nv = c;
+#pragma unroll
+    for (int j = 0; j < STAGES; ++j) {
+      if (j >= c) break;
+      // tile gt[j]'s keys have landed (pending: the later tiles' keys and,
+      // in the first group, the V rows of the tiles before it)
+      cp_wait(c - 1 - j + (first ? j : 0));
+      if (first && j == 0) I8_MARK(2);
+      const Stage st(mine, j);
+      const int p0 = gt[j] * TILE;
+      float s[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int at[4];  // dims d0, d0+1, d0+8, d0+9: where their row's tile starts
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = k * 16 + qd * 2 + (e & 1) + (e >> 1) * 8;
+          at[e] = d * KW + ((d * S) & 7) + g;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint32_t b0 =
+              pack2<T>(i8_byte(st.k[at[0] + nt * 8]), i8_byte(st.k[at[1] + nt * 8]));
+          const uint32_t b1 =
+              pack2<T>(i8_byte(st.k[at[2] + nt * 8]), i8_byte(st.k[at[3] + nt * 8]));
+          mma16816<T>(s[nt], qa[k], b0, b1);
+        }
+      }
+      const int o4 = (int)((srow + p0) & 3);
+      float4* keep = reinterpret_cast<float4*>(lg + (gt[j] - t0) * MAX_BEAM * TILE);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = nt * 8 + qd * 2 + (e & 1);
+          float x = s[nt][e] * (st.ks[o4 + col] * QK_SCALE);
+          if (bias != nullptr && p0 + col < S) x += brow[boff + p0 + col];
+          s[nt][e] = p0 + col < S ? x : -INFINITY;  // a select: past S may be garbage
+          mrow[e >> 1] = fmaxf(mrow[e >> 1], s[nt][e]);
+        }
+        keep[nt * 32 + lane] = make_float4(s[nt][0], s[nt][1], s[nt][2], s[nt][3]);
+      }
+      if (first) {  // its V rows, now: the keys of every tile go first
+        copy_v_of(st, gt[j]);
+        cp_commit();
+      }
+    }
+  }
+  float lrow[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mrow[r] = fmaxf(mrow[r], __shfl_xor_sync(0xffffffffu, mrow[r], 1));
+    mrow[r] = fmaxf(mrow[r], __shfl_xor_sync(0xffffffffu, mrow[r], 2));
+  }
+  if (nv > 0) {
+    for (int t = t0; t < t1; ++t) {
+      if (masked(t)) continue;
+      const float4* keep = reinterpret_cast<const float4*>(lg + (t - t0) * MAX_BEAM * TILE);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float4 x = keep[nt * 32 + lane];
+        lrow[0] += __expf(x.x - mrow[0]) + __expf(x.y - mrow[0]);
+        lrow[1] += __expf(x.z - mrow[1]) + __expf(x.w - mrow[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+  }
+
+  // 3. (max, sum) of rows g, g + 8 to every block; a unit with no tile sends
+  // (-inf, 0)
+  I8_MARK(3);
+  cluster_started(cs);
+  for (int r = qd; r < cs; r += 4) {
+    float2* dst = at_rank(stats, r, cs) + u * MAX_BEAM;
+    dst[g] = make_float2(mrow[0], lrow[0]);
+    dst[g + 8] = make_float2(mrow[1], lrow[1]);
+  }
+  cluster_sync(cs);  // every unit's statistics have arrived
+  I8_MARK(4);
+  float M[2], inv[2];  // the row's max and 1 / sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    M[r] = -INFINITY;
+    for (int k = 0; k < units; ++k) M[r] = fmaxf(M[r], stats[k * MAX_BEAM + g + 8 * r].x);
+    float L = 0.f;
+    for (int k = 0; k < units; ++k) {  // in unit order
+      const float2 x = stats[k * MAX_BEAM + g + 8 * r];
+      if (x.x > -INFINITY) L += x.y * __expf(x.x - M[r]);
+    }
+    inv[r] = 1.f / L;
+  }
+
+  // 4. O = W V over this unit's tiles
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  T* tvt = reinterpret_cast<T*>(tv_raw);  // the V tile, 16-byte chunks swizzled
+  for (int t = t0, i = 0; t < t1; ++t) {
+    if (masked(t)) continue;
+    const int j = i % STAGES;  // the stage holding tile t's V rows
+    const Stage st(mine, j);
+    __syncwarp();  // the previous tile's reads of shared memory are done
+    if (i >= nv) {  // past the first tiles: read now
+      copy_v_of(st, t);
+      cp_commit();
+      cp_wait(0);
+    } else {
+      cp_wait(nv - 1 - i);  // its V rows have landed
+    }
+    ++i;
+    const int p0 = t * TILE;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = (lane >> 2) + 8 * k, c = 2 * (lane & 3);
+      uint4 lo, hi;
+      i8x16_to<T>(*reinterpret_cast<const uint4*>(st.v + r * DH + 8 * c), lo, hi);
+      *reinterpret_cast<uint4*>(&tvt[r * DH + 8 * (c ^ (r & 7))]) = lo;
+      *reinterpret_cast<uint4*>(&tvt[r * DH + 8 * ((c + 1) ^ (r & 7))]) = hi;
+    }
+    __syncwarp();
+    const int o4 = (int)((srow + p0) & 3);
+    const float4* keep = reinterpret_cast<const float4*>(lg + (t - t0) * MAX_BEAM * TILE);
+    float w[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float4 x = keep[nt * 32 + lane];
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + qd * 2 + (e & 1);
+        const float p = __expf(xs[e] - M[e >> 1]) * inv[e >> 1];
+        w[nt][e] = p0 + col < S ? p * st.vs[o4 + col] : 0.f;  // a select: past S may be garbage
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t pa[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* pe = &w[2 * kk + (e >> 1)][(e & 1) * 2];
+        pa[e] = pack2<T>(pe[0], pe[1]);  // w rounded to T, as the reference rounds it
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const int mat = lane >> 3, row = lane & 7;
+        const int pos = kk * 16 + (mat & 1) * 8 + row, chunk = 2 * np + (mat >> 1);
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, &tvt[pos * DH + 8 * (chunk ^ (pos & 7))]);
+        mma16816<T>(o[2 * np], pa, vb[0], vb[1]);
+        mma16816<T>(o[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  I8_MARK(5);
+  // 5. the block's sum of its warps' partials, in warp order, to each row's
+  // owner; the owner sums the blocks' in rank order
+  __syncwarp();
+  float* part = reinterpret_cast<float*>(tv_raw);  // rows x Dh, 8-float groups swizzled
+  if (nv > 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = g + 8 * r;
+      if (j >= beam) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<float2*>(&part[j * DH + 8 * (nt ^ (j & 7)) + qd * 2]) =
+            make_float2(o[nt][2 * r], o[nt][2 * r + 1]);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < beam * (DH / 2); e += blockDim.x) {
+    const int j = e / (DH / 2), d = (e % (DH / 2)) * 2;
+    const int at = j * DH + 8 * ((d >> 3) ^ (j & 7)) + (d & 7);
+    float2 acc = make_float2(0.f, 0.f);
+    for (int w2 = 0; w2 < W; ++w2) {
+      if (!(stats[(rank * W + w2) * MAX_BEAM + j].x > -INFINITY)) continue;  // no tile
+      const float2 x = *reinterpret_cast<const float2*>(
+          reinterpret_cast<const float*>(warp_base(w2) + STAGES * STAGE_BYTES) + at);
+      acc.x += x.x;
+      acc.y += x.y;
+    }
+    *reinterpret_cast<float2*>(at_rank(inbox, j % cs, cs) +
+                               ((size_t)rank * own + j / cs) * DH + d) = acc;
+  }
+  cluster_sync(cs);  // every block's partials have arrived
+  I8_MARK(6);
+  for (int e = threadIdx.x; e < own * (DH / 2); e += blockDim.x) {
+    const int lr = e / (DH / 2), d = (e % (DH / 2)) * 2;
+    const int j = lr * cs + rank;
+    if (j >= beam) continue;
+    float o0 = 0.f, o1 = 0.f;
+    for (int src = 0; src < cs; ++src) {  // in rank order: bitwise repeatable
+      const float2 x = *reinterpret_cast<const float2*>(inbox + ((size_t)src * own + lr) * DH + d);
+      o0 += x.x;
+      o1 += x.y;
+    }
+    *reinterpret_cast<uint32_t*>(out + (((size_t)b * beam + j) * H + h) * DH + d) =
+        pack2<T>(o0, o1);
+  }
+  I8_MARK(7);
+}
+
+// ---- decode_self_attention_int8, split ----------------------------------
+// Dynamic shared memory: q in fp32, rank 0's inbox of the units' partial
+// outputs [units][Dh] and every unit's (max, sum) [units]; then per warp
+// STAGES stages and the scores of its `slots` tiles.
+__host__ __device__ inline size_t self_head_bytes(int units) {
+  return DH * 4 + (size_t)units * DH * 4 + ((size_t)units * 8 + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t self_warp_bytes(int slots) {
+  return STAGES * STAGE_BYTES + (size_t)slots * TILE * 4;
+}
+
+// One query per (row, head), so the CUDA cores: lane p of a warp scores
+// position p0 + p of its tile from the staged K^T rows (each byte read from
+// shared memory and converted in two ALU operations), as soon as the
+// tile's keys land; each lane then takes 16-byte chunks of four V rows,
+// weighted by their positions' w (one shuffle each), and the 64 dims are
+// summed over the lanes that hold them. The copies and the cross-cluster
+// softmax are cross's (steps 2-4), with one (max, sum) per unit; the
+// partials go to rank 0, summed in unit order. Positions p >= n score -inf
+// (a select) and their V rows are never read. The ragged form (RAGGED) is
+// launched on all S positions; each row reads its own
+// min(rows[r], S - 1) + 1, and a unit whose tiles lie past them reads
+// nothing and sends (-inf, 0).
+template <typename T, bool RAGGED>
+__device__ __forceinline__ void self_i8_split_body(
+    const T* __restrict__ q, const int8_t* __restrict__ kT, const int8_t* __restrict__ v,
+    const float* __restrict__ ks, const float* __restrict__ vs,
+    const int32_t* __restrict__ rows, T* __restrict__ out, int H, int S, int n_all, int tiles,
+    int slots) {
+  using namespace split;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cs = cluster_size(), rank = cluster_rank();
+  cluster_start(cs);
+  I8_MARK(0);
+  const int W = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = cs * W, u = rank * W + warp;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* inbox = qs + DH;
+  float2* stats = reinterpret_cast<float2*>(inbox + units * DH);
+  unsigned char* mine = smem_raw + self_head_bytes(units) + warp * self_warp_bytes(slots);
+  float* sc = reinterpret_cast<float*>(mine + STAGES * STAGE_BYTES);
+  const int bh = blockIdx.x / cs;  // row * H + head
+  const int n = RAGGED ? row_positions(rows, bh / H, S) : n_all;
+  const int t0 = u * tiles / units;
+  const int t1 = RAGGED ? min((u + 1) * tiles / units, (n + TILE - 1) / TILE)
+                        : (u + 1) * tiles / units;
+  const int8_t* kp = kT + (size_t)bh * DH * S;
+  const int8_t* vp = v + (size_t)bh * S * DH;
+  const size_t srow = (size_t)bh * S;
+  auto copy_v_of = [&](const Stage& st, int t) {
+    const int p0 = t * TILE, pend = min(p0 + TILE, n);
+    copy_v(st.v, vp, p0, pend, lane);
+    copy_scales(st.vs, vs, srow, p0, pend, lane);
+  };
+  if (warp == 0) {  // the block's (row, head): q in fp32
+    const float2 f = unpack2<T>(__ldg(reinterpret_cast<const uint32_t*>(q + (size_t)bh * DH) + lane));
+    qs[2 * lane] = f.x;
+    qs[2 * lane + 1] = f.y;
+  }
+  __syncthreads();
+
+  // scores, STAGES tiles at a time, each as its keys land; then its V rows
+  // byte offset of position `lane` in the staged row of dim d: off8[d & 7]
+  // + d * KW ((d * S) & 7 repeats every 8 dims)
+  int off8[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) off8[k] = ((k * S) & 7) + lane;
+  float m = -INFINITY;
+  for (int tg = t0; tg < t1; tg += STAGES) {
+    const int c = min(STAGES, t1 - tg);
+    __syncwarp();  // the previous tiles' reads of shared memory are done
+#pragma unroll 1
+    for (int j = 0; j < STAGES; ++j) {
+      if (j >= c) break;
+      const Stage st(mine, j);
+      const int p0 = (tg + j) * TILE, pend = min(p0 + TILE, n);
+      copy_k(st.k, kp, S, p0, pend, lane);
+      copy_scales(st.ks, ks, srow, p0, pend, lane);
+      cp_commit();
+    }
+    const bool first = tg == t0;
+#pragma unroll 1
+    for (int j = 0; j < STAGES; ++j) {
+      if (j >= c) break;
+      // tile tg + j's keys have landed (pending: the later tiles' keys and,
+      // in the first group, the V rows of the tiles before it)
+      cp_wait(c - 1 - j + (first ? j : 0));
+      if (first && j == 0) I8_MARK(2);
+      const Stage st(mine, j);
+      const int p0 = (tg + j) * TILE, pend = min(p0 + TILE, n);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int d4 = 0; d4 < DH / 4; ++d4) {
+        const float4 qv = reinterpret_cast<const float4*>(qs)[d4];
+        const float qq[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int d = 4 * d4 + k;
+          acc[k] = fmaf(qq[k], i8_byte(st.k[d * KW + off8[d & 7]]), acc[k]);
+        }
+      }
+      const int o4 = (int)((srow + p0) & 3);
+      const float s =
+          p0 + lane < pend
+              ? ((acc[0] + acc[1]) + (acc[2] + acc[3])) * (st.ks[o4 + lane] * QK_SCALE)
+              : -INFINITY;  // a select: stale bytes and scales never count
+      sc[(tg + j - t0) * TILE + lane] = s;
+      m = fmaxf(m, warp_max(s));  // finite: every tile has a position < n
+      if (first) {  // its V rows, now: the keys of every tile go first
+        copy_v_of(st, tg + j);
+        cp_commit();
+      }
+    }
+  }
+  float l = 0.f;
+  for (int t = t0; t < t1; ++t) l += __expf(sc[(t - t0) * TILE + lane] - m);
+  l = warp_sum(l);
+
+  I8_MARK(3);
+  cluster_started(cs);
+  if (lane < cs) at_rank(stats, lane, cs)[u] = make_float2(m, l);
+  cluster_sync(cs);  // every unit's statistics have arrived
+  I8_MARK(4);
+  float M = -INFINITY, L = 0.f;
+  for (int k = 0; k < units; ++k) M = fmaxf(M, stats[k].x);
+  for (int k = 0; k < units; ++k) {  // in unit order
+    const float2 x = stats[k];
+    if (x.x > -INFINITY) L += x.y * __expf(x.x - M);
+  }
+  const float inv = 1.f / L;
+
+  const int r0 = lane >> 2, c = lane & 3;  // V: rows r0 + 8i, bytes 16c..16c+15
+  float o[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) o[k] = 0.f;
+  const int nv = min(STAGES, t1 - t0);  // tiles whose V rows were copied
+#pragma unroll 1
+  for (int t = t0; t < t1; ++t) {
+    const int p0 = t * TILE, pend = min(p0 + TILE, n);
+    const Stage st(mine, (t - t0) % STAGES);
+    if (t - t0 >= nv) {  // past the first tiles: read now
+      __syncwarp();  // the previous tile's reads of shared memory are done
+      copy_v_of(st, t);
+      cp_commit();
+      cp_wait(0);
+    } else {
+      cp_wait(nv - 1 - (t - t0));  // its V rows have landed
+    }
+    const int o4 = (int)((srow + p0) & 3);
+    const float p = __expf(sc[(t - t0) * TILE + lane] - M) * inv;
+    // w rounded to T, as the reference rounds it; a select past n
+    const float w = p0 + lane < pend ? to_f(from_f<T>(p * st.vs[o4 + lane])) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float wr = __shfl_sync(0xffffffffu, w, r0 + 8 * i);
+      const uint4 x = *reinterpret_cast<const uint4*>(st.v + (r0 + 8 * i) * DH + 16 * c);
+      const uint32_t ws[4] = {x.x ^ 0x80808080u, x.y ^ 0x80808080u, x.z ^ 0x80808080u,
+                              x.w ^ 0x80808080u};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int by = 0; by < 4; ++by)
+          o[4 * k + by] = fmaf(wr, i8_of(ws[k], by), o[4 * k + by]);
+    }
+  }
+  I8_MARK(5);
+  // lanes c, c + 4, ..., c + 28 hold the same 16 dims
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    o[k] += __shfl_xor_sync(0xffffffffu, o[k], 4);
+    o[k] += __shfl_xor_sync(0xffffffffu, o[k], 8);
+    o[k] += __shfl_xor_sync(0xffffffffu, o[k], 16);
+  }
+  if (t0 < t1 && lane < 4) {
+    float4* dst = reinterpret_cast<float4*>(at_rank(inbox, 0, cs) + u * DH + 16 * lane);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      dst[k] = make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+  }
+  cluster_sync(cs);  // every partial has arrived
+  I8_MARK(6);
+  if (rank != 0 || warp != 0) return;
+  float o0 = 0.f, o1 = 0.f;
+  for (int k = 0; k < units; ++k) {  // in unit order: bitwise repeatable
+    if (!(stats[k].x > -INFINITY)) continue;  // a unit with no tile
+    o0 += inbox[k * DH + 2 * lane];
+    o1 += inbox[k * DH + 2 * lane + 1];
+  }
+  *reinterpret_cast<uint32_t*>(out + (size_t)bh * DH + 2 * lane) = pack2<T>(o0, o1);
+  I8_MARK(7);
+}
+
+// The scalar form: positions 0..n-1 of every row.
+template <typename T>
+__global__ void __maxnreg__(SELF_REGS)
+self_i8_split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kT,
+                     const int8_t* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs, T* __restrict__ out, int S, int n, int tiles,
+                     int slots) {
+  self_i8_split_body<T, false>(q, kT, v, ks, vs, nullptr, out, 0, S, n, tiles, slots);
+}
+
+// The ragged form, launched on all S positions: row r reads its own.
+template <typename T>
+__global__ void __maxnreg__(SELF_REGS)
+self_i8_split_rows_kernel(const T* __restrict__ q, const int8_t* __restrict__ kT,
+                          const int8_t* __restrict__ v, const float* __restrict__ ks,
+                          const float* __restrict__ vs, const int32_t* __restrict__ rows,
+                          T* __restrict__ out, int H, int S, int tiles, int slots) {
+  self_i8_split_body<T, true>(q, kT, v, ks, vs, rows, out, H, S, S, tiles, slots);
+}
+
+size_t self_smem(Shape sh, int slots) {
+  return self_head_bytes(sh.cs * sh.warps) + sh.warps * self_warp_bytes(slots);
+}
+
+template <typename T>
+cudaError_t launch_self_split(const void* q, const void* kT, const void* v, const void* ks,
+                              const void* vs, void* out, int BB, int H, int S, int idx,
+                              Shape sh, cudaStream_t st) {
+  const int n = idx + 1, tiles = (n + TILE - 1) / TILE, slots = slots_of(tiles, sh);
+  const size_t smem = self_smem(sh, slots);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(self_i8_split_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch L(BB * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
+  e = cudaLaunchKernelEx(&L.cfg, self_i8_split_kernel<T>, (const T*)q, (const int8_t*)kT,
+                         (const int8_t*)v, (const float*)ks, (const float*)vs, (T*)out, S, n,
+                         tiles, slots);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_self_split_rows(const void* q, const void* kT, const void* v, const void* ks,
+                                   const void* vs, const void* rows, void* out, int BB, int H,
+                                   int S, Shape sh, cudaStream_t st) {
+  const int tiles = (S + TILE - 1) / TILE, slots = slots_of(tiles, sh);
+  const size_t smem = self_smem(sh, slots);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(self_i8_split_rows_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch L(BB * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
+  e = cudaLaunchKernelEx(&L.cfg, self_i8_split_rows_kernel<T>, (const T*)q, (const int8_t*)kT,
+                         (const int8_t*)v, (const float*)ks, (const float*)vs,
+                         (const int32_t*)rows, (T*)out, H, S, tiles, slots);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_cross_split(const void* q, const void* kT, const void* v, const void* ks,
+                               const void* vs, const void* bias, void* out, int B, int H, int S,
+                               int beam, Shape sh, cudaStream_t st) {
+  const int tiles = (S + TILE - 1) / TILE, slots = slots_of(tiles, sh);
+  const int own = (beam + sh.cs - 1) / sh.cs;
+  const size_t smem = cross_head_bytes(sh.cs, own, sh.cs * sh.warps, S, bias != nullptr) +
+                      sh.warps * cross_warp_bytes(slots);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(cross_i8_split_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch L(B * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
+  e = cudaLaunchKernelEx(&L.cfg, cross_i8_split_kernel<T>, (const T*)q, (const int8_t*)kT,
+                         (const int8_t*)v, (const float*)ks, (const float*)vs,
+                         (const float*)bias, (T*)out, H, S, beam, tiles, slots);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 }  // namespace i8
 
 
@@ -1387,55 +2228,67 @@ int stac_decode_cross_attention(const void* q, const void* kT, const void* v,
              : launch_cross_split<__half>(q, kT, v, bias, out, B, H, S, beam, st);
 }
 
-// The int8 cache (one kernel per form for every dtype): idx a host int, or
-// idx_rows (BB,) int32 on the device; k_scale / v_scale (rows, H, 1, S) fp32.
+// The int8 cache: idx a host int, or idx_rows (BB,) int32 on the device;
+// k_scale / v_scale (rows, H, 1, S) fp32. split != 0 launches the split
+// kernel (bf16 and fp16), split == 0 the two-pass one (fp32), as above.
 int stac_decode_self_attention_int8(const void* q, const void* kT, const void* v,
                                     const void* k_scale, const void* v_scale, void* out,
-                                    int BB, int H, int S, int idx, int dtype, void* stream) {
+                                    int BB, int H, int S, int idx, int dtype, int split,
+                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case F32: return i8::launch_self<float>(q, kT, v, k_scale, v_scale, out, BB, H, S, idx, st);
-    case BF16:
-      return i8::launch_self<__nv_bfloat16>(q, kT, v, k_scale, v_scale, out, BB, H, S, idx, st);
-    case F16: return i8::launch_self<__half>(q, kT, v, k_scale, v_scale, out, BB, H, S, idx, st);
+  if (!split) {
+    if (dtype != F32) return ERR_VARIANT;
+    return i8::launch_self<float>(q, kT, v, k_scale, v_scale, out, BB, H, S, idx, st);
   }
-  return ERR_VARIANT;
+  if (dtype != BF16 && dtype != F16) return ERR_VARIANT;
+  if (!aligned16(kT) || !aligned16(v) || !aligned16(k_scale) || !aligned16(v_scale))
+    return ERR_ALIGN;
+  const i8::Shape sh = i8::split_shape((idx + i8::TILE) / i8::TILE, BB * H, i8::SELF_WARPS);
+  return dtype == BF16 ? i8::launch_self_split<__nv_bfloat16>(q, kT, v, k_scale, v_scale, out,
+                                                               BB, H, S, idx, sh, st)
+                       : i8::launch_self_split<__half>(q, kT, v, k_scale, v_scale, out, BB, H,
+                                                       S, idx, sh, st);
 }
 
 int stac_decode_self_attention_int8_rows(const void* q, const void* kT, const void* v,
                                          const void* k_scale, const void* v_scale,
                                          const void* idx_rows, void* out, int BB, int H,
-                                         int S, int dtype, void* stream) {
+                                         int S, int dtype, int split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case F32:
-      return i8::launch_self_rows<float>(q, kT, v, k_scale, v_scale, idx_rows, out, BB, H, S,
-                                         st);
-    case BF16:
-      return i8::launch_self_rows<__nv_bfloat16>(q, kT, v, k_scale, v_scale, idx_rows, out, BB,
-                                                 H, S, st);
-    case F16:
-      return i8::launch_self_rows<__half>(q, kT, v, k_scale, v_scale, idx_rows, out, BB, H, S,
-                                          st);
+  if (!split) {
+    if (dtype != F32) return ERR_VARIANT;
+    return i8::launch_self_rows<float>(q, kT, v, k_scale, v_scale, idx_rows, out, BB, H, S,
+                                       st);
   }
-  return ERR_VARIANT;
+  if (dtype != BF16 && dtype != F16) return ERR_VARIANT;
+  if (!aligned16(kT) || !aligned16(v) || !aligned16(k_scale) || !aligned16(v_scale))
+    return ERR_ALIGN;
+  const i8::Shape sh = i8::split_shape((S + i8::TILE - 1) / i8::TILE, BB * H, i8::SELF_WARPS);
+  return dtype == BF16
+             ? i8::launch_self_split_rows<__nv_bfloat16>(q, kT, v, k_scale, v_scale, idx_rows,
+                                                         out, BB, H, S, sh, st)
+             : i8::launch_self_split_rows<__half>(q, kT, v, k_scale, v_scale, idx_rows, out,
+                                                  BB, H, S, sh, st);
 }
 
 int stac_decode_cross_attention_int8(const void* q, const void* kT, const void* v,
                                      const void* k_scale, const void* v_scale,
                                      const void* bias, void* out, int B, int H, int S,
-                                     int beam, int dtype, void* stream) {
+                                     int beam, int dtype, int split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case F32:
-      return i8::launch_cross<float>(q, kT, v, k_scale, v_scale, bias, out, B, H, S, beam, st);
-    case BF16:
-      return i8::launch_cross<__nv_bfloat16>(q, kT, v, k_scale, v_scale, bias, out, B, H, S,
-                                             beam, st);
-    case F16:
-      return i8::launch_cross<__half>(q, kT, v, k_scale, v_scale, bias, out, B, H, S, beam, st);
+  if (!split) {
+    if (dtype != F32) return ERR_VARIANT;
+    return i8::launch_cross<float>(q, kT, v, k_scale, v_scale, bias, out, B, H, S, beam, st);
   }
-  return ERR_VARIANT;
+  if (dtype != BF16 && dtype != F16) return ERR_VARIANT;
+  if (!aligned16(kT) || !aligned16(v) || !aligned16(k_scale) || !aligned16(v_scale) ||
+      (bias != nullptr && !aligned16(bias)))
+    return ERR_ALIGN;
+  const i8::Shape sh = i8::cross_shape((S + i8::TILE - 1) / i8::TILE, B * H);
+  return dtype == BF16 ? i8::launch_cross_split<__nv_bfloat16>(q, kT, v, k_scale, v_scale, bias,
+                                                                out, B, H, S, beam, sh, st)
+                       : i8::launch_cross_split<__half>(q, kT, v, k_scale, v_scale, bias, out,
+                                                        B, H, S, beam, sh, st);
 }
 
 }  // extern "C"

@@ -39,11 +39,16 @@ softmax in fp32, w_p = softmax_p * v_scale_p rounded to q's dtype, and
 out = sum w_p * v_p accumulated in fp32, stored in q's dtype. Their bound
 is bytes: 2 * Dh int8 and 8 bytes of scales per position read, about 5.1
 us for self at 160 rows x 195 positions (bf16: 9.6) and 0.65 us for cross
-at B16 x 251 (bf16: 1.3), on an H100 at 3.35 TB/s. Each is one simple
-kernel for every dtype, counted under the variant ``simt``
-(``INT8_VARIANT``): one block of 256 threads per (query row, head) -- for
-cross the beam queries of an utterance read its K/V from L2 after the
-first -- the scores in shared memory and an exact two-pass softmax.
+at B16 x 251 (bf16: 1.3), on an H100 at 3.35 TB/s. The same
+:func:`decode_variant` picks their kernel: ``split`` for bf16 and fp16
+splits each (row, head) -- each (utterance, head) for cross, whose beam
+queries are the rows of one tensor-core product -- over positions in a
+cluster, reads int8 in 16-byte chunks and keeps the reference's rounding
+with an exact softmax across the cluster (each block keeps its logits;
+the blocks exchange per-row maxima and sums before any weight is
+formed); cross skips the K/V reads of position tiles its bias masks
+whole. ``simt`` for fp32 is one block of 256 threads per (query row,
+head), the scores in shared memory and an exact two-pass softmax.
 
 A wrapper given CPU tensors returns its ``*_ref`` plain version. Given CUDA
 tensors it checks dtype, shape and contiguity, launches the kernel on the
@@ -69,7 +74,7 @@ __all__ = [
     "decode_cross_attention", "decode_cross_attention_ref",
     "decode_self_attention_int8", "decode_self_attention_int8_ref",
     "decode_cross_attention_int8", "decode_cross_attention_int8_ref",
-    "decode_variant", "INT8_VARIANT", "KERNELS",
+    "decode_variant", "KERNELS",
 ]
 
 NEG_INF = -1e9
@@ -202,11 +207,11 @@ def _lib():
         lib.stac_decode_cross_attention.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.stac_decode_self_attention_int8.argtypes = [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.stac_decode_self_attention_int8_rows.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-        lib.stac_decode_cross_attention_int8.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.stac_decode_cross_attention_int8.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         for fn in (lib.stac_decode_self_attention,
                    lib.stac_decode_self_attention_rows,
                    lib.stac_decode_self_attention_anc,
@@ -275,9 +280,10 @@ def _stream() -> int:
 
 
 def decode_variant(dtype: torch.dtype) -> str:
-    """The kernel that serves self, anc and cross attention for ``dtype``
-    on the card: ``split`` (position splits in a cluster) for bf16 and
-    fp16, ``simt`` (the two-pass kernels) for fp32."""
+    """The kernel that serves every decode-attention wrapper (self, anc,
+    cross and the two int8 ones) for ``dtype`` on the card: ``split``
+    (position splits in a cluster) for bf16 and fp16, ``simt`` (the
+    two-pass kernels) for fp32."""
     return "split" if dtype in (torch.bfloat16, torch.float16) else "simt"
 
 
@@ -385,22 +391,6 @@ _INT8 = {"kT": torch.int8, "v": torch.int8, "k_scale": torch.float32,
          "v_scale": torch.float32}
 
 
-# the one design of the int8 kernels, for every dtype: one block per
-# (query row, head), two passes
-INT8_VARIANT = "simt"
-
-
-def _launch_int8(lib, name: str, fn, dtype: torch.dtype, *args,
-                 form: str = "") -> None:
-    """As :func:`_launch`, for the int8 kernels (no variant argument)."""
-    _raise_on(lib, name, fn(*args, _DTYPES[dtype], _stream()))
-    count_launch(name)
-    count_launch(f"{name}/{INT8_VARIANT}")
-    if form:
-        count_launch(f"{name}/{form}")
-        count_launch(f"{name}/{form}/{INT8_VARIANT}")
-
-
 def decode_self_attention_int8(q, kT, v, k_scale, v_scale, idx):
     """See :func:`decode_self_attention_int8_ref`. ``idx`` is a host int
     in [0, S), or a (BB,) int32 tensor on q's device (the ragged form,
@@ -425,14 +415,14 @@ def decode_self_attention_int8(q, kT, v, k_scale, v_scale, idx):
     ptrs = (q.data_ptr(), kT.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr())
     if ragged:
-        _launch_int8(lib, name, lib.stac_decode_self_attention_int8_rows,
-                     q.dtype, *ptrs, idx.data_ptr(), out.data_ptr(), BB, H,
-                     S, form="rows")
+        _launch(lib, name, lib.stac_decode_self_attention_int8_rows,
+                q.dtype, *ptrs, idx.data_ptr(), out.data_ptr(), BB, H, S,
+                form="rows")
         return out
     if not 0 <= idx < S:
         raise ValueError(f"{name}: idx {idx} outside [0, {S})")
-    _launch_int8(lib, name, lib.stac_decode_self_attention_int8, q.dtype,
-                 *ptrs, out.data_ptr(), BB, H, S, int(idx))
+    _launch(lib, name, lib.stac_decode_self_attention_int8, q.dtype,
+            *ptrs, out.data_ptr(), BB, H, S, int(idx))
     return out
 
 
@@ -457,9 +447,8 @@ def decode_cross_attention_int8(q, kT, v, k_scale, v_scale,
         tensors["bias"], shapes["bias"] = bias, (B, S)
     _check(lib, name, q, tensors, shapes, _INT8)
     out = torch.empty_like(q)
-    _launch_int8(lib, name, lib.stac_decode_cross_attention_int8, q.dtype,
-                 q.data_ptr(), kT.data_ptr(), v.data_ptr(),
-                 k_scale.data_ptr(), v_scale.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 B, H, S, beam)
+    _launch(lib, name, lib.stac_decode_cross_attention_int8, q.dtype,
+            q.data_ptr(), kT.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), B, H, S, beam)
     return out

@@ -527,10 +527,11 @@ def _int8_cache(rng, rows, S, H=4, Dh=64, unwritten=0):
 
 def test_int8_launchers_check_and_count(monkeypatch, rng):
     """The int8 wrappers hand the library their tensors' addresses (the
-    ragged form its own entry point, no host index) and count each launch
-    under the name and ``simt`` (``/rows`` too for the ragged form);
-    a float cache or a scale of another dtype raises (a stand-in for the
-    library)."""
+    ragged form its own entry point, no host index) and the variant of
+    :func:`decode_variant` (``split`` for bf16, ``simt`` for fp32), and
+    count each launch under the name and that variant (``/rows`` too for
+    the ragged form); a float cache or a scale of another dtype raises (a
+    stand-in for the library)."""
     monkeypatch.setattr(K, "_stream", lambda: 0)
     calls = []
 
@@ -548,16 +549,21 @@ def test_int8_launchers_check_and_count(monkeypatch, rng):
     kT, v, ks, vs = _int8_cache(rng, 3, 5)
     q = torch.zeros(3, 4, 64, dtype=torch.bfloat16)
     K.decode_self_attention_int8(q, kT, v, ks, vs, 2)
-    assert calls[-1][-6:] == (3, 4, 5, 2, K._DTYPES[torch.bfloat16], 0)
+    assert calls[-1][-7:] == (3, 4, 5, 2, K._DTYPES[torch.bfloat16], 1, 0)
     idx = torch.tensor([0, 4, 9], dtype=torch.int32)
     K.decode_self_attention_int8(q, kT, v, ks, vs, idx)
-    assert calls[-1][5] == idx.data_ptr() and calls[-1][-5:-2] == (3, 4, 5)
+    assert calls[-1][5] == idx.data_ptr() and calls[-1][-6:-3] == (3, 4, 5)
+    assert calls[-1][-3:] == (K._DTYPES[torch.bfloat16], 1, 0)
     K.decode_cross_attention_int8(q, kT[:1], v[:1], ks[:1], vs[:1], None, 3)
-    assert calls[-1][5] is None and calls[-1][-6:-2] == (1, 4, 5, 3)
+    assert calls[-1][5] is None and calls[-1][-7:-3] == (1, 4, 5, 3)
+    assert calls[-1][-3:] == (K._DTYPES[torch.bfloat16], 1, 0)
+    q32 = q.float()
+    K.decode_self_attention_int8(q32, kT, v, ks, vs, 2)
+    assert calls[-1][-3:] == (K._DTYPES[torch.float32], 0, 0)
     name, cross = "decode_self_attention_int8", "decode_cross_attention_int8"
     assert kernels.launches == {
-        name: 2, f"{name}/simt": 2, f"{name}/rows": 1,
-        f"{name}/rows/simt": 1, cross: 1, f"{cross}/simt": 1}
+        name: 3, f"{name}/split": 2, f"{name}/simt": 1, f"{name}/rows": 1,
+        f"{name}/rows/split": 1, cross: 1, f"{cross}/split": 1}
     with pytest.raises(TypeError, match="kT"):
         K.decode_self_attention_int8(q, kT.float(), v, ks, vs, 2)
     with pytest.raises(TypeError, match="k_scale"):
@@ -625,3 +631,175 @@ def test_int8_cross_kernel_matches_plain_on_card(card, rng, dtype, beam, S):
         torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol,
                                    rtol=0)
         assert torch.equal(outs[0], outs[1])
+
+
+# ------------------------------ the int8 kernels' variants (split / simt)
+def _int8_launched(name, fn, variant, form=""):
+    """fn's result; its launches must be one under name and ``variant``
+    (and ``form``, ``form/variant``)."""
+    want = {name: 1, f"{name}/{variant}": 1}
+    if form:
+        want.update({f"{name}/{form}": 1, f"{name}/{form}/{variant}": 1})
+    before = dict(kernels.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    added = {k: n - before.get(k, 0) for k, n in kernels.launches.items()
+             if n != before.get(k, 0)}
+    assert added == want, added
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_ALL_DTYPES))
+# the cache segments; 1100: more tiles than 8 blocks of 4 warps
+@pytest.mark.parametrize("S", [67, 131, 195, 1100])
+def test_int8_split_self_kernel_on_card(card, rng, dtype, S):
+    """decode_self_attention_int8's scalar form on ``split`` (bf16, fp16;
+    1e-2) and ``simt`` (fp32; 5e-5) against the plain version, at 2, 16 and
+    160 rows and n = idx + 1 of 1, of 41 and 97 (not multiples of 16) and
+    of S; positions past n are an unwritten cache (zeros, scale 0) that
+    takes no weight. Two launches give the same bits."""
+    dt, tol = _ALL_DTYPES[dtype]
+    variant, name = K.decode_variant(dt), "decode_self_attention_int8"
+    for rows in (2, 16, 160):
+        kT, v, ks, vs = (t.to(card) for t in _int8_cache(rng, rows, S))
+        q = torch.from_numpy(_randn(rng, rows, 4, 64)).to(card, dt)
+        for idx in (i for i in (0, 40, 96, S - 1) if i < S):
+            kTu, vu, ksu, vsu = (t.clone() for t in (kT, v, ks, vs))
+            for t in (kTu, ksu, vsu):
+                t[..., idx + 1:] = 0
+            vu[:, :, idx + 1:] = 0
+            outs = [_int8_launched(name, lambda: K.decode_self_attention_int8(
+                q, kTu, vu, ksu, vsu, idx), variant) for _ in range(2)]
+            ref = K.decode_self_attention_int8_ref(q, kT, v, ks, vs, idx)
+            assert torch.isfinite(outs[0]).all(), (rows, idx)
+            torch.testing.assert_close(outs[0].float(), ref.float(),
+                                       atol=tol, rtol=0)
+            assert torch.equal(outs[0], outs[1]), (rows, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_ALL_DTYPES))
+@pytest.mark.parametrize("S", [67, 195, 1100])
+def test_int8_split_ragged_self_kernel_on_card(card, rng, dtype, S):
+    """The ragged form on ``split`` / ``simt``: 16 rows at index 0, tile
+    edges, S - 1, and at and past S (which reads all S), counted under
+    ``/rows``; two launches bitwise equal; a row at a host index gives
+    what the scalar form gives."""
+    dt, tol = _ALL_DTYPES[dtype]
+    variant, name = K.decode_variant(dt), "decode_self_attention_int8"
+    rows = 16
+    kT, v, ks, vs = (t.to(card) for t in _int8_cache(rng, rows, S))
+    q = torch.from_numpy(_randn(rng, rows, 4, 64)).to(card, dt)
+    idx = np.asarray([0, 31, 32, 40, S - 1, S, S + 7, 3 * S, 1, 63, 64, 96,
+                      S // 2, 0, 5, 10 * S], np.int64)
+    idx = np.minimum(idx, np.where(np.arange(rows) < 4, S - 1, 10 * S))
+    at = torch.from_numpy(idx.astype(np.int32)).to(card)
+    outs = [_int8_launched(name, lambda: K.decode_self_attention_int8(
+        q, kT, v, ks, vs, at), variant, "rows") for _ in range(2)]
+    ref = K.decode_self_attention_int8_ref(q, kT, v, ks, vs, at)
+    assert torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol, rtol=0)
+    assert torch.equal(outs[0], outs[1])
+    for r in (0, 4, 13):
+        one = K.decode_self_attention_int8(
+            q[r:r + 1], kT[r:r + 1], v[r:r + 1], ks[r:r + 1], vs[r:r + 1],
+            int(min(idx[r], S - 1)))
+        torch.testing.assert_close(outs[0][r:r + 1].float(), one.float(),
+                                   atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_ALL_DTYPES))
+@pytest.mark.parametrize("beam", [1, 3, 10, 16])
+@pytest.mark.parametrize("S", [251, 801])
+def test_int8_split_cross_kernel_on_card(card, rng, dtype, beam, S):
+    """decode_cross_attention_int8 on ``split`` (bf16, fp16) and ``simt``
+    (fp32): 4 utterances, no bias, and a bias that masks a tail, most
+    keys, and every key of one row; two launches bitwise equal."""
+    dt, tol = _ALL_DTYPES[dtype]
+    variant, name = K.decode_variant(dt), "decode_cross_attention_int8"
+    B = 4
+    kT, v, ks, vs = (t.to(card) for t in _int8_cache(rng, B, S))
+    q = torch.from_numpy(_randn(rng, B * beam, 4, 64)).to(card, dt)
+    lens = torch.tensor([S, S // 2, 7, 0], device=card)
+    mask = torch.where(torch.arange(S, device=card)[None, :] < lens[:, None],
+                       0.0, NEG_INF).float()
+    for bias in (None, mask):
+        outs = [_int8_launched(name, lambda: K.decode_cross_attention_int8(
+            q, kT, v, ks, vs, bias, beam), variant) for _ in range(2)]
+        ref = K.decode_cross_attention_int8_ref(q, kT, v, ks, vs, bias, beam)
+        assert torch.isfinite(outs[0]).all()
+        torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol,
+                                   rtol=0)
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(_ALL_DTYPES))
+@pytest.mark.parametrize("beam", [1, 3])
+def test_int8_cross_kernel_slot_loop_bias_on_card(card, rng, dtype, beam):
+    """The slot loop's bias at 16 slots x 801 frames, which ``split`` reads
+    first to skip the position tiles it masks whole: prefixes of the 2-32 s
+    buckets, a free slot (every frame masked: the reference's uniform
+    softmax, every tile read), a slot whose only visible frame is 0, one
+    whose only visible frame is the last, and one with a visible frame
+    inside an otherwise masked tile. Within tolerance of the plain
+    version, two launches bitwise equal; and equal to the same call with
+    the masked K/V filled with other values (a skipped tile counts for
+    nothing)."""
+    dt, tol = _ALL_DTYPES[dtype]
+    variant, name = K.decode_variant(dt), "decode_cross_attention_int8"
+    R, S = 16, 801
+    lens = [20, 50, 67, 100, 137, 201, 250, 301, 401, 500, 601, 700, 801]
+    bias = np.full((R, S), NEG_INF, np.float32)
+    for r, n in enumerate(lens):
+        bias[r, :n] = 0.0
+    # row 13: every frame masked; 14: only frame 0; 15: only frame S - 1
+    bias[14, 0] = 0.0
+    bias[15, S - 1] = 0.0
+    bias[2, 400] = -3.0  # one visible frame in a masked tile, off 0
+    bias_d = torch.from_numpy(bias).to(card)
+    kT, v, ks, vs = (t.to(card) for t in _int8_cache(rng, R, S))
+    q = torch.from_numpy(_randn(rng, R * beam, 4, 64)).to(card, dt)
+    outs = [_int8_launched(name, lambda: K.decode_cross_attention_int8(
+        q, kT, v, ks, vs, bias_d, beam), variant) for _ in range(2)]
+    ref = K.decode_cross_attention_int8_ref(q, kT, v, ks, vs, bias_d, beam)
+    assert torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol, rtol=0)
+    assert torch.equal(outs[0], outs[1])
+    hidden = torch.from_numpy(bias <= NEG_INF).to(card)
+    hidden[13] = False  # the free slot reads every frame
+    kT2, v2 = kT.clone(), v.clone()
+    kT2.masked_fill_(hidden[:, None, None, :], 77)
+    v2.masked_fill_(hidden[:, None, :, None], -77)
+    other = K.decode_cross_attention_int8(q, kT2, v2, ks, vs, bias_d, beam)
+    ref2 = K.decode_cross_attention_int8_ref(q, kT2, v2, ks, vs, bias_d, beam)
+    torch.testing.assert_close(other.float(), ref2.float(), atol=tol, rtol=0)
+    if variant == "split":
+        assert torch.equal(other, outs[0])
+
+
+@pytest.mark.cuda
+def test_int8_split_entry_refuses_fp32_and_unaligned_on_card(card, rng):
+    """No fallback: the library's split entry asked for fp32 returns
+    ERR_VARIANT, and a tensor off 16 bytes makes the wrapper raise with
+    ERR_ALIGN."""
+    lib = K._lib()
+    kT, v, ks, vs = (t.to(card) for t in _int8_cache(rng, 2, 67))
+    q = torch.zeros(2, 4, 64, device=card)
+    out = torch.empty_like(q)
+    rc = lib.stac_decode_self_attention_int8(
+        q.data_ptr(), kT.data_ptr(), v.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), out.data_ptr(), 2, 4, 67, 10,
+        K._DTYPES[torch.float32], 1, K._stream())
+    with pytest.raises(RuntimeError, match="split for bf16"):
+        K._raise_on(lib, "decode_self_attention_int8", rc)
+    qb = q.to(torch.bfloat16)
+    flat = torch.zeros(kT.numel() + 1, dtype=torch.int8, device=card)
+    off = flat[1:].view(kT.shape)
+    off.copy_(kT)
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        K.decode_self_attention_int8(qb, off, v, ks, vs, 10)
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        K.decode_cross_attention_int8(qb, off, v, ks, vs, None, 1)
