@@ -91,6 +91,32 @@ Phases, each printed as one JSON line:
    draft, k = 6, 64 tokens) on four utterances of 2-10 s: fp32 texts equal
    to the target's beam-1 decode with float and with int8 caches, bf16
    agreement printed, tokens per target step and RTFx;
+4d. search_options: the searcher's options at the flagship preset (seeded
+   weights, bf16, main_path's search: beam 10, eos threshold 1.5, length
+   normalization, temperature 1.15, 192 tokens) in a 10 s bucket (251
+   encoder frames). The CTC prefix kernel (ctc_prefix_score,
+   csrc/ctc_prefix.cu) against its plain version: 160 rows (B16 x beam
+   10), 11 candidates, 251 frames, vocab 5000, half the rows mid-prefix,
+   lengths 126-251, eos, blank and the last label among the candidates,
+   then the full vocabulary at B2 x beam 1: within 1e-4 of max(1, |plain|),
+   the -1e9 class in the same places, bitwise over two launches, its µs,
+   bound, plain µs, ptxas registers (no spills); the two cross kernels with
+   the mask's padding bias at B16 x beam 10 x 251 against their plain
+   versions. Then joint CTC/attention decoding (ctc_weight 0.3, the
+   model's CTC head) of main_path's batch with the float cache (anc), via
+   call_multi with both prompts, and with the int8 cache (gather): exactly
+   one ctc_prefix_score launch a decode step and 6 x (3 + steps) of each
+   decode kernel, all split, warm RTFx beside the attention-only search
+   (--profile: the device busy time and the CTC kernel's share);
+   mask_encoder_padding on 16 utterances of 2-10 s (float and int8 caches:
+   every cross call carries the bias, counts exact); LM fusion with a
+   seeded stateful LM written here (weight 0 gives the LM-free texts; 0.3
+   timed, counts exact); decode_tier 32 under the 192-token cap on the
+   flagship weights and on an eos-biased copy (texts equal to the single
+   pass; the biased searches take the fast path); each option in fp32 card
+   against CPU (B2 x 4 s and 2.5 s, 24 tokens: tokens equal); and the
+   speculative engine with the target's padding mask (fp32 texts equal to
+   the target's masked beam-1 translate);
 5. train: the flagship training configuration as bench_train.py builds it
    (dropout 0.1, CTC 0.3, label smoothing 0.1, batchmean, AdamW 1e-3,
    WarmCoolDecay, clip 5.0, bf16 compute, B32 x 15 s, U128, seeded
@@ -186,7 +212,8 @@ Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through, and its
 launches in the recipe and serve phases; the ragged self forms are lines
 of their own, their launches the serve phase's; the int8 kernels' launches
-are phase int8's),
+are phase int8's; ctc_prefix_score's those of phase search_options' joint
+CTC search with the float cache),
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
@@ -2984,6 +3011,512 @@ def card_vs_cpu_train_phase(torch):
     emit(rec)
 
 
+# ------------------------------------------------------------ search options
+# phase search_options: the serving configuration's search (beam 10, eos
+# threshold 1.5, length normalization, temperature 1.15, 192 tokens) with
+# each of the searcher's options, at the flagship preset, in a 10 s bucket
+# (251 encoder frames: the kernel phase's shapes)
+OPT_BUCKET = (10.0,)
+CTC_WEIGHT, LM_WEIGHT, TIER, EOS_BOOST = 0.3, 0.3, 32, 12.0
+CTC_K, V_FLAG = BEAM + 1, 5000
+# the CTC kernel against its plain version, relative to max(1, |plain|):
+# both take the same fp32 operations in the same order, but exp and log1p
+# differ by an ulp between the card's and PyTorch's implementations, and
+# the psi sum is taken in another order; 251 frames of such steps
+CTC_TOL = 1e-4
+NEG_CLASS = -1e8  # the -1e9 class of the recursion (ulp 64 there)
+MASK_SECONDS = tuple(float(s) for s in np.linspace(2.0, 10.0, B))
+CPU_SECONDS, CPU_TOKENS, CPU_TIER = (4.0, 2.5), 24, 8
+
+
+def options_engine(mods, **kw):
+    """main_path's engine (bf16, beam 10, 192 tokens, PCM16) with the
+    10 s bucket."""
+    return engine(mods, "cuda", bf16=True, beam_size=BEAM,
+                  max_decode_tokens=192, transfer_dtype="int16",
+                  bucket_seconds=OPT_BUCKET, **kw)
+
+
+def ctc_texts(torch, eng, wavs, prompts):
+    """Joint CTC/attention decoding through the searcher's API, as
+    ``STEngine`` groups and encodes: per bucket one encoder pass, the CTC
+    head's log-posteriors (log_softmax of ctc_lin, fp32), one search over
+    the prompts (``call_multi``). texts[p][i]."""
+    out = [[""] * len(wavs) for _ in prompts]
+    with torch.inference_mode():
+        for idx, batch, lens in eng._prepare(wavs):
+            enc = eng._encode(batch, lens)
+            ctc = torch.log_softmax(eng._ctc_lin(enc).float(), dim=-1)
+            for p, (hyps, _) in enumerate(eng.searcher.call_multi(
+                    enc, lens, prompts=prompts, ctc_log_probs=ctc)):
+                for row, i in enumerate(idx):
+                    out[p][i] = eng.tokenizer.decode_ids(hyps[row])
+    return out
+
+
+def decode_launches(launches, steps: int, kv) -> dict:
+    """The decode kernels a beam-10 search of ``steps`` decode steps must
+    launch (6 layers x (3 prompt + steps), every one on split): anc and
+    cross with the float cache, the int8 self and cross with the int8
+    cache; and the launched ones, to compare."""
+    names = (("decode_self_attention_int8", "decode_cross_attention_int8")
+             if kv else ("decode_self_attention_anc",
+                         "decode_cross_attention"))
+    per = 6 * (3 + steps)
+    want = {f"{n}{v}": per for n in names for v in ("", f"/{SPLIT}")}
+    got = {k: c for k, c in launches.items() if k.startswith("decode_")}
+    return {"want": want, "got": got, "exact": got == want}
+
+
+class CrossBias:
+    """Counts the decoder's cross-attention calls with and without an
+    encoder bias while active (wraps the two names ``models.transformer``
+    calls; the kernels' launch counts are untouched)."""
+
+    NAMES = ("decode_cross_attention", "decode_cross_attention_int8")
+
+    def __enter__(self):
+        import stac_st_tpu_torch.models.transformer as T
+
+        self.T, self.saved, self.biased, self.unbiased = T, {}, 0, 0
+        for n in self.NAMES:
+            fn = self.saved[n] = getattr(T, n)
+
+            def counted(*args, _fn=fn):
+                if args[-2] is None:  # (..., bias, beam)
+                    self.unbiased += 1
+                else:
+                    self.biased += 1
+                return _fn(*args)
+
+            setattr(T, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.T, n, fn)
+
+
+def script_lm(torch, device, seed: int = 3, dim: int = 64):
+    """A small seeded stateful LM written here: logits = tanh(E[token] +
+    P[previous token]) W, its state the token fed (B·beam rows, so the
+    search must gather it on every reorder). (step, init, params)."""
+    gen = torch.Generator().manual_seed(seed)
+    params = {k: (torch.randn(shape, generator=gen) * sc).to(device)
+              for k, shape, sc in (("cur", (V_FLAG, dim), 1.0),
+                                   ("prev", (V_FLAG, dim), 1.0),
+                                   ("out", (dim, V_FLAG), 3.0 / dim ** 0.5))}
+
+    def step(p, tokens, position, state):
+        return torch.tanh(p["cur"][tokens] + p["prev"][state]) @ p["out"], \
+            tokens
+
+    def init(p, bb):
+        return torch.ones((bb,), dtype=torch.long, device=p["out"].device)
+
+    return step, init, params
+
+
+def _ctc_err(got, want):
+    """Largest |got - want| / max(1, |want|) over the entries outside the
+    -1e9 class, and whether the class is the same on both sides."""
+    neg = want <= NEG_CLASS
+    same_class = bool(((got <= NEG_CLASS) == neg).all())
+    rel = ((got - want).abs() / want.abs().clamp(min=1.0))[~neg]
+    return (float(rel.max()) if rel.numel() else 0.0), same_class
+
+
+def ctc_kernel_cases(torch, kernels, timer):
+    """ctc_prefix_score against its plain version on the card: the
+    flagship joint search (B16 x beam 10 = 160 rows, K 11 candidates, T 251
+    frames, V 5000), half the rows on the empty prefix and half mid-prefix
+    (state from four scores and selects), input lengths 126-251, eos,
+    blank and the row's last label among the candidates; then the
+    full-vocabulary mode at B2 x beam 1. Within CTC_TOL of max(1, |plain|),
+    the -1e9 class in the same places, bitwise over two launches; µs, the
+    plain version's, the bound; ptxas registers and spills."""
+    from stac_st_tpu_torch.decoding import ctc_prefix as CP
+    from stac_st_tpu_torch.ops.kernels import ctc_prefix as KC
+
+    g = torch.Generator(device="cpu").manual_seed(13)
+    rec = {"phase": "kernel", "name": "ctc_prefix_score",
+           "registers": registers(kernels.build_logs["ctc_prefix"],
+                                  "ctc_prefix_kernel"),
+           "spills": spills(kernels.build_logs["ctc_prefix"],
+                            "ctc_prefix_kernel")}
+    check(len(rec["spills"]) == 1 and not any(
+        sum(v) for v in rec["spills"].values()),
+        f"ctc_prefix_kernel spills: {rec['spills']}")
+    T, BB = S_ENC, B * BEAM
+    lp = torch.log_softmax(3.0 * torch.randn((B, T, V_FLAG), generator=g),
+                           dim=-1).to("cuda")
+    lens = (126 + torch.randperm(BB, generator=g) * 125 // (BB - 1)) \
+        .to("cuda")
+    # mid prefixes from a real sequence of scores and selects (plain)
+    state = CP.ctc_prefix_init(lp, 0, BEAM)
+    mid = state
+    for _ in range(4):
+        cand = torch.randint(3, V_FLAG, (BB, CTC_K), generator=g).to("cuda")
+        _, cs, cid = CP.ctc_prefix_score_all(mid, lp, lens, 0, 2, cand, BEAM)
+        mid = CP.ctc_prefix_select(cs, cid, torch.randint(
+            0, CTC_K, (BB,), generator=g).to("cuda"))
+    odd = (torch.arange(BB, device="cuda") % 2 == 1)
+    r_nb = torch.where(odd[:, None], mid.r_nb, state.r_nb).contiguous()
+    r_b = torch.where(odd[:, None], mid.r_b, state.r_b).contiguous()
+    last = torch.where(odd, mid.last, state.last).contiguous()
+    cand = torch.randint(3, V_FLAG, (BB, CTC_K), generator=g).to("cuda")
+    cand[:, 0], cand[:, 1] = 2, 0  # eos, blank
+    cand[:, 2] = torch.where(last >= 0, last, cand[:, 2])
+    cand = cand.contiguous()
+    for key, b, beam, c, rows_ in (
+            ("joint", B, BEAM, cand, slice(None)),
+            ("full_vocabulary", 2, 1, None, slice(0, 2))):
+        args = (lp[:b].contiguous(), r_nb[rows_].contiguous(),
+                r_b[rows_].contiguous(), last[rows_].contiguous(), c,
+                lens[rows_].contiguous(), 0, 2, beam)
+        run = partial(KC.ctc_prefix_score, *args)
+        plain = partial(KC.ctc_prefix_score_ref, *args)
+        one, two = run(), run()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(one, two)),
+              f"ctc_prefix_score {key}: not bitwise over two launches")
+        want = plain()
+        errs = {}
+        for label, x, w in zip(("scores", "r_nb", "r_b"), one, want):
+            err, same = _ctc_err(x, w)
+            check(same, f"ctc_prefix_score {key} {label}: -1e9 class differs")
+            check(err <= CTC_TOL, f"ctc_prefix_score {key} {label}: "
+                  f"relative err {err} > {CTC_TOL}")
+            errs[label] = err
+        rows, K = args[1].shape[0], (V_FLAG if c is None else CTC_K)
+        # bytes this run's data needs: the distinct (utterance, token)
+        # posterior columns over T (the candidates and blank), the prefix
+        # state, the indices; the scores and the (rows, K, T) state written
+        cols = sum(int(torch.unique(torch.cat([
+            (torch.arange(V_FLAG, device="cuda") if c is None
+             else c[u * beam:(u + 1) * beam].reshape(-1)),
+            torch.zeros(1, dtype=torch.long, device="cuda")])).numel())
+            for u in range(b))
+        nbytes = (cols * T * 4 + 2 * rows * T * 4 + rows * 8 * (2 + (
+            0 if c is None else K)) + rows * K * 4 + 2 * rows * K * T * 4)
+        # a lane-frame: three logaddexps (phi, nb, b) and the psi term,
+        # about 20 operations
+        b_ms, b_by = bound_ms(nbytes, 20.0 * rows * K * T, "float32")
+        rec[key] = {"rows": rows, "K": K, "T": T, "beam": beam,
+                    "rel_err": errs, "max_abs_err": max(
+                        float((x - w).abs()[w > NEG_CLASS].max())
+                        for x, w in zip(one, want)),
+                    "bitwise_repeatable": True, "ms": timer.ms(run),
+                    "plain_ms": timer.ms(plain, n=3), "bound_ms": b_ms,
+                    "bound_by": b_by, "bytes": nbytes,
+                    "library_ms": None,
+                    "library": "none: no PyTorch call scores CTC prefixes "
+                               "of candidate continuations (F.ctc_loss is "
+                               "a full-label forward)",
+                    "host_us": host_us(torch, run)}
+    rec["timer_floor_ms"] = timer.floor_ms()
+    emit(rec)
+    return rec
+
+
+def cross_bias_cases(torch, K, timer):
+    """The two cross kernels (bf16, split) with the padding bias the mask
+    phase's batch gives them, B16 x beam 10 x 251, against their plain
+    versions (the float one with its SDPA yardstick under the same key
+    mask, the int8 one beside the float kernel on the dequantized
+    values)."""
+    g = torch.Generator(device="cpu").manual_seed(14)
+    bf, BB = torch.bfloat16, B * BEAM
+    keep = [math.floor(s / OPT_BUCKET[0] * S_ENC) for s in MASK_SECONDS]
+    bias = torch.where(torch.arange(S_ENC, device="cuda")[None, :]
+                       > torch.tensor(keep, device="cuda")[:, None],
+                       -1e9, 0.0).float().contiguous()
+    vis = [min(k + 1, S_ENC) for k in keep]
+    q, kT, v = ((torch.randn(shape, generator=g) * sc).to("cuda", bf)
+                for shape, sc in (((BB, H, DH), 1 / 8),
+                                  ((B, H, DH, S_ENC), 1),
+                                  ((B, H, S_ENC, DH), 1)))
+    out = {"visible_frames": vis}
+    out["decode_cross_attention"] = _timed_case(
+        torch, timer, "decode_cross_attention", "cross with the mask",
+        partial(K.decode_cross_attention, q, kT, v, bias, BEAM),
+        partial(K.decode_cross_attention_ref, q, kT, v, bias, BEAM),
+        (2 * BB * H * DH + 2 * H * sum(vis) * DH) * 2 + B * S_ENC * 4,
+        4.0 * BEAM * H * sum(vis) * DH,
+        lib=lambda want: (*_cross_lib(q, kT, v, BEAM, want)[:4],
+                          (bias == 0)[:, None, None, :]))
+    kq, ks = _int8_like(torch, torch.randn((B, H, DH, S_ENC), generator=g),
+                        2)
+    vq, vs = _int8_like(torch, torch.randn((B, H, S_ENC, DH), generator=g),
+                        3)
+    vs = vs.transpose(2, 3).contiguous()
+    q8 = torch.randn((BB, H, DH), generator=g).to("cuda", bf)
+    kf = (kq.float() * ks).to(bf).contiguous()
+    vf = (vq.float() * vs.transpose(2, 3)).to(bf).contiguous()
+    out["decode_cross_attention_int8"] = _int8_case(
+        torch, K, timer, "cross int8 with the mask",
+        partial(K.decode_cross_attention_int8, q8, kq, vq, ks, vs, bias,
+                BEAM),
+        partial(K.decode_cross_attention_int8_ref, q8, kq, vq, ks, vs, bias,
+                BEAM),
+        partial(K.decode_cross_attention, (q8.float() / 8).to(bf), kf, vf,
+                bias, BEAM),
+        2 * BB * H * DH * 2 + H * sum(vis) * (2 * DH + 8) + B * S_ENC * 4,
+        4.0 * BEAM * H * sum(vis) * DH, "bfloat16",
+        "decode_cross_attention_int8")
+    return out
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def joint_ctc_cases(torch, kernels, wavs, base, att_wall, profile):
+    """Joint CTC/attention decoding (ctc_weight 0.3, the model's own CTC
+    head) of main_path's batch: the float cache (anc mode), the same
+    through call_multi with both prompts, and the int8 cache (gather
+    mode); warm RTFx beside the attention-only search's, exact launch
+    counts of each warm call (one ctc_prefix_score a decode step, the
+    decode kernels 6 x (3 + steps), all split)."""
+    audio_s = B * SECONDS
+    out = {"attention_only_warm_rtfx": audio_s / att_wall}
+    for label, kv, dual in (("float", None, False), ("dual", None, True),
+                            ("int8", "int8", False)):
+        eng = options_engine(flagship(0), kv_cache_dtype=kv)
+        eng.searcher.config = eng.searcher.config._replace(
+            ctc_weight=CTC_WEIGHT)
+        prompts = ([eng._prompt("es", "es"), eng._prompt("es", "en")]
+                   if dual else [eng._prompt("es", "en")])
+        run = partial(ctc_texts, torch, eng, wavs, prompts)
+        run()  # first call: set-up
+        kernels.reset_launches()
+        texts, wall = _timed(torch, run)
+        launches = dict(kernels.launches)
+        steps = launches.pop("ctc_prefix_score", 0)
+        dec = decode_launches(launches, steps, kv)
+        check(1 <= steps <= 192 and dec["exact"] and not launches.keys()
+              - dec["got"].keys(),
+              f"joint CTC {label}: {steps} CTC launches, decode "
+              f"{dec['got']}, want {dec['want']}")
+        check(all(len(t) == B and all(t) for t in texts),
+              f"joint CTC {label}: one non-empty text per input")
+        case = {"steps": steps, "ctc_prefix_score_launches": steps,
+                "launches": {**launches, "ctc_prefix_score": steps},
+                "warm_s": wall, "warm_rtfx": audio_s / wall,
+                "rtfx_vs_attention_only": att_wall / wall,
+                "texts_differ_from_attention_only": sum(
+                    a != b for a, b in zip(texts[-1], base))}
+        if profile and label == "float":
+            case["profile"] = profile_call(
+                torch, run, wall, "joint_ctc",
+                watch=("ctc_prefix_kernel", "anc_split_kernel",
+                       "cross_split_kernel"))
+            case["profile"]["ctc_share_of_busy"] = (
+                case["profile"]["watched"].get("ctc_prefix_kernel", {})
+                .get("device_us", 0.0) / 1e6
+                / case["profile"]["device_busy_s"])
+        out[label] = case
+        del eng
+    return out
+
+
+def mask_cases(torch, kernels):
+    """mask_encoder_padding on 16 utterances of 2-10 s in the 10 s bucket
+    (beam 10), the float cache (anc) and the int8 cache (gather): every
+    cross call of the warm masked translate carries the bias, the launch
+    counts are exact, and the texts against the unmasked ones (printed)."""
+    rng = np.random.default_rng(6)
+    wavs = [(rng.standard_normal(int(sec * SR)) * 3000)
+            .clip(-32768, 32767).astype(np.int16) for sec in MASK_SECONDS]
+    out = {"seconds": list(MASK_SECONDS)}
+    for label, kv in (("float", None), ("int8", "int8")):
+        eng = options_engine(flagship(0), kv_cache_dtype=kv)
+        plain = eng.translate(wavs)
+        eng.searcher.mask_encoder_padding = True
+        eng.translate(wavs)  # first masked call
+        kernels.reset_launches()
+        with CrossBias() as watch:
+            texts, wall = _timed(torch, partial(eng.translate, wavs))
+        launches = dict(kernels.launches)
+        cross = ("decode_cross_attention_int8" if kv
+                 else "decode_cross_attention")
+        n = launches.get(cross, 0)
+        steps = n // 6 - 3
+        dec = decode_launches(launches, steps, kv)
+        check(n % 6 == 0 and 1 <= steps <= 192 and dec["exact"],
+              f"mask {label}: decode {dec['got']}, want {dec['want']}")
+        check(watch.unbiased == 0 and watch.biased == n,
+              f"mask {label}: {watch.biased} cross calls with the bias, "
+              f"{watch.unbiased} without, {n} launched")
+        out[label] = {"steps": steps, "launches": launches,
+                      "cross_calls_with_bias": watch.biased,
+                      "warm_s": wall,
+                      "rtfx": sum(MASK_SECONDS) / wall,
+                      "texts_differ_from_unmasked": sum(
+                          a != b for a, b in zip(texts, plain))}
+        del eng
+    return out
+
+
+def lm_cases(torch, kernels, wavs, base):
+    """Shallow LM fusion with the script's stateful LM on main_path's
+    batch: lm_weight 0 gives the LM-free texts; at 0.3 (flagship width)
+    the warm RTFx, exact decode launch counts and the texts that moved."""
+    eng = options_engine(flagship(0))
+    step, init, params = script_lm(torch, "cuda")
+    eng.searcher.set_lm(step, init, params, lm_weight=0.0)
+    zero = eng.translate(wavs)
+    check(zero == base, "lm_weight 0: texts differ from the LM-free search")
+    eng.searcher.set_lm(step, init, params, lm_weight=LM_WEIGHT)
+    eng.translate(wavs)  # first call
+    kernels.reset_launches()
+    texts, wall = _timed(torch, partial(eng.translate, wavs))
+    launches = dict(kernels.launches)
+    n = launches.get("decode_cross_attention", 0)
+    dec = decode_launches(launches, n // 6 - 3, None)
+    check(n % 6 == 0 and dec["exact"],
+          f"LM fusion: decode {dec['got']}, want {dec['want']}")
+    return {"weight_0_equals_lm_free": True, "steps": n // 6 - 3,
+            "launches": launches, "warm_s": wall,
+            "warm_rtfx": B * SECONDS / wall,
+            "texts_differ_from_lm_free": sum(
+                a != b for a, b in zip(texts, base))}
+
+
+def tier_cases(torch, wavs):
+    """decode_tier 32 under the 192-token cap, on the flagship weights and
+    on a copy whose seq_lin eos bias is raised by 12 (its searches settle
+    at once): texts equal to the single pass, and which searches took the
+    fast path (the tier pass settled every row)."""
+    out = {"tier": TIER, "max_decode_tokens": 192}
+    fast = 0
+    for label, boost in (("flagship", 0.0), ("eos_biased", EOS_BOOST)):
+        mods = flagship(0)
+        with torch.no_grad():
+            mods["seq_lin"].linear.bias[2] += boost
+        eng = options_engine(mods)
+        single, s_wall = _timed(torch, partial(eng.translate, wavs))
+        single, s_wall = _timed(torch, partial(eng.translate, wavs))
+        eng.searcher.decode_tier = TIER
+        eng.translate(wavs)
+        tiered, t_wall = _timed(torch, partial(eng.translate, wavs))
+        settled = eng.searcher.last_tier_settled
+        check(tiered == single, f"tier {label}: texts differ from the "
+              "single pass")
+        fast += bool(settled)
+        out[label] = {"fast_path": settled, "single_s": s_wall,
+                      "tiered_s": t_wall,
+                      "tokens_per_utt": [len(t.split()) for t in tiered]}
+        del eng
+    check(out["eos_biased"]["fast_path"],
+          "tier: the eos-biased searches did not settle at the tier")
+    out["fast_path_searches"] = fast
+    out["searches"] = 2
+    return out
+
+
+def options_card_vs_cpu(torch):
+    """Each option in fp32 (TF32 off), full width and depth, the card
+    against the CPU (the kernels' plain versions): B2 x 4 s and 2.5 s in a
+    4 s bucket, beam 10, 24 tokens; joint CTC, LM fusion, the padding
+    mask, decode_tier 8 (its rerun path). Texts (the token ids) equal."""
+    rng = np.random.default_rng(2)
+    wavs = [(0.1 * rng.standard_normal(int(sec * SR))).astype(np.float32)
+            for sec in CPU_SECONDS]
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        eng = engine(flagship(1), dev, bf16=False, beam_size=BEAM,
+                     max_decode_tokens=CPU_TOKENS,
+                     bucket_seconds=(max(CPU_SECONDS),))
+        s, got = eng.searcher, {}
+        s.config = s.config._replace(ctc_weight=CTC_WEIGHT)
+        got["joint_ctc"] = ctc_texts(torch, eng, wavs,
+                                     [eng._prompt("es", "en")])[0]
+        s.config = s.config._replace(ctc_weight=0.0)
+        s.set_lm(*script_lm(torch, dev), lm_weight=LM_WEIGHT)
+        got["lm"] = eng.translate(wavs)
+        s.config = s.config._replace(lm_weight=0.0)
+        s.mask_encoder_padding = True
+        got["mask"] = eng.translate(wavs)
+        s.mask_encoder_padding = False
+        s.decode_tier = CPU_TIER
+        got["tier"] = eng.translate(wavs)
+        got["tier_fast_path"] = s.last_tier_settled
+        texts[dev] = got
+        del eng
+    out = {"batch": len(wavs), "seconds": list(CPU_SECONDS),
+           "tokens": CPU_TOKENS, "dtype": "float32"}
+    for case in ("joint_ctc", "lm", "mask", "tier"):
+        equal = texts["cuda"][case] == texts["cpu"][case]
+        check(equal, f"card vs CPU {case}: {texts['cuda'][case]} != "
+              f"{texts['cpu'][case]}")
+        out[case] = {"tokens_equal": equal,
+                     "tokens": [len(t.split()) for t in texts["cpu"][case]]}
+    out["tier"]["fast_path"] = texts["cuda"]["tier_fast_path"]
+    return out
+
+
+def masked_speculative(torch):
+    """SpeculativeSTEngine (the speculative phase's target and draft, k 6,
+    64 tokens, fp32) with mask_encoder_padding on the target's searcher:
+    each utterance's text equals the target's beam-1 masked translate of
+    it; 3 s and 6.5 s, each padded to its 4 s and 8 s bucket."""
+    from stac_st_tpu_torch.serving import SpeculativeSTEngine
+
+    rng = np.random.default_rng(5)
+    wavs = [(0.1 * rng.standard_normal(int(sec * SR))).astype(np.float32)
+            for sec in (3.0, 6.5)]
+    opts = dict(bf16=False, beam_size=1, max_decode_tokens=SPEC_TOKENS)
+    target = engine(flagship(0), "cuda", **opts)
+    unmasked = [target.translate([w])[0] for w in wavs]
+    target.searcher.mask_encoder_padding = True
+    draft = engine(flagship(7, enc=2, dec=2), "cuda", **opts)
+    spec = SpeculativeSTEngine(target, draft, k=SPEC_K)
+    with CrossBias() as watch:
+        got, want, wall, stats = _spec_texts(torch, spec, target, wavs)
+    check(got == want, f"masked speculative: {got} != {want}")
+    check(watch.unbiased == 0 and watch.biased > 0,
+          f"masked speculative: cross calls {watch.biased} with the bias, "
+          f"{watch.unbiased} without")
+    return {"equal_to_target_beam1": len(wavs), "of": len(wavs),
+            "cross_calls_with_bias": watch.biased,
+            "texts_differ_from_unmasked": sum(
+                a != b for a, b in zip(want, unmasked)),
+            "target_steps": sum(st["target_steps"] for st in stats),
+            "wall_s": wall}
+
+
+def search_options_phase(torch, kernels, K, timer, profile: bool):
+    """Phase search_options (see the module docstring); returns its
+    record, whose ``kernel`` line and joint CTC launches feed the kernels
+    line."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "search_options", "batch": B, "seconds": SECONDS,
+           "beam": BEAM, "bucket_s": OPT_BUCKET[0],
+           "ctc_weight": CTC_WEIGHT, "lm_weight": LM_WEIGHT}
+    rec["kernel"] = ctc_kernel_cases(torch, kernels, timer)
+    rec["cross_with_mask"] = cross_bias_cases(torch, K, timer)
+    wavs = serving_wavs()
+    eng = options_engine(flagship(0))
+    eng.translate(wavs)
+    base, att_wall = _timed(torch, partial(eng.translate, wavs))
+    del eng
+    rec["joint_ctc"] = joint_ctc_cases(torch, kernels, wavs, base, att_wall,
+                                       profile)
+    rec["mask"] = mask_cases(torch, kernels)
+    rec["lm"] = lm_cases(torch, kernels, wavs, base)
+    rec["tier"] = tier_cases(torch, wavs)
+    rec["card_vs_cpu_fp32"] = options_card_vs_cpu(torch)
+    rec["speculative_masked"] = masked_speculative(torch)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in rec.items() if k != "kernel"})
+    return rec
+
+
 def card_vs_cpu_phase(torch):
     """The port on the card against the port on the CPU, fp32, 2 x 2 s."""
     rng = np.random.default_rng(1)
@@ -3007,7 +3540,7 @@ def card_vs_cpu_phase(torch):
                 logits = eng.searcher.seq_lin(
                     model.decode_step(toks, p, cache))
             prompt = torch.tensor(eng._prompt("es", "en"))
-            tokens, lengths, _ = eng.searcher.search(enc, prompt)
+            tokens, lengths, _, _ = eng.searcher.search(enc, prompt)
         outs[dev] = (logits.float().cpu(), tokens.cpu(), lengths.cpu())
     err = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item()
     check(err <= 1e-3, f"card vs CPU decode-step logits: err {err}")
@@ -3041,7 +3574,8 @@ def main() -> int:
     set_tf32(False)
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    built = kernels.build(["decode_attention", "train_attention"])
+    built = kernels.build(["decode_attention", "train_attention",
+                           "ctc_prefix"])
     build_s = time.perf_counter() - t0
     K._lib()
     from stac_st_tpu_torch.ops.kernels import attention as A
@@ -3079,6 +3613,7 @@ def main() -> int:
     int8_rec = int8_phase(torch, kernels, main_texts, beam1_texts, main_rec,
                           args.profile)
     speculative_phase(torch, kernels)
+    options = search_options_phase(torch, kernels, K, timer, args.profile)
     _, train_launches = train_phase(torch, kernels, args.profile)
     data_train_phase(torch, kernels, args.profile)
     with tempfile.TemporaryDirectory() as root:
@@ -3127,6 +3662,19 @@ def main() -> int:
             "variant": "/".join(v for v in VARIANTS
                                 if train_launches.get(f"{rec['name']}/{v}")),
         })
+    from stac_st_tpu_torch.ops.kernels import ctc_prefix as KC
+
+    ctc = options["kernel"]["joint"]
+    replaces, source = KC.KERNELS["ctc_prefix_score"]
+    kernel_line.append({
+        "name": "ctc_prefix_score", "route": "cuda", "source": source,
+        "replaces": replaces,
+        # one launch a decode step of the joint search (float cache)
+        "launches": options["joint_ctc"]["float"]["ctc_prefix_score_launches"],
+        "max_abs_err": ctc["max_abs_err"], "ms": ctc["ms"],
+        "plain_ms": ctc["plain_ms"], "bound_ms": ctc["bound_ms"],
+        "bound_by": ctc["bound_by"], "library_ms": None,
+    })
     print(smi, flush=True)
     emit({"kernels": kernel_line})
     emit({"ok": True, "device": {"platform": "gpu",

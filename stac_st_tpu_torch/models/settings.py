@@ -2,7 +2,7 @@
 
 The JAX package accepts settings the port does not compute (post-LN,
 causal encoders, conformer and relative-position attention, residual or
-deeper conv blocks, joint-CTC and LM scoring in the search). Wherever such
+deeper conv blocks). Wherever such
 a setting reaches the port (a YAML constructing a module, or
 ``interop.from_jax.load_jax_params`` reading a JAX module's settings), it
 is refused by :func:`require`, which names the field.

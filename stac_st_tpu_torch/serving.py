@@ -22,6 +22,9 @@ weights (``utils.quantize``; their scales stay fp32), and
 gather mode at beam > 1); both are opt-in, since quantization noise can
 reorder near-tied beams. The engine runs on ``cuda`` unless ``device="cpu"`` is
 given, and owns the modules it is handed (it moves and casts them).
+Setting ``searcher.mask_encoder_padding`` masks each input's bucket
+padding in cross-attention, in the batch search (which is handed the
+inputs' relative lengths) and in ``SpeculativeSTEngine`` (both models).
 
 The tokenizer is duck-typed: ``encode_as_ids(text)`` and ``decode_ids``.
 A trained experiment loads through ``from_saved_experiment(exp_dir)``
@@ -51,6 +54,7 @@ from .decoding.speculative import bind_spec_model, speculative_greedy_search
 from .device import model_dtype, resolve_device, set_tf32
 from .interop.from_jax import load_jax_params
 from .models import ConvolutionFrontEnd, LinearHead, TransformerMultiTask
+from .ops import masks as M
 from .ops.cmvn import CmvnState, cmvn_apply, cmvn_init
 from .ops.fbank import Fbank
 from .tokenizer import SentencePieceProcessor
@@ -299,7 +303,7 @@ class STEngine:
                 for name in rttm:
                     rttm[name].extend(events[name])
             for p, (hyps, _) in enumerate(
-                    self.searcher.call_multi(enc, prompts=prompts)):
+                    self.searcher.call_multi(enc, lens, prompts=prompts)):
                 for row, i in enumerate(idx):
                     out[p][i] = self.tokenizer.decode_ids(hyps[row])
         return out, rttm
@@ -499,9 +503,16 @@ class SpeculativeSTEngine:
         cap = target.searcher.max_decode_tokens
         max_steps = S if cap is None else min(S, cap)
         prompt = torch.tensor(target._prompt(src, tgt))
+        # the target's searcher decides whether both models mask padding
+        biases = [None, None]
+        if target.searcher.mask_encoder_padding:
+            biases = [M.additive_bias(M.src_key_padding_mask_encode(
+                torch.from_numpy(lens).to(e.device), x.shape[1]))
+                for e, x in zip((target, draft), enc)]
         res = speculative_greedy_search(
             *self._bound, *enc, prompt, max_steps, self.k,
-            eos_index=target.searcher.config.eos_index)
+            eos_index=target.searcher.config.eos_index,
+            enc_bias_target=biases[0], enc_bias_draft=biases[1])
         n = res.length
         self.last_stats.append({
             "tokens": n, "target_steps": res.target_steps,

@@ -98,8 +98,8 @@ def tiny():
     jx = build_jax_tiny(seed=4)
     seq = jx["params"]["seq_lin"]["params"]["linear"]
     seq["bias"] = seq["bias"].at[2].add(0.4)
-    t_q, s_q = jax_quantize(jx["params"]["Transformer"],
-                            jx["params"]["seq_lin"])
+    t_q, s_q = jax.jit(jax_quantize)(jx["params"]["Transformer"],
+                                     jx["params"]["seq_lin"])
     jq = {**jx["params"], "Transformer": t_q, "seq_lin": s_q}
     pt = build_port_twin(jx)
     pq = build_port_twin(jx)
@@ -409,27 +409,39 @@ def test_int8_slot_loop_equals_sequential_greedy(engines):
 
 
 # ------------------------------------------------------ speculative decoding
+@pytest.fixture(scope="module")
+def draft():
+    """The draft: a second tiny model of other seeded weights, in JAX and
+    in the port, built once."""
+    dj = build_jax_tiny(seed=9)
+    return dj, build_port_twin(dj)
+
+
 @pytest.mark.parametrize("kv,int8_weights", [(None, False), ("int8", False),
                                              ("int8", True)])
-def test_speculative_matches_jax(tiny, kv, int8_weights):
+def test_speculative_matches_jax(tiny, draft, kv, int8_weights):
     """Target: the tiny model; draft: a second tiny model of other seeded
-    weights; k = 3, a 9-step budget."""
+    weights; k = 3, a 9-step budget. The JAX reference runs jitted, as the
+    JAX engine runs it."""
     jx, jq, pt, pq = tiny
-    dj = build_jax_tiny(seed=9)
-    dp = build_port_twin(dj)
+    dj, dp = draft
     params, mods = (jq, pq) if int8_weights else (jx["params"], pt)
     rng = np.random.default_rng(12)
     enc_t, enc_d = (rng.standard_normal((1, 11, D)).astype(np.float32)
                     for _ in range(2))
     prompt = np.asarray([1, 5, 6], np.int32)
-    want = jax_spec.speculative_greedy_search(
-        jax_spec.bind_spec_model(jx["transformer"], jx["seq_lin"],
-                                 params["Transformer"], params["seq_lin"],
-                                 kv),
-        jax_spec.bind_spec_model(dj["transformer"], dj["seq_lin"],
-                                 dj["params"]["Transformer"],
-                                 dj["params"]["seq_lin"], kv),
-        jnp.asarray(enc_t), jnp.asarray(enc_d), jnp.asarray(prompt), 9, k=3)
+
+    @jax.jit
+    def reference(tp, dp_, enc_t, enc_d, prompt):
+        return jax_spec.speculative_greedy_search(
+            jax_spec.bind_spec_model(jx["transformer"], jx["seq_lin"],
+                                     tp["Transformer"], tp["seq_lin"], kv),
+            jax_spec.bind_spec_model(dj["transformer"], dj["seq_lin"],
+                                     dp_["Transformer"], dp_["seq_lin"], kv),
+            enc_t, enc_d, prompt, 9, k=3)
+
+    want = reference(params, dj["params"], jnp.asarray(enc_t),
+                     jnp.asarray(enc_d), jnp.asarray(prompt))
     with torch.no_grad():
         got = spec.speculative_greedy_search(
             spec.bind_spec_model(mods["transformer"], mods["seq_lin"], kv),

@@ -162,7 +162,6 @@ def test_yaml_references_share_the_modules(corpus, tmp_path):
     ("num_layers_per_block: 1", "num_layers_per_block: 2",
      "num_layers_per_block"),
     ("num_blocks: 2", "num_blocks: 3", "num_blocks"),
-    ("lm_weight: 0", "lm_weight: 0.5", "lm_weight"),
 ])
 def test_yaml_settings_the_port_cannot_run_raise(old, new, field, tmp_path):
     """A YAML asking for what the port does not compute raises ValueError
@@ -173,6 +172,33 @@ def test_yaml_settings_the_port_cannot_run_raise(old, new, field, tmp_path):
           "output_folder": str(tmp_path)}
     with pytest.raises(ValueError, match=field.replace("[", r"\[")):
         load_hyperpyyaml(text.replace(old, new), ov)
+
+
+def test_yaml_lm_weight_loads_and_decodes_as_zero_until_set_lm(tmp_path):
+    """``lm_weight: 0.5`` loads, as in the JAX package: the searcher
+    decodes as with 0 until ``set_lm`` gives it an LM, which then acts
+    with the YAML's weight."""
+    from stac_st_tpu_torch.decoding.beam_search import MultiTaskBeamSearch
+
+    text = open(YAML).read().replace("lm_weight: 0", "lm_weight: 0.5")
+    ov = {**TINY, "data_folder": str(tmp_path), "tokenizer_file": "t",
+          "output_folder": str(tmp_path)}
+    s = load_hyperpyyaml(text, ov)["test_search"]
+    assert s.config.lm_weight == 0.5
+    ref = MultiTaskBeamSearch(s.model, s.seq_lin,
+                              **{**s.config._asdict(), "lm_weight": 0.0})
+    enc = torch.randn((2, 6, TINY["d_model"]),
+                      generator=torch.Generator().manual_seed(0))
+    for searcher in (s, ref):
+        searcher.set_decoder_prefix_tokens(5, 6)
+    (hyps, scores), (want, want_scores) = s(enc), ref(enc)
+    assert hyps == want and torch.equal(scores, want_scores)
+    favored = torch.full((TINY["output_neurons"],), -5.0)
+    favored[7] = 5.0
+    s.set_lm(lambda p, tokens, position, state:
+             (p[None, :].expand(tokens.shape[0], -1), state), None, favored)
+    hyps_lm, scores_lm = s(enc)
+    assert hyps_lm != want and not torch.allclose(scores_lm, want_scores)
 
 
 # --------------------------------------------------------------- metrics
