@@ -206,7 +206,32 @@ Phases, each printed as one JSON line:
    where each load window's time went (seconds and calls of the batch
    front's engine calls and searches, of the slot loop's admissions and
    chunks); --profile also traces 5 s of each front under the same load
-   (device busy time and idle share, the decode kernels' µs a launch).
+   (device busy time and idle share, the decode kernels' µs a launch);
+11. encoders, run after serve: the JAX package's other model settings at
+   the flagship width and depth, each from seed 0 — (a) a post-LN
+   Transformer, (b) a Conformer with RelPosMHAXL, (c) a causal Conformer
+   with regular attention (kernel 31, the canonical front end). For each,
+   one line: B16 x 10 s through STEngine (bf16, beam 10, 192 tokens):
+   anc and cross exactly 6 x the search's decoder steps (counted by
+   wrapping decode_step), all split, warm RTFx, the encoder pass's share
+   of the translate's device busy time (two traces of the device alone);
+   for (a) also a beam-1 translate (self and cross 6 x its steps, split),
+   a 16-slot slot loop under 5 s of requests (ragged self 6 x its ragged
+   steps, cross 6 x its ragged steps and prompt windows, split) and a
+   translate with the int8 cache and int8 weights (int8 self and cross 6
+   x its steps, split); 3 steps of B32 x 15 s through STTrainer.fit
+   (bf16, dropout 0.1): finite losses, 18 launches a step of each
+   training flash kernel (6 for RelPosMHAXL, whose encoder attention is
+   plain PyTorch), all wgmma, peak memory; for (b) loss_and_grad with
+   remat against without, gradients bitwise equal (CTC weight 0 and
+   cuDNN's deterministic algorithms, two runs without remat bitwise equal
+   too), with both peaks; card against CPU in fp32 (seed 1, B2 x 4 s and
+   2.5 s, 24 tokens): encoder outputs within 1e-3, tokens equal. For (b)
+   also the recipe's main on phase recipe's corpus with
+   --encoder_module=conformer --attention_type=RelPosMHAXL (the dev split,
+   batches of at most 60 s, one epoch, no search, no evaluation), then
+   STEngine.from_saved_experiment bitwise equal to the average of its
+   kept checkpoints, translating 4 heldout utterances.
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through, and its
@@ -1125,9 +1150,11 @@ class SyntheticTokenizer:
         return " ".join(f"w{i}" for i in ids)
 
 
-def flagship(seed: int, enc: int = 12, dec: int = 6, dropout: float = 0.1):
+def flagship(seed: int, enc: int = 12, dec: int = 6, dropout: float = 0.1,
+             **settings):
     """The flagship preset's modules with seeded Glorot weights (CPU);
-    ``enc``/``dec`` cut the depth only."""
+    ``enc``/``dec`` cut the depth only; ``settings`` go to the
+    transformer (e.g. ``normalize_before=False``)."""
     import torch
 
     from stac_st_tpu_torch.models import (
@@ -1140,7 +1167,8 @@ def flagship(seed: int, enc: int = 12, dec: int = 6, dropout: float = 0.1):
     mods = dict(
         transformer=TransformerMultiTask(
             5000, 5120, d_model=256, nhead=4, num_encoder_layers=enc,
-            num_decoder_layers=dec, d_ffn=1024, dropout=dropout),
+            num_decoder_layers=dec, d_ffn=1024, dropout=dropout,
+            **settings),
         cnn=ConvolutionFrontEnd(out_channels=(256, 256), dropout=dropout),
         seq_lin=LinearHead(256, 5000),
         ctc_lin=LinearHead(256, 5000),
@@ -3517,6 +3545,397 @@ def search_options_phase(torch, kernels, K, timer, profile: bool):
     return rec
 
 
+# phase encoders: the JAX package's other model settings at the flagship
+# width and depth, each from seed 0 (the canonical front end; the
+# Conformer's kernel is the reference's 31)
+ENCODER_MODELS = (
+    ("post_ln", dict(normalize_before=False)),
+    ("conformer_relpos", dict(encoder_module="conformer",
+                              attention_type="RelPosMHAXL")),
+    ("conformer_causal", dict(encoder_module="conformer", causal=True)),
+)
+ENC_TRAIN_STEPS = 3           # STTrainer steps a model, B32 x 15 s
+ENC_SLOT_S = 5.0              # the post-LN slot loop's window (s)
+ENC_REMAT_SEED = 4321
+# fp32 encoder outputs, card vs CPU (TF32 off): 12 layers of d256 sums
+# (and the Conformer's 31-tap convolutions) in other orders; each layer
+# ends in a LayerNorm, so values are O(1)
+ENC_ATOL = 1e-3
+
+
+class _Calls:
+    """Counts the calls of some methods of one object (instance
+    attributes over the class's; ``restore`` removes them)."""
+
+    def __init__(self, obj, names):
+        self.obj, self.n = obj, {name: 0 for name in names}
+        for name in names:
+            setattr(obj, name, self._wrap(name, getattr(obj, name)))
+
+    def _wrap(self, name, fn):
+        def counted(*a, **kw):
+            self.n[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+    def restore(self):
+        for name in self.n:
+            delattr(self.obj, name)
+
+
+def _decode_want(names, calls: int) -> dict:
+    """Every launch of ``calls`` decoder steps, 6 layers each, on split."""
+    return {f"{n}{v}": 6 * calls for n in names for v in ("", f"/{SPLIT}")}
+
+
+def _decode_got(launches) -> dict:
+    return {k: v for k, v in launches.items() if k.startswith("decode_")}
+
+
+def device_busy_ms(torch, fn) -> float:
+    """The device busy time of one call of ``fn`` (ms): the union of its
+    kernel and copy intervals in a torch.profiler trace of the device
+    alone (no host events: tens of thousands of kernels read back in well
+    under a second)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and \
+                not ev.name().startswith("Activity Buffer"):
+            spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    busy, end = 0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
+def _enc_serve(torch, kernels, name, mods, wavs) -> dict:
+    """B16 x 10 s through STEngine (bf16, beam 10, 192 tokens, PCM16):
+    the launches of a warm translate, exactly 6 x its decoder steps of anc
+    and cross, all split; warm RTFx; the device busy time of the encoder
+    pass of the same batch over that of the whole translate (two traces
+    of the device alone)."""
+    eng = engine(mods, "cuda", bf16=True, beam_size=BEAM,
+                 max_decode_tokens=192, transfer_dtype="int16")
+    eng.translate(wavs)  # first call: set-up
+    calls = _Calls(eng._transformer, ("decode_step",))
+    kernels.reset_launches()
+    texts, wall = _timed(torch, partial(eng.translate, wavs))
+    launches = dict(kernels.launches)
+    calls.restore()
+    steps = calls.n["decode_step"]
+    want = _decode_want(("decode_self_attention_anc",
+                         "decode_cross_attention"), steps)
+    check(_decode_got(launches) == want,
+          f"{name} serve: launches {launches}, want {want}")
+    check(len(texts) == B and all(texts), f"{name}: one text per input")
+    busy = device_busy_ms(torch, partial(eng.translate, wavs))
+    (_, batch, lens), = eng._prepare(wavs)
+    with torch.inference_mode():
+        enc = device_busy_ms(torch, partial(eng._encode, batch, lens))
+    return {"decoder_steps": steps, "launches": launches,
+            "translate_warm_s": wall,
+            "translate_warm_rtfx": B * SECONDS / wall,
+            "translate_device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / 1e3 / wall,
+            "encoder_device_busy_ms": enc,
+            "encoder_share_of_device_time": enc / busy}, texts
+
+
+def _enc_post_ln_decoder(torch, kernels, mods, settings, wavs,
+                         bf16_texts) -> dict:
+    """The post-LN decoder's other forms: a beam-1 translate of 2 x 10 s
+    (scalar self, cross, 6 x its steps each, on split), a slot loop of 16
+    slots (chunk 16) under ENC_SLOT_S s of requests (ragged self
+    ``decode_self_attention/rows/split`` 6 x its ragged steps, cross 6 x
+    its ragged steps and windows), and a translate with the int8 cache and
+    int8 weights (int8 self and cross 6 x its steps, on split)."""
+    from stac_st_tpu_torch.serving_continuous import ContinuousBatchingEngine
+
+    out = {}
+    eng1 = engine(mods, "cuda", bf16=True, beam_size=1,
+                  max_decode_tokens=192, transfer_dtype="int16")
+    eng1.translate(wavs[:2])
+    calls = _Calls(eng1._transformer, ("decode_step",))
+    kernels.reset_launches()
+    texts, wall = _timed(torch, partial(eng1.translate, wavs[:2]))
+    launches = dict(kernels.launches)
+    calls.restore()
+    want = _decode_want(("decode_self_attention", "decode_cross_attention"),
+                        calls.n["decode_step"])
+    check(_decode_got(launches) == want,
+          f"post-LN beam 1: launches {launches}, want {want}")
+    out["beam1"] = {"launches": launches, "translate_2x10s_s": wall,
+                    "texts_nonempty": all(texts)}
+
+    rng = np.random.default_rng(11)
+    pool = [(rng.standard_normal(int(sec * SR)) * 3000).clip(
+        -32768, 32767).astype(np.int16)
+        for sec in rng.uniform(2.0, 10.0, 32)]
+    cont = ContinuousBatchingEngine(eng1, slots=SLOTS, chunk=CHUNK)
+    calls = _Calls(eng1._transformer, ("decode_step_rows", "decode_window"))
+    kernels.reset_launches()
+    served, t0 = 0, time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < ENC_SLOT_S:
+            futs = [cont.submit(w) for w in pool[:SLOTS]]
+            check(all(isinstance(f.result(timeout=300), str) for f in futs),
+                  "post-LN slot loop answers")
+            served += sum(len(w) for w in pool[:SLOTS]) / SR
+            pool = pool[SLOTS:] + pool[:SLOTS]
+        util = cont.utilization()
+    finally:
+        cont.close()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    calls.restore()
+    rows, windows = calls.n["decode_step_rows"], calls.n["decode_window"]
+    # a ragged self launch counts under its name and under /rows
+    want = {f"decode_self_attention{v}": 6 * rows
+            for v in ("", f"/{SPLIT}", "/rows", f"/rows/{SPLIT}")}
+    want.update(_decode_want(("decode_cross_attention",), rows + windows))
+    check(_decode_got(launches) == want and rows > 0,
+          f"post-LN slot loop: launches {launches}, want {want}")
+    out["slot_loop"] = {"slots": SLOTS, "chunk": CHUNK, "window_s": wall,
+                        "audio_s": served, "rtfx": served / wall,
+                        "utilization": util, "ragged_steps": rows,
+                        "windows": windows, "launches": launches}
+
+    eng8 = engine(flagship(0, **settings), "cuda", bf16=True,
+                  beam_size=BEAM, max_decode_tokens=192,
+                  transfer_dtype="int16", kv_cache_dtype="int8",
+                  weights_int8=True)
+    eng8.translate(wavs)
+    calls = _Calls(eng8._transformer, ("decode_step",))
+    kernels.reset_launches()
+    texts, wall = _timed(torch, partial(eng8.translate, wavs))
+    launches = dict(kernels.launches)
+    calls.restore()
+    want = _decode_want(("decode_self_attention_int8",
+                         "decode_cross_attention_int8"),
+                        calls.n["decode_step"])
+    check(_decode_got(launches) == want,
+          f"post-LN int8: launches {launches}, want {want}")
+    out["int8_cache_and_weights"] = {
+        "launches": launches, "translate_warm_s": wall,
+        "translate_warm_rtfx": B * SECONDS / wall,
+        "texts_equal_bf16": sum(a == b for a, b in zip(texts, bf16_texts))}
+    return out
+
+
+def _enc_train(torch, kernels, name, settings) -> dict:
+    """ENC_TRAIN_STEPS steps of B32 x 15 s (bf16, dropout 0.1) through
+    STTrainer.fit: finite losses, flash launches a step by variant (18, or
+    6 with RelPosMHAXL, whose encoder attention is plain), peak memory;
+    then as many warm steps of the same batch, timed.
+    With RelPosMHAXL also the remat check: loss_and_grad with the
+    encoder recomputed in the backward against the same step without,
+    bitwise (CTC weight 0 and cuDNN's deterministic algorithms, so that
+    two runs of the step itself are bitwise equal; checked too)."""
+    from stac_st_tpu_torch.training import step as pstep
+
+    rng = np.random.default_rng(0)
+    batch = _train_batch(rng, TB, int(SECONDS_TRAIN * SR), U_TRAIN)
+    trainer = _trainer(torch, flagship(0, **settings), bf16=True)
+    marks = []
+
+    def copies():
+        for _ in range(ENC_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            yield batch
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer.fit([1], copies())
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in trainer.epoch_losses]
+    check(len(losses) == ENC_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"{name} losses {losses}")
+    per_step = 6 if settings.get("attention_type") == "RelPosMHAXL" else 18
+    for kern in FLASH[1:]:
+        n = per_step * ENC_TRAIN_STEPS
+        check(launches.get(kern, 0) == n
+              and launches.get(f"{kern}/{TC}", 0) == n,
+              f"{name} {kern}: {launches}, want {n} on {TC}")
+    check(not launches.get("flash_attention"), "no eval kernel in fit")
+    # warm steps, timed after fit's (which pay the allocator's growth)
+    state = trainer.state
+    dev_batch = trainer._device_batch(batch)
+    warm = [_timed(torch, partial(trainer.train_step, state, dev_batch,
+                                  trainer.next_seed()))[1] * 1e3
+            for _ in range(ENC_TRAIN_STEPS)]
+    rec = {"steps": ENC_TRAIN_STEPS,
+           "fit_step_ms": [x * 1e3 for x in np.diff(marks)],
+           "warm_step_ms": warm, "warm_step_ms_median": float(
+               np.median(warm)),
+           "audio_s_per_s": TB * SECONDS_TRAIN * 1e3 / float(np.median(warm)),
+           "peak_memory_gb": peak / 1e9, "losses": losses,
+           "flash_launches_a_step": per_step, "launches": launches}
+    if settings.get("attention_type") != "RelPosMHAXL":
+        return rec
+    cfg = trainer.cfg._replace(ctc_weight=0.0)
+    encoder = cfg.transformer.encoder
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    grads, peaks, walls = [], [], []
+    try:
+        for remat in (False, True, False):
+            encoder.remat = remat
+            torch.cuda.reset_peak_memory_stats()
+            (_, grad, _), wall = _timed(torch, partial(
+                pstep.loss_and_grad, cfg, state, dev_batch, ENC_REMAT_SEED))
+            grads.append(grad)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            walls.append(wall * 1e3)
+    finally:
+        encoder.remat = False
+        torch.backends.cudnn.deterministic = deterministic
+    check(torch.equal(grads[0], grads[2]),
+          "relpos step without remat: two runs not bitwise equal")
+    check(torch.equal(grads[0], grads[1]),
+          "relpos step: gradients with remat differ from those without")
+    rec["remat"] = {"bitwise_equal": True, "ctc_weight": 0.0,
+                    "peak_memory_gb": {"off": peaks[0], "on": peaks[1]},
+                    "loss_and_grad_ms": {"off": walls[0], "on": walls[1]}}
+    return rec
+
+
+def _enc_card_vs_cpu(torch, name, settings) -> dict:
+    """fp32 (TF32 off), seed 1, full width and depth, B2 x 4 s and 2.5 s in
+    a 4 s bucket, beam 10, 24 tokens: encoder outputs within ENC_ATOL and
+    the search's tokens equal, card against CPU."""
+    rng = np.random.default_rng(2)
+    wavs = [(0.1 * rng.standard_normal(int(sec * SR))).astype(np.float32)
+            for sec in CPU_SECONDS]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        eng = engine(flagship(1, **settings), dev, bf16=False,
+                     beam_size=BEAM, max_decode_tokens=CPU_TOKENS,
+                     bucket_seconds=(max(CPU_SECONDS),))
+        with torch.inference_mode():
+            (_, batch, lens), = eng._prepare(wavs)
+            enc = eng._encode(batch, lens).float().cpu()
+        got[dev] = (enc, eng.translate(wavs))
+        del eng
+    err = (got["cuda"][0] - got["cpu"][0]).abs().max().item()
+    check(err <= ENC_ATOL, f"{name} card vs CPU encoder: {err} > {ENC_ATOL}")
+    check(got["cuda"][1] == got["cpu"][1],
+          f"{name} card vs CPU tokens: {got['cuda'][1]} != {got['cpu'][1]}")
+    return {"encoder_max_abs_err": err, "atol": ENC_ATOL,
+            "tokens_equal": True,
+            "tokens": [len(t.split()) for t in got["cpu"][1]]}
+
+
+def _enc_recipe(torch, kernels, root: str) -> dict:
+    """The relpos Conformer through the experiment path: the recipe's main
+    on phase recipe's corpus (dev split, batches of at most 60 s, no
+    accumulation, one epoch, no search or evaluation) with
+    --encoder_module=conformer --attention_type=RelPosMHAXL; then
+    STEngine.from_saved_experiment loads weights bitwise equal to the
+    average of the kept checkpoints and translates 4 heldout utterances."""
+    import contextlib
+
+    from stac_st_tpu_torch.recipes import train_multitask as R
+    from stac_st_tpu_torch.serving import STEngine
+    from stac_st_tpu_torch.training.checkpoint import (
+        Checkpointer,
+        average_checkpoints,
+    )
+
+    out = os.path.join(root, "exp_conformer_relpos")
+    args = [RECIPE_YAML, "--device=cuda", f"--data_folder={root}",
+            f"--tokenizer_file={os.path.join(root, 'bpe.model')}",
+            f"--output_folder={out}", "--train_splits=dev",
+            "--dev_splits=dev", "--test_splits_4_translations=[]",
+            "--test_splits_1_translations=[]", "--number_of_epochs=1",
+            "--num_workers=1", "--no_eval=True", "--n_warmup_steps=10",
+            "--grad_accumulation_factor=1", "--max_batch_len=60",
+            "--turn=5", "--xt=6", "--encoder_module=conformer",
+            "--attention_type=RelPosMHAXL"]
+    t0 = time.perf_counter()
+    with open(os.path.join(OUT_DIR, "recipe_conformer_log_cuda.txt"),
+              "w") as log, contextlib.redirect_stdout(log):
+        trainer = R.main(args)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    tr = trainer.cfg.transformer
+    check(tr.encoder_module == "conformer"
+          and tr.attention_type == "RelPosMHAXL"
+          and type(tr.encoder).__name__ == "ConformerEncoder",
+          "the recipe built a relpos Conformer")
+    check(trainer.state.micro_step >= 2, f"{trainer.state.micro_step} steps")
+    acc = Checkpointer(os.path.join(out, "save")).find_checkpoints(
+        max_key="ACC")
+    check(len(acc) >= 1, "a checkpoint kept")
+    avg = average_checkpoints(acc, "model")
+    eng = STEngine.from_saved_experiment(out, device="cuda", bf16=False)
+    check(trees_equal(model_tree(eng._cnn, eng._transformer,
+                                 eng.searcher.seq_lin, eng._ctc_lin), avg),
+          "from_saved_experiment loads the average bitwise")
+    check(type(eng._transformer.encoder).__name__ == "ConformerEncoder",
+          "the reloaded engine runs the Conformer")
+    with open(os.path.join(root, "heldout", "data-st.json")) as f:
+        heldout = json.load(f)
+    audio = [eng.load_audio(e["wav"].split()[0].replace("{data_root}", root))
+             for e in list(heldout.values())[:4]]
+    texts, wall = _timed(torch, partial(eng.translate, audio))
+    check(len(texts) == 4 and all(isinstance(t, str) for t in texts),
+          "the reloaded experiment translates")
+    return {"overrides": args[1:], "main_s": main_s,
+            "micro_steps": trainer.state.micro_step,
+            "checkpoints": len(acc), "reload_bitwise": True,
+            "translate_4_s": wall, "translations": texts[:2]}
+
+
+def encoders_phase(torch, kernels, smi: str, root: str):
+    """Phase encoders (see the module docstring): one JSON line a model;
+    the recipe run of the relpos Conformer goes in its line."""
+    wavs = serving_wavs()
+    t_phase = time.perf_counter()
+    recs = {}
+    for name, settings in ENCODER_MODELS:
+        rec = {"phase": "encoders", "model": name, "settings": settings,
+               "gpu": smi, "batch": B, "seconds": SECONDS, "beam": BEAM}
+        stages, t0 = {}, time.perf_counter()
+
+        def stage(label):
+            nonlocal t0
+            stages[label] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+        mods = flagship(0, **settings)
+        stage("build")
+        rec["serve"], texts = _enc_serve(torch, kernels, name, mods, wavs)
+        stage("serve")
+        if name == "post_ln":
+            rec["post_ln_decoder"] = _enc_post_ln_decoder(
+                torch, kernels, mods, settings, wavs, texts)
+            stage("post_ln_decoder")
+        del mods
+        rec["train"] = _enc_train(torch, kernels, name, settings)
+        stage("train")
+        rec["card_vs_cpu_fp32"] = _enc_card_vs_cpu(torch, name, settings)
+        stage("card_vs_cpu")
+        if name == "conformer_relpos":
+            rec["recipe"] = _enc_recipe(torch, kernels, root)
+            stage("recipe")
+        rec["stage_s"] = stages
+        emit(rec)
+        recs[name] = rec
+    return {"models": recs, "phase_s": time.perf_counter() - t_phase}
+
+
 def card_vs_cpu_phase(torch):
     """The port on the card against the port on the CPU, fp32, 2 x 2 s."""
     rng = np.random.default_rng(1)
@@ -3619,6 +4038,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         recipe = recipe_phase(torch, kernels, smi, root)
         served = serve_phase(torch, kernels, K, smi, root, args.profile)
+        encoders_phase(torch, kernels, smi, root)
     card_vs_cpu_phase(torch)
     card_vs_cpu_train_phase(torch)
 

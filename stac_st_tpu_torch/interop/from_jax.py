@@ -11,6 +11,10 @@ changes:
 * q/k/v kernels -> one ``in_proj`` (3·d, d), concatenated in the order of
   the reference's ``_fused_qkv`` (q | k | v);
 * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
+* the Conformer's depthwise Conv kernel (k, 1, d) -> ``nn.Conv1d``
+  weight (d, 1, k) (both cross-correlations: the taps are not flipped);
+  relative-position attention's ``pos_proj`` (no bias), ``u_bias`` and
+  ``v_bias`` (H, Dh) as they are;
 * a quantized tree (the reference's ``quantize_decode_weights``: an int8
   ``kernel`` beside its fp32 ``kernel_scale``) loads into port modules
   quantized the same way (``utils.quantize.quantize_decode_weights``
@@ -19,8 +23,8 @@ changes:
 Strict: a key of the tree that nothing consumed, or a port parameter that
 nothing set, raises. A transformer tree carries neither its head count nor
 its layer-norm placement (a post-LN and a pre-LN model have the same keys),
-so loading one also takes the JAX module's settings and refuses any that
-the port cannot run (``PORT_SETTINGS``).
+so loading one also takes the JAX module's settings and requires the port
+module to compute the same network (``check_settings``).
 
 ``to_jax_params`` is the inverse: the port's modules as the JAX tree (the
 same key set, each module under ``{"params": ...}``, numpy fp32 in the JAX
@@ -38,13 +42,15 @@ import torch
 from torch import nn
 
 from ..models import ConvolutionFrontEnd, LinearHead, TransformerMultiTask
-from ..models.settings import PORT_SETTINGS, require_transformer
+from ..models.conformer import ConformerEncoderLayer
+from ..models.relpos import RelPosMultiHeadAttention
+from ..models.settings import check_model, require
 from ..models.transformer import MultiHeadAttention
 from ..ops.cmvn import CmvnState
 from ..utils.quantize import CrossInProjInt8, Int8Linear
 
 __all__ = ["load_jax_params", "to_jax_params", "cmvn_from_jax",
-           "PORT_SETTINGS"]
+           "check_settings"]
 
 _MISSING = object()
 
@@ -129,6 +135,15 @@ class _Loader:
         self.linear(ffn.fc1, f"{key}/fc1")
         self.linear(ffn.fc2, f"{key}/fc2")
 
+    def attention(self, attn: nn.Module, key: str) -> None:
+        """Regular or relative-position self-attention."""
+        self.mha(attn, key)
+        if isinstance(attn, RelPosMultiHeadAttention):
+            self.linear(attn.pos_proj, f"{key}/pos_proj")
+            for name in ("u_bias", "v_bias"):
+                self.assign(getattr(attn, name), self.take(f"{key}/{name}"),
+                            f"{key}/{name}")
+
 
 def load_jax_params(params: Mapping,
                     cnn: Optional[ConvolutionFrontEnd] = None,
@@ -141,9 +156,9 @@ def load_jax_params(params: Mapping,
 
     ``settings`` describes the JAX transformer the tree came from: the flax
     ``TransformerMultiTask`` itself (read by attribute) or a mapping with
-    the same field names. It is required with ``transformer``; a field that
-    differs from ``PORT_SETTINGS``, or an ``nhead`` other than the port
-    module's, raises ``ValueError`` naming the field."""
+    the same field names (a port module describes itself the same way).
+    It is required with ``transformer``; see ``check_settings`` for what
+    must agree."""
     if transformer is not None:
         check_settings(settings, transformer)
     flat: Dict[str, Any] = {}
@@ -172,9 +187,22 @@ def load_jax_params(params: Mapping,
         raise KeyError(f"port parameters left unset: {unset}")
 
 
+# the JAX module's fields that change what a tree computes without
+# changing its keys (or, for the encoder's kind, that name the keys);
+# ``causal`` and ``kernel_size`` act only in a Conformer
+_SETTINGS = ("nhead", "normalize_before", "encoder_module", "attention_type")
+_CONFORMER_SETTINGS = ("causal", "kernel_size")
+
+
 def check_settings(settings: Any, transformer: TransformerMultiTask) -> None:
-    """Raise unless the JAX transformer described by ``settings`` is one
-    the port's ``transformer`` computes."""
+    """Raise ``ValueError`` naming the field unless the JAX transformer
+    described by ``settings`` is the network the port's ``transformer``
+    computes: an ``attention_type`` and ``encoder_module`` the JAX
+    package runs, and the same ``nhead``, ``normalize_before``,
+    ``encoder_module`` and ``attention_type`` (and for a Conformer the same
+    ``causal`` and ``kernel_size``). ``positional_encoding`` is read by
+    neither package; the activations are callables of either package and
+    are not compared."""
     if settings is None:
         raise ValueError("load_jax_params: a transformer tree needs the JAX "
                          "module's settings (settings=...)")
@@ -187,7 +215,13 @@ def check_settings(settings: Any, transformer: TransformerMultiTask) -> None:
             raise ValueError(f"JAX transformer settings lack {name!r}")
         return got
 
-    require_transformer("JAX transformer", field, transformer.nhead)
+    owner = "JAX transformer"
+    check_model(owner, field)
+    names = _SETTINGS
+    if transformer.encoder_module == "conformer":
+        names += _CONFORMER_SETTINGS
+    for name in names:
+        require(owner, name, field(name), getattr(transformer, name))
 
 
 def _load_cnn(ld: _Loader, cnn: ConvolutionFrontEnd) -> None:
@@ -210,14 +244,37 @@ def _load_transformer(ld: _Loader, tr: TransformerMultiTask) -> None:
         stack = getattr(tr, side)
         for i, layer in enumerate(stack.layers):
             key = f"Transformer/{side}/layer_{i}"
-            ld.mha(layer.self_attn, f"{key}/self_attn")
+            if isinstance(layer, ConformerEncoderLayer):
+                _load_conformer_layer(ld, layer, key)
+                continue
+            ld.attention(layer.self_attn, f"{key}/self_attn")
             if side == "decoder":
                 ld.mha(layer.cross_attn, f"{key}/cross_attn")
                 ld.layernorm(layer.norm3, f"{key}/norm3")
             ld.ffn(layer.ffn, f"{key}/ffn")
             ld.layernorm(layer.norm1, f"{key}/norm1")
             ld.layernorm(layer.norm2, f"{key}/norm2")
-        ld.layernorm(stack.final_norm, f"Transformer/{side}/final_norm")
+        if hasattr(stack, "final_norm"):  # a Conformer stack has none
+            ld.layernorm(stack.final_norm, f"Transformer/{side}/final_norm")
+
+
+def _load_conformer_layer(ld: _Loader, layer: ConformerEncoderLayer,
+                          key: str) -> None:
+    ld.ffn(layer.ffn1, f"{key}/ffn1")
+    ld.ffn(layer.ffn2, f"{key}/ffn2")
+    ld.attention(layer.attn, f"{key}/attn")
+    for name in ("norm_ffn1", "norm_attn", "norm_ffn2", "final_norm"):
+        ld.layernorm(getattr(layer, name), f"{key}/{name}")
+    conv, ck = layer.conv, f"{key}/conv"
+    ld.layernorm(conv.norm, f"{ck}/norm")
+    ld.linear(conv.pw1, f"{ck}/pw1")
+    ld.assign(conv.depthwise.weight,
+              ld.take(f"{ck}/depthwise/kernel").transpose(2, 1, 0),
+              f"{ck}/depthwise")
+    ld.assign(conv.depthwise.bias, ld.take(f"{ck}/depthwise/bias"),
+              f"{ck}/depthwise")
+    ld.layernorm(conv.conv_norm, f"{ck}/conv_norm")
+    ld.linear(conv.pw2, f"{ck}/pw2")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -256,6 +313,34 @@ def _mha(mha: MultiHeadAttention) -> Dict[str, Any]:
     return out
 
 
+def _attention(attn: nn.Module) -> Dict[str, Any]:
+    out = _mha(attn)
+    if isinstance(attn, RelPosMultiHeadAttention):
+        out["pos_proj"] = _dense(attn.pos_proj)
+        out["u_bias"] = _np(attn.u_bias)
+        out["v_bias"] = _np(attn.v_bias)
+    return out
+
+
+def _conformer_layer(layer: ConformerEncoderLayer) -> Dict[str, Any]:
+    conv = layer.conv
+    entry = {"ffn1": {"fc1": _dense(layer.ffn1.fc1),
+                      "fc2": _dense(layer.ffn1.fc2)},
+             "ffn2": {"fc1": _dense(layer.ffn2.fc1),
+                      "fc2": _dense(layer.ffn2.fc2)},
+             "attn": _attention(layer.attn),
+             "conv": {"norm": _norm(conv.norm), "pw1": _dense(conv.pw1),
+                      "depthwise": {
+                          "kernel": _np(conv.depthwise.weight).transpose(
+                              2, 1, 0).copy(),
+                          "bias": _np(conv.depthwise.bias)},
+                      "conv_norm": _norm(conv.conv_norm),
+                      "pw2": _dense(conv.pw2)}}
+    for name in ("norm_ffn1", "norm_attn", "norm_ffn2", "final_norm"):
+        entry[name] = _norm(getattr(layer, name))
+    return entry
+
+
 def _transformer_tree(tr: TransformerMultiTask) -> Dict[str, Any]:
     tree: Dict[str, Any] = {
         "src_proj": _dense(tr.src_proj),
@@ -263,9 +348,14 @@ def _transformer_tree(tr: TransformerMultiTask) -> Dict[str, Any]:
     }
     for side in ("encoder", "decoder"):
         stack = getattr(tr, side)
-        layers: Dict[str, Any] = {"final_norm": _norm(stack.final_norm)}
+        layers: Dict[str, Any] = {}
+        if hasattr(stack, "final_norm"):  # a Conformer stack has none
+            layers["final_norm"] = _norm(stack.final_norm)
         for i, layer in enumerate(stack.layers):
-            entry = {"self_attn": _mha(layer.self_attn),
+            if isinstance(layer, ConformerEncoderLayer):
+                layers[f"layer_{i}"] = _conformer_layer(layer)
+                continue
+            entry = {"self_attn": _attention(layer.self_attn),
                      "ffn": {"fc1": _dense(layer.ffn.fc1),
                              "fc2": _dense(layer.ffn.fc2)},
                      "norm1": _norm(layer.norm1),

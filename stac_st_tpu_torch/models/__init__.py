@@ -1,4 +1,5 @@
-"""The serving model: conv front end, pre-LN Transformer, linear heads."""
+"""The serving model: conv front end, Transformer or Conformer encoder,
+Transformer decoder, linear heads."""
 
 from .frontend import ConvolutionFrontEnd
 from .multitask import (

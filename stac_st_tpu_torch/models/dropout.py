@@ -31,6 +31,16 @@ class StepRandom:
     def uniform(self, shape, device) -> torch.Tensor:
         return torch.rand(shape, generator=self.on_device, device=device)
 
+    def get_state(self):
+        """Both generators' states, for :meth:`set_state` to replay the
+        draws that follow (a recomputed layer's dropout masks and kernel
+        seeds)."""
+        return self.host.get_state(), self.on_device.get_state()
+
+    def set_state(self, state) -> None:
+        self.host.set_state(state[0])
+        self.on_device.set_state(state[1])
+
 
 def dropout(x: torch.Tensor, p: float,
             rng: Optional[StepRandom]) -> torch.Tensor:

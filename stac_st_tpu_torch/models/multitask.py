@@ -13,16 +13,29 @@ step of R slots, each at its own position). The cache may be int8
 (``cache_dtype='int8'``, beam-1 layout). The task is selected by the
 decoder prompt ``[bos, source_lang, target_lang]``.
 
+The encoder is a Transformer (pre-LN or post-LN, regular or
+``RelPosMHAXL`` self-attention) or a Conformer (``encoder_module:
+conformer``, with ``kernel_size``, ``conformer_activation`` and
+``causal``); the decoder is always a Transformer with the model's
+layer-norm placement. The absolute sinusoidal positions are added to the
+encoder input only with ``regularMHA`` (relative positions replace them),
+and always to the decoder's. A Conformer also takes the padding mask: the
+round-based one in ``forward``, the floor-based one in ``encode``.
+
 The YAML-facing classes (``TransformerMultiTask``, ``LinearHead``,
 ``ModuleGroup``, ``EncoderWrapper``) are what the registry resolves the
 reference hparams onto. The constructor takes the JAX module's settings
-(``normalize_before``, ``causal``, ``encoder_module``, ``attention_type``,
-``positional_encoding``) and keeps them as attributes, so a port model
-describes itself to ``interop.from_jax.load_jax_params`` as a JAX one
-does; any value the port does not compute raises, through the same rule
-as the loader (``models.settings``). Unlike the JAX module, whose
-``normalize_before`` defaults to False, the port's defaults to True (the
-only placement it runs; every YAML of the repository sets it).
+and keeps them as attributes, so a port model describes itself to
+``interop.from_jax.load_jax_params`` as a JAX one does;
+``positional_encoding`` is kept and read nowhere, as in the JAX module,
+and ``causal`` acts only in the Conformer's convolution. The JAX
+package's two refusals (an ``attention_type`` or ``encoder_module`` it
+does not know) raise here too (``models.settings``). Unlike the JAX
+module, whose ``normalize_before`` defaults to False, the port's defaults
+to True (every YAML of the repository sets it True). ``remat``
+recomputes each encoder layer in the training backward; the JAX package
+reads it for a Transformer encoder only, the port for either (the
+gradients are the same).
 """
 
 from __future__ import annotations
@@ -32,12 +45,15 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops import masks as M
 from .activations import default_activation
 from .dropout import StepRandom, dropout
 from .positional import sinusoidal_table
-from .settings import require_transformer
+from .relpos import RelPosMultiHeadAttention
+from .conformer import ConformerEncoder
+from .settings import check_model
 from .transformer import (
     NormalizedEmbedding,
     TransformerDecoder,
@@ -66,27 +82,41 @@ class TransformerMultiTask(nn.Module):
                  dropout: float = 0.1, normalize_before: bool = True,
                  causal: bool = False, encoder_module: str = "transformer",
                  attention_type: str = "regularMHA",
-                 positional_encoding: str = "fixed_abs_sine"):
-        """Pre-LN only; positions up to ``MAX_LENGTH``. ``dropout`` acts
-        only in the training forward. ``activation``: a callable, or a
-        class (as a YAML's ``!name:torch.nn.GELU`` gives it) that is
-        instantiated; None is ``default_activation``."""
+                 positional_encoding: str = "fixed_abs_sine",
+                 kernel_size: int = 31, conformer_activation: Any = None,
+                 remat: bool = False):
+        """Positions up to ``MAX_LENGTH``. ``dropout`` acts only in the
+        training forward. ``activation`` (the Transformer layers' FFN) and
+        ``conformer_activation`` (the Conformer's FFNs; None is SiLU): a
+        callable, or a class (as a YAML's ``!name:torch.nn.GELU`` gives
+        it) that is instantiated; ``activation=None`` is
+        ``default_activation``."""
         super().__init__()
         self.d_model, self.nhead = d_model, nhead
         self.normalize_before, self.causal = normalize_before, causal
         self.encoder_module = encoder_module
         self.attention_type = attention_type
         self.positional_encoding = positional_encoding
-        require_transformer("TransformerMultiTask",
-                            lambda field: getattr(self, field), nhead)
+        self.kernel_size, self.remat = int(kernel_size), bool(remat)
+        check_model("TransformerMultiTask",
+                    lambda field: getattr(self, field))
         activation = _as_callable(activation)
         self.dropout = float(dropout)
         self.src_proj = nn.Linear(input_size, d_model)
         self.tgt_embed = NormalizedEmbedding(d_model, tgt_vocab)
-        self.encoder = TransformerEncoder(num_encoder_layers, d_model, nhead,
-                                          d_ffn, activation, dropout)
+        if encoder_module == "conformer":
+            conf_act = (F.silu if conformer_activation is None
+                        else _as_callable(conformer_activation))
+            self.encoder = ConformerEncoder(
+                num_encoder_layers, d_model, nhead, d_ffn, kernel_size,
+                dropout, conf_act, attention_type, causal, remat)
+        else:
+            self.encoder = TransformerEncoder(
+                num_encoder_layers, d_model, nhead, d_ffn, activation,
+                dropout, normalize_before, attention_type, remat)
         self.decoder = TransformerDecoder(num_decoder_layers, d_model, nhead,
-                                          d_ffn, activation, dropout)
+                                          d_ffn, activation, dropout,
+                                          normalize_before)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_table(MAX_LENGTH, d_model)),
             persistent=False)
@@ -108,20 +138,33 @@ class TransformerMultiTask(nn.Module):
         pad = M.src_key_padding_mask(wav_len, S)  # round-based
         return M.additive_bias(pad[:, None, None, :])
 
+    def _run_encoder(self, h: torch.Tensor, pad: Optional[torch.Tensor],
+                     mode: Optional[str], rng: Optional[StepRandom]):
+        """The encoder stack over projected inputs h (B, S, d); ``pad``
+        (B, S) True where padded, or None."""
+        if self.attention_type == "regularMHA":
+            h = self._add_pe(h)
+        bias = None if pad is None else M.additive_bias(
+            pad[:, None, None, :])
+        if self.encoder_module == "conformer":
+            return self.encoder(h, bias, pad, mode, rng)
+        return self.encoder(h, bias, mode, rng)
+
     # ------------------------------------------------------------- forward
     def forward(self, src: torch.Tensor, tgt: torch.Tensor,
                 wav_len: Optional[torch.Tensor] = None, pad_idx: int = 0,
                 train: bool = False, rng: Optional[StepRandom] = None):
         """Teacher-forced forward -> (encoder_out, decoder_out). With
         ``train`` dropout is on and key-padding attention runs through
-        ``flash_attention_train``; without, through ``flash_attention``."""
+        ``flash_attention_train``; without, through ``flash_attention``
+        (relative-position attention stays plain)."""
         src = self._flatten_src(src)
         h = self.src_proj(src)
         if train:
             h = dropout(h, self.dropout, rng)
-        enc = self.encoder(self._add_pe(h), self._src_bias(wav_len,
-                                                          src.shape[1]),
-                           "train" if train else "eval", rng)
+        pad = (None if wav_len is None
+               else M.src_key_padding_mask(wav_len, src.shape[1]))
+        enc = self._run_encoder(h, pad, "train" if train else "eval", rng)
         return enc, self.forward_decoder(tgt, enc, wav_len, pad_idx, train,
                                          rng)
 
@@ -146,11 +189,9 @@ class TransformerMultiTask(nn.Module):
                wav_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Inference encoder pass (floor-based key padding mask)."""
         src = self._flatten_src(src)
-        bias = None
-        if wav_len is not None:
-            pad = M.src_key_padding_mask_encode(wav_len, src.shape[1])
-            bias = M.additive_bias(pad[:, None, None, :])
-        return self.encoder(self._add_pe(self.src_proj(src)), bias)
+        pad = (None if wav_len is None
+               else M.src_key_padding_mask_encode(wav_len, src.shape[1]))
+        return self._run_encoder(self.src_proj(src), pad, None, None)
 
     # ------------------------------------------------- full-prefix decode
     def decode(self, tgt: torch.Tensor, encoder_out: torch.Tensor,
@@ -308,20 +349,27 @@ class EncoderWrapper(nn.Module):
         return self.transformer.encode(x, wav_lens)
 
 
+def _glorot_(w: torch.Tensor, generator: torch.Generator) -> None:
+    receptive = math.prod(w.shape[2:]) if w.dim() > 2 else 1
+    fan_out, fan_in = w.shape[0] * receptive, w.shape[1] * receptive
+    std = math.sqrt(2.0 / (fan_in + fan_out))
+    w.copy_(torch.randn(w.shape, generator=generator) * std)
+
+
 @torch.no_grad()
 def glorot_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights as the reference initializes them: Glorot
-    (Xavier) normal for Linear, Conv2d and Embedding weights, zero biases,
+    (Xavier) normal for Linear, Conv1d/Conv2d and Embedding weights and
+    for the relative-position attention's u and v biases, zero biases,
     unit LayerNorm scales."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Embedding)):
-            w = m.weight
-            receptive = math.prod(w.shape[2:]) if w.dim() > 2 else 1
-            fan_out, fan_in = w.shape[0] * receptive, w.shape[1] * receptive
-            std = math.sqrt(2.0 / (fan_in + fan_out))
-            w.copy_(torch.randn(w.shape, generator=generator) * std)
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Embedding)):
+            _glorot_(m.weight, generator)
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, RelPosMultiHeadAttention):
+            _glorot_(m.u_bias, generator)
+            _glorot_(m.v_bias, generator)

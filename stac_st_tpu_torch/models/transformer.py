@@ -1,6 +1,12 @@
-"""Pre-LN Transformer encoder/decoder with KV-cached decoding.
+"""Transformer encoder/decoder with KV-cached decoding.
 
-Port of ``stac_st_tpu/models/transformer.py`` (pre-LN; float weights).
+Port of ``stac_st_tpu/models/transformer.py``. Layers are pre-LN
+(``normalize_before=True``: ``x + f(LN x)``) or post-LN (``LN(x + f(x))``),
+in every path of the decoder (the full sequence, each decode step form,
+the window); both stacks end in their ``final_norm`` either way. An
+encoder layer's self-attention is regular or ``RelPosMHAXL``
+(``models.relpos``). ``remat`` recomputes each encoder layer in the
+backward of a training forward (:func:`remat_layer`).
 Parameter layout follows PyTorch: each attention block holds one
 ``in_proj`` Linear whose (3·d, d) weight stacks the q, k and v projections
 in the order of the reference's ``_fused_qkv``.
@@ -60,6 +66,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.attention import flash_attention
 from ..ops.kernels.decode_attention import (
@@ -73,11 +80,12 @@ from ..ops.kernels.train_attention import flash_attention_train
 from ..ops.masks import NEG_INF
 from .activations import default_activation
 from .dropout import StepRandom, dropout
+from .relpos import RelPosMultiHeadAttention
 
 __all__ = [
     "NormalizedEmbedding", "MultiHeadAttention", "FeedForward",
     "EncoderLayer", "DecoderLayer", "TransformerEncoder",
-    "TransformerDecoder",
+    "TransformerDecoder", "remat_layer",
 ]
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -312,36 +320,84 @@ def _residual(x, h, p: float, mode: Optional[str], rng):
     return x + (dropout(h, p, rng) if mode == "train" else h)
 
 
+def remat_layer(layer: nn.Module, x: torch.Tensor, args: tuple,
+                rng: Optional[StepRandom]) -> torch.Tensor:
+    """``layer(x, *args, rng)`` whose activations are recomputed in the
+    backward instead of kept (``torch.utils.checkpoint``, non-reentrant).
+
+    The recompute replays the forward exactly: it runs on the parameter
+    tensors the forward read (under ``functional_call`` those are the
+    step's views, not the module's own), and it restores the
+    :class:`StepRandom` state the forward started from, so its dropout
+    masks and kernel seeds are the same draws; the generators are put
+    back afterwards."""
+    params = dict(layer.named_parameters())
+    start = rng.get_state() if rng is not None else None
+    calls = []
+
+    def run(x):
+        if not calls:  # the forward
+            calls.append(1)
+            return layer(x, *args, rng)
+        after = rng.get_state() if rng is not None else None
+        if rng is not None:
+            rng.set_state(start)
+        try:
+            return torch.func.functional_call(layer, params,
+                                              (x, *args, rng))
+        finally:
+            if rng is not None:
+                rng.set_state(after)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class EncoderLayer(nn.Module):
-    """Pre-LN encoder layer."""
+    """Encoder layer: self-attention (regular or ``RelPosMHAXL``) and FFN,
+    pre-LN or post-LN."""
 
     def __init__(self, d_model: int, nhead: int, d_ffn: int,
                  activation: Callable = default_activation,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = True,
+                 attention_type: str = "regularMHA"):
         super().__init__()
         self.dropout = float(dropout)
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.normalize_before = bool(normalize_before)
+        self.relpos = attention_type == "RelPosMHAXL"
+        self.self_attn = (RelPosMultiHeadAttention if self.relpos
+                          else MultiHeadAttention)(d_model, nhead, dropout)
         self.ffn = FeedForward(d_model, d_ffn, activation, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
+    def _attend(self, h, bias, mode, rng):
+        if self.relpos:
+            return self.self_attn(h, bias, mode, rng)
+        return self.self_attn(h, h, h, bias, mode, rng)
+
     def forward(self, x, bias=None, mode: Optional[str] = None, rng=None):
-        h = self.norm1(x)
-        x = _residual(x, self.self_attn(h, h, h, bias, mode, rng),
-                      self.dropout, mode, rng)
-        h = self.ffn(self.norm2(x), mode == "train", rng)
-        return _residual(x, h, self.dropout, mode, rng)
+        p, train = self.dropout, mode == "train"
+        if self.normalize_before:
+            x = _residual(x, self._attend(self.norm1(x), bias, mode, rng), p,
+                          mode, rng)
+            h = self.ffn(self.norm2(x), train, rng)
+            return _residual(x, h, p, mode, rng)
+        x = self.norm1(_residual(x, self._attend(x, bias, mode, rng), p, mode,
+                                 rng))
+        return self.norm2(_residual(x, self.ffn(x, train, rng), p, mode, rng))
 
 
 class DecoderLayer(nn.Module):
-    """Pre-LN decoder layer: self-attention, cross-attention, FFN."""
+    """Decoder layer: self-attention, cross-attention, FFN; pre-LN or
+    post-LN."""
 
     def __init__(self, d_model: int, nhead: int, d_ffn: int,
                  activation: Callable = default_activation,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = True):
         super().__init__()
         self.nhead, self.head_dim = nhead, d_model // nhead
         self.dropout = float(dropout)
+        self.normalize_before = bool(normalize_before)
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.cross_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.ffn = FeedForward(d_model, d_ffn, activation, dropout)
@@ -351,15 +407,22 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, memory, self_bias=None, cross_bias=None,
                 mode: Optional[str] = None, rng=None):
-        p = self.dropout
-        h = self.norm1(x)
-        x = _residual(x, self.self_attn(h, h, h, self_bias, mode, rng), p,
-                      mode, rng)
-        h = self.norm2(x)
-        x = _residual(x, self.cross_attn(h, memory, memory, cross_bias, mode,
-                                         rng), p, mode, rng)
-        h = self.ffn(self.norm3(x), mode == "train", rng)
-        return _residual(x, h, p, mode, rng)
+        p, train = self.dropout, mode == "train"
+        if self.normalize_before:
+            h = self.norm1(x)
+            x = _residual(x, self.self_attn(h, h, h, self_bias, mode, rng),
+                          p, mode, rng)
+            h = self.norm2(x)
+            x = _residual(x, self.cross_attn(h, memory, memory, cross_bias,
+                                             mode, rng), p, mode, rng)
+            h = self.ffn(self.norm3(x), train, rng)
+            return _residual(x, h, p, mode, rng)
+        x = self.norm1(_residual(x, self.self_attn(x, x, x, self_bias, mode,
+                                                   rng), p, mode, rng))
+        x = self.norm2(_residual(x, self.cross_attn(x, memory, memory,
+                                                    cross_bias, mode, rng),
+                                 p, mode, rng))
+        return self.norm3(_residual(x, self.ffn(x, train, rng), p, mode, rng))
 
     def init_cache(self, batch: int, max_len: int, memory: torch.Tensor,
                    anc_mode: bool, cache_dtype: Optional[str] = None
@@ -405,53 +468,74 @@ class DecoderLayer(nn.Module):
         return cache["cross_k_scale"], cache["cross_v_scale"]
 
     def step(self, x, cache, cross_bias=None, beam: int = 1, anc=None):
-        h = self.norm1(x)
+        nb = self.normalize_before
+        h = self.norm1(x) if nb else x
         if anc is not None:
             h = self.self_attn.step_anc(h, cache["self"], anc, beam)
         else:
             h = self.self_attn.step(h, cache["self"])
-        x = x + h
-        x = x + self.cross_attn.step_cross(
-            self.norm2(x), cache["cross_k"], cache["cross_v"], cross_bias,
-            beam, self._cross_scales(cache))
-        return x + self.ffn(self.norm3(x))
+        scales = self._cross_scales(cache)
+        if nb:
+            x = x + h
+            x = x + self.cross_attn.step_cross(
+                self.norm2(x), cache["cross_k"], cache["cross_v"],
+                cross_bias, beam, scales)
+            return x + self.ffn(self.norm3(x))
+        x = self.norm1(x + h)
+        x = self.norm2(x + self.cross_attn.step_cross(
+            x, cache["cross_k"], cache["cross_v"], cross_bias, beam, scales))
+        return self.norm3(x + self.ffn(x))
 
     def step_window(self, x, cache, cross_bias=None):
         """Windowed step, x (B, w, d): self-attention through
         ``MultiHeadAttention.step_window``, cross-attention with the window
         as the beam (each utterance's encoder K/V read once)."""
         B, w, d = x.shape
-        x = x + self.self_attn.step_window(self.norm1(x), cache["self"])
+        nb = self.normalize_before
+        h = self.self_attn.step_window(self.norm1(x) if nb else x,
+                                       cache["self"])
+        x = x + h if nb else self.norm1(x + h)
+        q = (self.norm2(x) if nb else x).reshape(B * w, d)
         h = self.cross_attn.step_cross(
-            self.norm2(x).reshape(B * w, d), cache["cross_k"],
-            cache["cross_v"], cross_bias, w, self._cross_scales(cache))
-        x = x + h.reshape(B, w, d)
-        return x + self.ffn(self.norm3(x))
+            q, cache["cross_k"], cache["cross_v"], cross_bias, w,
+            self._cross_scales(cache)).reshape(B, w, d)
+        if nb:
+            x = x + h
+            return x + self.ffn(self.norm3(x))
+        x = self.norm2(x + h)
+        return self.norm3(x + self.ffn(x))
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, d_ffn: int,
                  activation: Callable = default_activation,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = True,
+                 attention_type: str = "regularMHA", remat: bool = False):
         super().__init__()
+        self.remat = bool(remat)
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, d_ffn, activation, dropout)
+            EncoderLayer(d_model, nhead, d_ffn, activation, dropout,
+                         normalize_before, attention_type)
             for _ in range(num_layers))
         self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, bias=None, mode: Optional[str] = None, rng=None):
         for layer in self.layers:
-            x = layer(x, bias, mode, rng)
+            if self.remat and mode == "train":
+                x = remat_layer(layer, x, (bias, mode), rng)
+            else:
+                x = layer(x, bias, mode, rng)
         return self.final_norm(x)
 
 
 class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, d_ffn: int,
                  activation: Callable = default_activation,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = True):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, nhead, d_ffn, activation, dropout)
+            DecoderLayer(d_model, nhead, d_ffn, activation, dropout,
+                         normalize_before)
             for _ in range(num_layers))
         self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 

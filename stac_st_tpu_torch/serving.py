@@ -3,7 +3,7 @@
 Port of ``stac_st_tpu/serving.py::STEngine`` (the prompted beam-search
 path). One call runs PCM16 or float audio through
 
-    fbank -> CMVN -> conv front end -> pre-LN encoder -> beam search
+    fbank -> CMVN -> conv front end -> encoder -> beam search
     (beam 10, eos threshold 1.5, length normalization, temperature 1.15,
     at most 192 decode tokens) -> detokenize,
 

@@ -216,8 +216,9 @@ def test_decode_step_matches_jax(tiny, case):
     enc = rng.standard_normal((B, 11, D)).astype(np.float32)
     steps = 3
     cap = 8 if case == "rows" else steps
-    cj = t.apply(params["Transformer"], jnp.asarray(enc), cap, None, beam,
-                 False, kv, method=t.init_decode_cache)
+    cj = jax.jit(lambda tp, e: t.apply(tp, e, cap, None, beam, False, kv,
+                                       method=t.init_decode_cache))(
+        params["Transformer"], jnp.asarray(enc))
     model = mods["transformer"]
     cp = model.init_decode_cache(torch.from_numpy(enc), cap, None, beam,
                                  cache_dtype=kv)

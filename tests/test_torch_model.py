@@ -85,12 +85,13 @@ def build_jax_tiny(seed=0):
                 ctc_lin=ctc_lin, params=params)
 
 
-def new_port_modules():
+def new_port_modules(**settings):
     return dict(
         cnn=P.ConvolutionFrontEnd(out_channels=(16, 16)),
         transformer=P.TransformerMultiTask(
             VOCAB, 20 * 16, d_model=D, nhead=NHEAD,
-            num_encoder_layers=LAYERS, num_decoder_layers=LAYERS, d_ffn=FFN),
+            num_encoder_layers=LAYERS, num_decoder_layers=LAYERS, d_ffn=FFN,
+            **settings),
         seq_lin=P.LinearHead(D, VOCAB),
         ctc_lin=P.LinearHead(D, VOCAB),
     )
@@ -161,18 +162,62 @@ def test_from_jax_covers_every_parameter(pair):
         load_jax_params(tree, **mods, settings=jx["transformer"])
 
 
+def _tree_for(module, seed=5):
+    """Numpy-seeded params of a JAX ``TransformerMultiTask`` whose keys
+    differ from the fixture's (shapes from ``jax.eval_shape``)."""
+    shapes = jax.eval_shape(
+        module.init, jax.random.PRNGKey(0),
+        jax.ShapeDtypeStruct((1, 11, 20, 16), jnp.float32),
+        jax.ShapeDtypeStruct((1, 4), jnp.int32))
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, s: np.asarray(_seeded_leaf(path, s.shape, rng),
+                                   np.float32), shapes)
+
+
 @pytest.mark.parametrize("field,value", [
     ("normalize_before", False), ("causal", True),
     ("encoder_module", "conformer"), ("attention_type", "RelPosMHAXL"),
     ("positional_encoding", "fixed_rel"), ("nhead", NHEAD // 2)])
 def test_from_jax_refuses_settings_the_port_cannot_run(pair, field, value):
     """A tree's keys do not say pre-LN or post-LN, nor the head count: the
-    loader reads the JAX module's settings and names the one it refuses."""
+    loader reads the JAX module's settings. A JAX model with any setting
+    the JAX package runs loads into a port module built with the same
+    setting, and the two encoders agree (atol 1e-4); a port module with
+    the default settings refuses it where the setting changes what the
+    network computes, naming the field (``causal`` acts only in a
+    Conformer, ``positional_encoding`` nowhere, in both packages). A
+    head count other than the port module's is refused."""
     jx, _ = pair
+    jt = jx["transformer"].clone(**{field: value})
     tree = jax.tree_util.tree_map(np.asarray, jx["params"])
-    with pytest.raises(ValueError, match=field):
-        load_jax_params(tree, **new_port_modules(),
-                        settings=jx["transformer"].clone(**{field: value}))
+    if field == "nhead":
+        with pytest.raises(ValueError, match=field):
+            load_jax_params(tree, **new_port_modules(), settings=jt)
+        return
+    if field in ("encoder_module", "attention_type"):
+        tree = {**tree, "Transformer": _tree_for(jt)}
+    computes_another = field not in ("causal", "positional_encoding")
+    if computes_another:
+        with pytest.raises(ValueError, match=field):
+            load_jax_params(tree, **new_port_modules(), settings=jt)
+    mods = new_port_modules(**{field: value})
+    load_jax_params(tree, **mods, settings=jt)
+    assert getattr(mods["transformer"], field) == value
+    feats, wav_len = _encoder_batch()
+
+    @jax.jit
+    def encode(params, feats, wav_len):
+        src = jx["cnn"].apply(params["CNN"], feats)
+        return jt.apply(params["Transformer"], src, wav_len,
+                        method=jt.encode)
+
+    want = encode(tree, jnp.asarray(feats), jnp.asarray(wav_len))
+    with torch.no_grad():
+        got = mods["transformer"].encode(mods["cnn"](torch.from_numpy(feats)),
+                                         torch.from_numpy(wav_len))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
 
 
 def test_encoder_matches_jax(encoded):
@@ -205,8 +250,9 @@ def test_decode_step_matches_jax_gather_mode(pair, encoded, beam):
     rng = np.random.default_rng(2)
     tokens = rng.integers(3, VOCAB, (steps, B * beam))
     parents = rng.integers(0, beam, (steps, B, beam))
-    cache_j = t.apply(tp, jnp.asarray(enc_j), steps, None, beam,
-                      method=t.init_decode_cache)
+    cache_j = jax.jit(lambda p, e: t.apply(p, e, steps, None, beam,
+                                           method=t.init_decode_cache))(
+        tp, jnp.asarray(enc_j))
     step_j = jax.jit(lambda tok, pos, c: t.apply(tp, tok, pos, c,
                                                  method=t.decode_step))
     model = pt["transformer"]

@@ -1,5 +1,5 @@
 """The port's experiment layer: YAML resolution against the JAX package's,
-refused settings, metrics against the JAX package's, resume and SIGTERM,
+the model settings it loads and refuses, metrics against the JAX package's, resume and SIGTERM,
 validation that searches the live weights, and the recipe end to end.
 
 Tiny sizes (d32, 4 heads, 2 + 2 layers, vocab 150) through the
@@ -149,6 +149,15 @@ def test_yaml_references_share_the_modules(corpus, tmp_path):
     assert weight.data_ptr() < flat.data_ptr() + flat.numel() * 4
 
 
+# what each accepted edit loads into the port's modules; the edits not
+# listed here the JAX package cannot run either
+LOADED = {"normalize_before: False": False, "causal: True": True,
+          'attention_type: "RelPosMHAXL"': "RelPosMHAXL",
+          "encoder_module: conformer": "conformer",
+          "residuals: (True, False)": (True, False),
+          "num_layers_per_block: 2": 2}
+
+
 @pytest.mark.parametrize("old,new,field", [
     ("normalize_before: True", "normalize_before: False",
      "normalize_before"),
@@ -162,16 +171,28 @@ def test_yaml_references_share_the_modules(corpus, tmp_path):
     ("num_layers_per_block: 1", "num_layers_per_block: 2",
      "num_layers_per_block"),
     ("num_blocks: 2", "num_blocks: 3", "num_blocks"),
+    ('attention_type: "regularMHA"', 'attention_type: "hypermixing"',
+     "attention_type"),
 ])
 def test_yaml_settings_the_port_cannot_run_raise(old, new, field, tmp_path):
-    """A YAML asking for what the port does not compute raises ValueError
-    naming the field, through the rule ``load_jax_params`` applies."""
+    """Every setting the JAX package runs loads from the YAML into port
+    modules that carry it; what the JAX package cannot run either (a
+    third block of two ``out_channels``, an attention type it does not
+    know) raises ``ValueError`` naming the field."""
     text = open(YAML).read()
     assert old in text
     ov = {**TINY, "data_folder": str(tmp_path), "tokenizer_file": "t",
           "output_folder": str(tmp_path)}
-    with pytest.raises(ValueError, match=field.replace("[", r"\[")):
-        load_hyperpyyaml(text.replace(old, new), ov)
+    if new not in LOADED:
+        with pytest.raises(ValueError, match=field.replace("[", r"\[")):
+            load_hyperpyyaml(text.replace(old, new), ov)
+        return
+    hp = load_hyperpyyaml(text.replace(old, new), ov)
+    name = field.split("[")[0]
+    owner = hp["CNN"] if name in ("residuals", "num_layers_per_block") \
+        else hp["Transformer"]
+    assert getattr(owner, name) == LOADED[new]
+    assert hp["modules"]["Transformer"] is hp["Transformer"]
 
 
 def test_yaml_lm_weight_loads_and_decodes_as_zero_until_set_lm(tmp_path):

@@ -241,8 +241,8 @@ def _jax_params(cfg, seed=0):
     }
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map_with_path(
-        lambda path, s: jnp.asarray(_seeded_leaf(path, s.shape, rng), f32),
-        shapes)
+        lambda path, s: jnp.asarray(np.asarray(
+            _seeded_leaf(path, s.shape, rng), np.float32)), shapes)
 
 
 def _port_modules(jparams=None):
@@ -332,10 +332,13 @@ def slice_run():
     def jbatch(b):
         return {k: jnp.asarray(v) for k, v in b.items()}
 
+    # one program for the copy (the step donates its state) and the
+    # optimizer's init, not one small compile a leaf
+    params0, opt0 = jax.jit(lambda p: (
+        jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), p),
+        tx_j.init(p)))(params_j)
     state_j = jstep.TrainState(
-        params=jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True),
-                                      params_j),
-        opt_state=tx_j.init(params_j), cmvn=_jcmvn(mean, std),
+        params=params0, opt_state=opt0, cmvn=_jcmvn(mean, std),
         optimizer_step=jnp.zeros((), jnp.int32),
         micro_step=jnp.zeros((), jnp.int32))
     losses_j, norms_j = [], []
