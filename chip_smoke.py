@@ -231,7 +231,36 @@ Phases, each printed as one JSON line:
    --encoder_module=conformer --attention_type=RelPosMHAXL (the dev split,
    batches of at most 60 s, one epoch, no search, no evaluation), then
    STEngine.from_saved_experiment bitwise equal to the average of its
-   kept checkpoints, translating 4 heldout utterances.
+   kept checkpoints, translating 4 heldout utterances;
+12. data_parallel, run after encoders: the trainer and the engine over
+   two ranks or shards — nccl with a card each where the machine has two
+   cards, else gloo with both ranks on cuda:0 (nccl refuses two ranks on
+   one card); the line names the backend and the cards. First the
+   training flash kernels on the second half of a B4 x 376 batch with
+   row0 = 2 against the whole batch's launch, bf16 (wgmma) and fp32
+   (simt), dropout 0.1: bitwise (the dropout hash keys global rows).
+   Then, at the flagship width and depth on the B32 x 15 s global batch
+   (dropout 0.1, CTC 0.3): two fp32 steps on this process (one rank)
+   and on two ranks spawned from here, each shipping its 16 rows: loss,
+   reduced gradient and updated parameters within card_vs_cpu_train's
+   tolerances of the one-rank run, both ranks one state; six bf16 steps
+   through fit at one and at two ranks (each step's ms, the global
+   batch's audio-s/s, 18 launches a step of each training flash kernel on
+   every rank, all wgmma), the flat gradient's all-reduce (CUDA events and
+   wall); then on the two ranks the recipe at its full width on phase
+   recipe's dev split (batches of at most 60 s, CTC weight 0 and cuDNN's
+   deterministic algorithms, two epochs, the dual search in epoch 2)
+   three times: uninterrupted, with SIGTERM raised on rank 1 alone as
+   its first step begins (both ranks stop, preempted, after step 2), and
+   resumed: parameters bitwise and the final ACC checkpoint's trees equal
+   to the uninterrupted run's, the same validation stats. Serving:
+   STEngine over a mesh of the two cards (or two shards on cuda:0),
+   B16 x 10 s, beam 10: fp32 texts equal to one device's; an fp32 slot
+   loop of 16 slots over the mesh (8 requests of 1.5-5 s one at a time,
+   going round the shards) token-equal to the sequential greedy oracle;
+   bf16 launches of the meshed translate equal to one
+   device's over each shard's rows (anc and cross on split), the texts'
+   agreement, and warm RTFx at one device and on the mesh.
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through, and its
@@ -1625,7 +1654,7 @@ def _train_batch(rng, B, samples, U):
         source_lang=["es"] * B, target_lang=["en"] * B)
 
 
-def _trainer(torch, mods, bf16: bool, speed_perturb=None):
+def _trainer(torch, mods, bf16: bool, speed_perturb=None, run_opts=None):
     from stac_st_tpu_torch.ops.cmvn import InputNormalization
     from stac_st_tpu_torch.ops.fbank import Fbank
     from stac_st_tpu_torch.training.optim import AdamW
@@ -1642,7 +1671,8 @@ def _trainer(torch, mods, bf16: bool, speed_perturb=None):
                                              decay_every=10000),
         use_grad_clipping=True, max_grad_norm=5.0,
         speed_perturb=speed_perturb)
-    return STTrainer(modules, AdamW(lr=1e-3), hparams, device="cuda")
+    return STTrainer(modules, AdamW(lr=1e-3), hparams, run_opts,
+                     device="cuda")
 
 
 def train_phase(torch, kernels, profile: bool):
@@ -3936,6 +3966,405 @@ def encoders_phase(torch, kernels, smi: str, root: str):
     return {"models": recs, "phase_s": time.perf_counter() - t_phase}
 
 
+# ------------------------------------------------------- data_parallel
+# two ranks: nccl with a card each where there are two, else gloo with
+# both ranks on cuda:0 (nccl refuses two ranks on one card)
+DP_RANKS, DP_FP32_STEPS, DP_BF16_STEPS = 2, 2, 6
+DP_SLOT_REQUESTS = 8
+
+
+def dp_layout(torch):
+    """(backend, cards, the serving mesh's devices)."""
+    if torch.cuda.device_count() >= DP_RANKS:
+        return "nccl", DP_RANKS, [f"cuda:{i}" for i in range(DP_RANKS)]
+    return "gloo", 1, ["cuda:0"] * DP_RANKS
+
+
+def _dp_trainer(torch, bf16: bool, dropout: float, count: int):
+    """The train phase's trainer at the flagship width and depth, with
+    ``data_parallel_count``."""
+    trainer = _trainer(torch, flagship(0, dropout=dropout), bf16,
+                       run_opts={"data_parallel_count": count})
+    trainer.ensure_state()
+    return trainer
+
+
+def _dp_fp32_steps(torch, trainer, batch):
+    """DP_FP32_STEPS steps of the global batch ``batch`` (dropout 0.1,
+    CMVN update): each step's loss, reduced gradient and parameters."""
+    from stac_st_tpu_torch.training import step as S
+
+    dev = trainer._device_batch(batch)
+    out = []
+    for _ in range(DP_FP32_STEPS):
+        m, g, cmvn = S.loss_and_grad(trainer.cfg, trainer.state, dev,
+                                     trainer.next_seed(), True)
+        trainer.tx.update(g, trainer.state.opt_state,
+                          trainer.state.params.flat)
+        trainer.state.cmvn = cmvn
+        out.append((float(m["loss"]), g.detach().cpu(),
+                    trainer.state.params.flat.detach().cpu().clone()))
+    return out
+
+
+def _dp_bf16_fit(torch, kernels, trainer, batch) -> dict:
+    """DP_BF16_STEPS steps of the global batch through fit: each step's
+    ms, the warm audio-s/s of the GLOBAL batch, the launches."""
+    marks = []
+
+    def copies():
+        for _ in range(DP_BF16_STEPS):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            yield batch
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    kernels.reset_launches()
+    trainer.fit([1], copies())
+    launches = dict(kernels.launches)
+    steps = np.diff(marks)
+    warm = float(np.median(steps[2:]))
+    losses = [float(x) for x in trainer.epoch_losses]
+    check(len(losses) == DP_BF16_STEPS and all(np.isfinite(losses)),
+          f"bf16 losses {losses}")
+    for name in FLASH[1:]:
+        n = 18 * DP_BF16_STEPS
+        check(launches.get(name, 0) == n and launches.get(f"{name}/{TC}")
+              == n, f"{name}: {launches} (want {n}, all {TC})")
+    return {"step_ms": [x * 1e3 for x in steps], "warm_step_ms": warm * 1e3,
+            "audio_s_per_s": TB * SECONDS_TRAIN / warm, "losses": losses,
+            "launches": {k: v for k, v in launches.items()
+                         if k.startswith("flash")}}
+
+
+def _dp_recipe(root: str, out: str, backend: str, rank: int,
+               sigterm: bool = False):
+    """The recipe at its full width on phase recipe's dev split (batches of
+    at most 60 s, no accumulation, CTC weight 0 so that CUDA's CTC backward
+    and its atomics stay out, two epochs, the dual search in epoch 2); with
+    ``sigterm``, rank 1 alone raises SIGTERM as its first step begins."""
+    import contextlib
+    import signal
+
+    from stac_st_tpu_torch.recipes import train_multitask as R
+    from stac_st_tpu_torch.training.trainer import STTrainer
+
+    args = [RECIPE_YAML, "--device=cuda", f"--distributed_backend={backend}",
+            f"--data_folder={root}",
+            f"--tokenizer_file={os.path.join(root, 'bpe.model')}",
+            f"--output_folder={out}", "--train_splits=dev",
+            "--dev_splits=dev", "--test_splits_4_translations=[]",
+            "--test_splits_1_translations=[]", "--number_of_epochs=2",
+            "--valid_search_interval=2", "--num_workers=1",
+            "--no_eval=True", "--n_warmup_steps=10", "--ctc_weight=0",
+            "--grad_accumulation_factor=1", "--max_batch_len=60",
+            "--turn=5", "--xt=6"]
+    original = STTrainer.next_seed
+    if sigterm and rank == 1:
+        def next_seed(self):
+            if not getattr(self, "_signalled", False):
+                self._signalled = True
+                signal.raise_signal(signal.SIGTERM)
+            return original(self)
+        STTrainer.next_seed = next_seed
+    try:
+        with open(f"{out}.rank{rank}.log", "w") as log, \
+                contextlib.redirect_stdout(log):
+            return R.main(args)
+    finally:
+        STTrainer.next_seed = original
+
+
+def _dp_worker(rank: int, port: int, root: str, backend: str):
+    """One rank of phase data_parallel: the fp32 steps, the bf16 fit, the
+    flat gradient's all-reduce time, the recipe three times."""
+    import torch
+    import torch.distributed as dist
+
+    from stac_st_tpu_torch.device import set_tf32
+    from stac_st_tpu_torch.ops import kernels
+    from stac_st_tpu_torch.parallel.distributed import init_distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS),
+                      LOCAL_RANK=str(rank if backend == "nccl" else 0),
+                      LOCAL_WORLD_SIZE=str(DP_RANKS if backend == "nccl"
+                                           else 1),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    check(init_distributed(backend), "joined the process group")
+    set_tf32(False)
+    res = {"device": str(torch.cuda.current_device())}
+    batch = _train_batch(np.random.default_rng(0), TB,
+                         int(SECONDS_TRAIN * SR), U_TRAIN)
+    t0 = time.perf_counter()
+    trainer = _dp_trainer(torch, False, 0.1, -1)
+    res["local_rows"] = int(trainer._device_batch(batch)["sig"].shape[0])
+    res["fp32"] = _dp_fp32_steps(torch, trainer, batch)
+    del trainer
+    torch.cuda.empty_cache()
+    res["fp32_s"] = time.perf_counter() - t0
+    trainer = _dp_trainer(torch, True, 0.1, DP_RANKS)
+    res["bf16"] = _dp_bf16_fit(torch, kernels, trainer, batch)
+    buf = torch.ones_like(trainer.state.params.flat)
+    ev, wall = [], []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        trainer.dp.sum(buf)
+        b.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ev.append(a.elapsed_time(b))
+    check(float(buf[0]) == float(DP_RANKS) ** 5, "all-reduce sums ranks")
+    res["allreduce_ms"] = {"events": ev, "wall": wall,
+                           "bytes": buf.numel() * 4}
+    del trainer, buf
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    recipe = {}
+    for name, out, sigterm in (("whole", "dp_whole", False),
+                               ("cut", "dp_cut", True),
+                               ("resumed", "dp_cut", False)):
+        t0 = time.perf_counter()
+        tr = _dp_recipe(root, os.path.join(root, out), backend, rank,
+                        sigterm)
+        torch.cuda.synchronize()
+        recipe[name] = {"s": time.perf_counter() - t0,
+                        "preempted": tr.preempted,
+                        "micro_step": tr.state.micro_step,
+                        "valid": tr.last_valid_stats,
+                        "flat": tr.state.params.flat.detach().cpu()}
+        del tr
+    res["recipe"] = recipe
+    torch.save(res, os.path.join(root, f"dp_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _dp_train(torch, kernels, root: str, backend: str) -> dict:
+    """The 1-rank references on this process, then the two ranks."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from stac_st_tpu_torch.training.checkpoint import Checkpointer
+
+    batch = _train_batch(np.random.default_rng(0), TB,
+                         int(SECONDS_TRAIN * SR), U_TRAIN)
+    trainer = _dp_trainer(torch, False, 0.1, -1)
+    one = _dp_fp32_steps(torch, trainer, batch)
+    cnn = torch.zeros(one[0][1].numel(), dtype=torch.bool)
+    for name, view in trainer.state.params.named(cnn).items():
+        if name.startswith("CNN."):
+            view.fill_(True)
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = _dp_trainer(torch, True, 0.1, -1)
+    one_bf16 = _dp_bf16_fit(torch, kernels, trainer, batch)
+    del trainer
+    torch.cuda.empty_cache()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.spawn(_dp_worker, args=(port, root, backend), nprocs=DP_RANKS,
+             join=True)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"dp_rank{r}.pt"),
+                        weights_only=False) for r in range(DP_RANKS)]
+    check(all(r["local_rows"] == TB // DP_RANKS for r in ranks),
+          "each rank ships its half of the global batch")
+    # fp32: the card_vs_cpu_train tolerances, both steps
+    fp32 = {"loss_rel_err": [], "grad_rel_err": [], "cnn_grad_rel_err": [],
+            "param_err_determined": [], "determined_share": []}
+    sure = torch.ones_like(cnn)
+    for (l1, g1, p1), (l2, g2, p2), (_, g3, p3) in zip(
+            one, ranks[0]["fp32"], ranks[1]["fp32"]):
+        check(torch.equal(p2, p3) and torch.equal(g2, g3),
+              "the ranks hold one state")
+        scale = float(g1.abs().max())
+        gd = (g2 - g1).abs()
+        # determined: |g| above the summation-order noise in every step
+        # so far (an undetermined sign moves a parameter by 2 lr, which
+        # Adam carries into the next step)
+        sure &= g1.abs() > 1e-3 * scale
+        fp32["loss_rel_err"].append(abs(l2 - l1) / abs(l1))
+        fp32["grad_rel_err"].append(float(gd[~cnn].max()) / scale)
+        fp32["cnn_grad_rel_err"].append(float(gd[cnn].max()) / scale)
+        fp32["param_err_determined"].append(float((p2 - p1).abs()[sure]
+                                                  .max()))
+        fp32["determined_share"].append(float(sure.float().mean()))
+    # the gradients of step 1, on the same parameters; step 2's are taken
+    # where the step-1 updates differ by 2 lr on the undetermined entries
+    check(max(fp32["loss_rel_err"]) <= 1e-5, f"fp32 2 ranks vs 1: {fp32}")
+    check(fp32["grad_rel_err"][0] <= 1e-4, f"fp32 gradients: {fp32}")
+    check(fp32["cnn_grad_rel_err"][0] <= 1e-3, f"fp32 CNN: {fp32}")
+    check(max(fp32["param_err_determined"]) <= 1e-6, f"fp32 params {fp32}")
+    # the recipe: a joint stop, the resume bitwise the uninterrupted run
+    rec = {r: ranks[0]["recipe"][r] for r in ("whole", "cut", "resumed")}
+    for r in ranks:
+        check(r["recipe"]["cut"]["preempted"]
+              and r["recipe"]["cut"]["micro_step"] == 2,
+              f"joint stop after step 2: {r['recipe']['cut']}")
+        check(not r["recipe"]["resumed"]["preempted"]
+              and r["recipe"]["resumed"]["micro_step"]
+              == r["recipe"]["whole"]["micro_step"],
+              "the resumed run ends where the whole one ends")
+        check(torch.equal(r["recipe"]["resumed"]["flat"],
+                          r["recipe"]["whole"]["flat"]),
+              "resumed parameters bitwise the uninterrupted run's")
+        check(r["recipe"]["resumed"]["valid"] == r["recipe"]["whole"]["valid"]
+              and "BLEU" in r["recipe"]["whole"]["valid"],
+              "the same validation, with the search")
+    ckpts = [Checkpointer(os.path.join(root, d, "save")).find_checkpoints(
+        max_key="ACC") for d in ("dp_whole", "dp_cut")]
+    check(len(ckpts[0]) == len(ckpts[1]) == 2, "an ACC checkpoint an epoch")
+    newest = [max(c, key=lambda k: k.meta["epoch"]) for c in ckpts]
+    check(trees_equal(newest[0].load("model"), newest[1].load("model"))
+          and trees_equal(newest[0].load("opt_torch"),
+                          newest[1].load("opt_torch")),
+          "the final checkpoints are equal")
+    return {
+        "fp32": fp32,
+        "bf16_one_rank": one_bf16,
+        "bf16_ranks": [r["bf16"] for r in ranks],
+        "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+        "recipe": {k: {kk: vv for kk, vv in v.items() if kk != "flat"}
+                   for k, v in rec.items()},
+        "rank_devices": [r["device"] for r in ranks],
+        "ranks_s": ranks_s, "rank_fp32_s": [r["fp32_s"] for r in ranks],
+    }
+
+
+def _dp_row0_kernels(torch) -> dict:
+    """The flash kernels on the second half of a batch with ``row0``
+    against the whole batch's launch: bitwise (bf16 wgmma, fp32 simt),
+    dropout 0.1."""
+    from stac_st_tpu_torch.ops.kernels import train_attention as TA
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, half = 4, 2
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn((b, T_ENC, H, DH), generator=g,
+                                   device="cuda").to(dt) for _ in range(4))
+        bias = torch.zeros((b, T_ENC), device="cuda")
+        o, lse = TA.flash_attention_train_fwd(q, k, v, bias, TRAIN_SEED,
+                                              P_DROP)
+        delta = TA.row_delta(do, o)
+        full = (o, lse, TA.flash_attention_train_dq(
+            q, k, v, bias, TRAIN_SEED, P_DROP, do, lse, delta),
+            *TA.flash_attention_train_dkv(q, k, v, bias, TRAIN_SEED, P_DROP,
+                                          do, lse, delta))
+        hs = [t[half:].contiguous() for t in (q, k, v, bias, do)]
+        o2, lse2 = TA.flash_attention_train_fwd(*hs[:4], TRAIN_SEED, P_DROP,
+                                                row0=half)
+        d2 = TA.row_delta(hs[4], o2)
+        part = (o2, lse2, TA.flash_attention_train_dq(
+            *hs[:4], TRAIN_SEED, P_DROP, hs[4], lse2, d2, row0=half),
+            *TA.flash_attention_train_dkv(*hs[:4], TRAIN_SEED, P_DROP, hs[4],
+                                          lse2, d2, row0=half))
+        same = [torch.equal(f[half:], p) for f, p in zip(full, part)]
+        check(all(same), f"row0 {dt}: {same}")
+        other = TA.flash_attention_train_fwd(*hs[:4], TRAIN_SEED, P_DROP)[0]
+        out[str(dt).split(".")[1]] = {
+            "bitwise": True,
+            "row0_moves_the_mask": not torch.equal(other, o2)}
+        check(out[str(dt).split(".")[1]]["row0_moves_the_mask"],
+              "row0 keys the mask")
+    return out
+
+
+def _dp_serve(torch, kernels, devices) -> dict:
+    """STEngine over the mesh against one device, and the meshed slot
+    loop against the sequential greedy oracle."""
+    from stac_st_tpu_torch.parallel.mesh import make_mesh
+    from stac_st_tpu_torch.serving_continuous import ContinuousBatchingEngine
+
+    wavs = serving_wavs()
+    audio_s = B * SECONDS
+    mesh = make_mesh(DP_RANKS, devices)
+    kw = dict(beam_size=BEAM, max_decode_tokens=192, transfer_dtype="int16")
+    rec = {"mesh": [str(d) for d in mesh.devices]}
+    e1 = engine(flagship(0), "cuda", bf16=False, **kw)
+    em = engine(flagship(0), None, bf16=False, mesh=mesh, **kw)
+    t1, s1 = _timed(torch, partial(e1.translate, wavs))
+    tm, sm = _timed(torch, partial(em.translate, wavs))
+    check(tm == t1, "fp32 meshed texts equal the one device's")
+    rec["fp32"] = {"texts_equal": True, "one_s": s1, "mesh_s": sm}
+    del e1
+    # the slot loop over the mesh, fp32: requests one at a time (each
+    # admitted alone, as the oracle encodes it), going round the shards
+    reqs = [w[: int((1.5 + 0.5 * i) * SR)].astype(np.float32) / 32768.0
+            for i, w in enumerate(wavs[:DP_SLOT_REQUESTS])]
+    cont = ContinuousBatchingEngine(em, slots=16, chunk=16)
+    take, used = cont._take_free, []
+    cont._take_free = lambda: used.append(take()) or used[-1]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        got = one_at_a_time(cont, [(w, "translate") for w in reqs])
+    finally:
+        cont.close()
+    slot_s = time.perf_counter() - t0
+    slot_launches = dict(kernels.launches)
+    oracle = [greedy_oracle(em, cont._S_max, cont.cap, w, "es", "en")
+              for w in reqs]
+    shards = {s // cont._per for s in used}
+    check(got == oracle, "the meshed slot loop is the greedy oracle's, fp32")
+    check(shards == set(range(DP_RANKS)), f"both shards served: {used}")
+    check(not slot_launches.get("decode_self_attention/rows/split"),
+          "fp32 ragged self on simt")
+    rec["slot_loop"] = {"requests": len(reqs), "tokens_equal": True,
+                        "shards": sorted(shards), "s": slot_s,
+                        "launches": slot_launches}
+    del em, cont
+    torch.cuda.empty_cache()
+    # bf16: each shard launches what one device launches for its rows
+    b1 = engine(flagship(0), "cuda", bf16=True, **kw)
+    bm = engine(flagship(0), None, bf16=True, mesh=mesh, **kw)
+    b1.translate(wavs)
+    bm.translate(wavs)
+    kernels.reset_launches()
+    tm, sm = _timed(torch, partial(bm.translate, wavs))
+    got = dict(kernels.launches)
+    kernels.reset_launches()
+    per = B // DP_RANKS
+    for lo in range(0, B, per):
+        b1.translate(wavs[lo:lo + per])
+    torch.cuda.synchronize()
+    want = dict(kernels.launches)
+    check(got == want, f"meshed launches {got}, one device's {want}")
+    for name in ("decode_self_attention_anc", "decode_cross_attention"):
+        check(got.get(f"{name}/{SPLIT}", 0) == got.get(name, -1) > 0,
+              f"{name} on split: {got}")
+    t1, s1 = _timed(torch, partial(b1.translate, wavs))
+    rec["bf16"] = {"launches": got, "launches_equal_per_shard": True,
+                   "agreement": sum(a == b for a, b in zip(tm, t1)),
+                   "rtfx_one": audio_s / s1, "rtfx_mesh": audio_s / sm,
+                   "one_s": s1, "mesh_s": sm}
+    return rec
+
+
+def data_parallel_phase(torch, kernels, smi: str, root: str) -> dict:
+    """Phase data_parallel (see the module docstring)."""
+    backend, cards, devices = dp_layout(torch)
+    t0 = time.perf_counter()
+    rec = {"phase": "data_parallel", "gpu": smi, "backend": backend,
+           "cards": cards, "ranks": DP_RANKS}
+    rec["row0_kernels"] = _dp_row0_kernels(torch)
+    rec["train"] = _dp_train(torch, kernels, root, backend)
+    rec["train_s"] = time.perf_counter() - t0
+    rec["serve"] = _dp_serve(torch, kernels, devices)
+    rec["phase_s"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
 def card_vs_cpu_phase(torch):
     """The port on the card against the port on the CPU, fp32, 2 x 2 s."""
     rng = np.random.default_rng(1)
@@ -4039,6 +4468,7 @@ def main() -> int:
         recipe = recipe_phase(torch, kernels, smi, root)
         served = serve_phase(torch, kernels, K, smi, root, args.profile)
         encoders_phase(torch, kernels, smi, root)
+        data_parallel_phase(torch, kernels, smi, root)
     card_vs_cpu_phase(torch)
     card_vs_cpu_train_phase(torch)
 

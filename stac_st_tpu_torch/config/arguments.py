@@ -10,8 +10,13 @@ are harness-level flags; everything else becomes a YAML override.
 ``--device`` (default ``cuda``) selects where the recipe runs; ``cpu``
 only when asked. The JAX package's other run options are accepted so its
 command lines parse unchanged; the port reads ``device``, ``precision``,
-``transfer_int16``, ``debug*`` and ``noprogressbar`` (meshes, pipeline
-stages, ``rng_impl`` and ``train_attn_kernel`` are not ported).
+``transfer_int16``, ``debug*``, ``noprogressbar``,
+``data_parallel_count`` (-1: the process group's world size; any other
+value must equal it, the run launched as ``torchrun --nproc_per_node N
+-m stac_st_tpu_torch.recipes.train_multitask ...``),
+``distributed_backend`` (``nccl``, the default for any other value, or
+``gloo``) and ``pipeline_stages`` (> 1 raises: pipeline stages are not
+ported; nor are ``rng_impl`` and ``train_attn_kernel``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ RUN_OPT_DEFAULTS: Dict[str, Any] = {
     "device": "cuda",
     "data_parallel_count": -1,          # -1 = all visible devices
     "distributed_launch": False,        # accepted/ignored (NCCL-era flag)
-    "distributed_backend": "ici",       # accepted/ignored
+    "distributed_backend": "ici",       # nccl (any other value) | gloo
     "debug": False,
     "debug_batches": 2,
     "debug_epochs": 2,
@@ -38,7 +43,7 @@ RUN_OPT_DEFAULTS: Dict[str, Any] = {
     "transfer_int16": False,            # ship train audio H2D as PCM16
     "noprogressbar": False,
     "profile_dir": "",                  # accepted/ignored
-    "local_rank": 0,                    # accepted/ignored
+    "local_rank": 0,                    # accepted/ignored (LOCAL_RANK)
 }
 
 _BOOLS = {"true": True, "false": False, "True": True, "False": False}

@@ -13,7 +13,8 @@
 // stores in the input dtype. The training forward also writes the per-row
 // logsumexp L (B*H, Tq) in fp32; the backward recomputes P = exp(S - L)
 // instead of reading saved weights. Dropout on the attention weights runs
-// inside the kernels: keep(i, j) is a murmur3-fmix32 hash of (seed, b*H + h,
+// inside the kernels: keep(i, j) is a murmur3-fmix32 hash of (seed, b*H + h
+// with b the row in the global batch: the launch's rows start at bh0 / H,
 // and the coordinates of (i, j) in the reference's logical tiling: one tile
 // of ceil8(T) rows when that is <= 512, else 128-row tiles), so forward and
 // backward regenerate the same mask and nothing is stored. The hash is the
@@ -118,6 +119,7 @@ struct Drop {
   int q_tile;  // logical tiling of the reference (not this kernel's tiles)
   int k_tile;
   int on;
+  uint32_t bh0;  // b0 * H: the launch's first row b0 in the global batch
 };
 
 // The hash's terms: x = (seed*C0 ^ (bh+1)*C1 ^ (qt+1)*C2 ^ (kt+1)*C3)
@@ -138,7 +140,7 @@ __device__ __forceinline__ bool kept(const Drop& dr, uint32_t x) {
 __device__ __forceinline__ float keep_scale(const Drop& dr, uint32_t bh, int i, int j) {
   const uint32_t qt = (uint32_t)(i / dr.q_tile), row = (uint32_t)(i % dr.q_tile);
   const uint32_t kt = (uint32_t)(j / dr.k_tile), col = (uint32_t)(j % dr.k_tile);
-  const uint32_t x = (dr.seed * H_SEED) ^ ((bh + 1u) * H_BH) ^ ((qt + 1u) * H_QT) ^
+  const uint32_t x = (dr.seed * H_SEED) ^ ((bh + dr.bh0 + 1u) * H_BH) ^ ((qt + 1u) * H_QT) ^
                      ((kt + 1u) * H_KT);
   return kept(dr, x + row * H_ROW + col * H_COL) ? dr.inv_keep : 0.f;
 }
@@ -365,9 +367,10 @@ __device__ __forceinline__ void hash_terms(int i, int tile, uint32_t ct, uint32_
   pos = (uint32_t)(i - n * tile) * cp;
 }
 
-// The hash's seed and head terms: (seed * C0) ^ ((b*H + h + 1) * C1).
+// The hash's seed and head terms: (seed * C0) ^ ((b*H + h + 1) * C1), b the
+// row in the global batch.
 __device__ __forceinline__ uint32_t head_term(const Drop& dr, int bh) {
-  return (dr.seed * H_SEED) ^ ((uint32_t)(bh + 1) * H_BH);
+  return (dr.seed * H_SEED) ^ (((uint32_t)(bh + 1) + dr.bh0) * H_BH);
 }
 
 // Dropout keep bits of a thread's 32 accumulator values of a 64 x 64 tile,
@@ -1288,7 +1291,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 }
 
 inline Drop make_drop(unsigned seed, unsigned thresh, float inv_keep, int q_tile, int k_tile,
-                      int on) {
+                      int on, unsigned bh0) {
   Drop dr;
   dr.seed = seed;
   dr.thresh = thresh;
@@ -1296,6 +1299,7 @@ inline Drop make_drop(unsigned seed, unsigned thresh, float inv_keep, int q_tile
   dr.q_tile = q_tile;
   dr.k_tile = k_tile;
   dr.on = on;
+  dr.bh0 = bh0;
   return dr;
 }
 
@@ -1318,11 +1322,11 @@ const char* stac_flash_error_string(int code) {
 int stac_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
                    void* lse, int B, int H, int Tq, int Tk, int Dh, float scale,
                    unsigned seed, unsigned thresh, float inv_keep, int q_tile, int k_tile,
-                   int drop, int dtype, void* stream, int use_tc) {
+                   int drop, unsigned bh0, int dtype, void* stream, int use_tc) {
   if (Dh <= 0 || Dh > MAX_DH || B * H <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
   if (use_tc && !((dtype == BF16 || dtype == F16) && Dh == tc::DH)) return ERR_TC_ARGS;
-  const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop && lse != nullptr);
+  const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop && lse != nullptr, bh0);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case F32:
@@ -1344,12 +1348,12 @@ int stac_flash_fwd(const void* q, const void* k, const void* v, const void* bias
 int stac_flash_dq(const void* q, const void* k, const void* v, const void* bias,
                   const void* dout, const void* lse, const void* delta, void* dq, int B,
                   int H, int Tq, int Tk, int Dh, float scale, unsigned seed, unsigned thresh,
-                  float inv_keep, int q_tile, int k_tile, int drop, int dtype, void* stream,
-                  int use_tc) {
+                  float inv_keep, int q_tile, int k_tile, int drop, unsigned bh0, int dtype,
+                  void* stream, int use_tc) {
   if (Dh <= 0 || Dh > MAX_DH || B * H <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
   if (use_tc && !((dtype == BF16 || dtype == F16) && Dh == tc::DH)) return ERR_TC_ARGS;
-  const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop);
+  const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop, bh0);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case F32:
@@ -1375,11 +1379,11 @@ int stac_flash_dkv(const void* q, const void* k, const void* v, const void* bias
                    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                    int B, int H, int Tq, int Tk, int Dh, float scale, unsigned seed,
                    unsigned thresh, float inv_keep, int q_tile, int k_tile, int drop,
-                   int dtype, void* stream, int use_tc) {
+                   unsigned bh0, int dtype, void* stream, int use_tc) {
   if (Dh <= 0 || Dh > MAX_DH || B * H <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
   if (use_tc && !((dtype == BF16 || dtype == F16) && Dh == tc::DH)) return ERR_TC_ARGS;
-  const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop);
+  const Drop dr = make_drop(seed, thresh, inv_keep, q_tile, k_tile, drop, bh0);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case F32:

@@ -5,6 +5,12 @@ A training step draws all its randomness from one integer seed through a
 attention kernels' int32 seeds, SpecAugment's parameters) and a generator
 on the step's device for dropout masks, so no draw synchronises with the
 card and torch's global generator is never used.
+
+Under data parallelism a rank holds rows ``row0 .. row0 + B`` of a global
+batch of ``n_rows``: every draw is keyed to global rows (a dropout mask is
+drawn at the global batch's shape and the rank keeps its rows; the
+attention kernels hash the global row), so R ranks draw exactly what one
+device draws for the whole batch.
 """
 
 from __future__ import annotations
@@ -17,8 +23,10 @@ __all__ = ["StepRandom", "dropout"]
 
 
 class StepRandom:
-    def __init__(self, seed: int, device="cpu"):
+    def __init__(self, seed: int, device="cpu", row0: int = 0,
+                 n_rows: Optional[int] = None):
         dev = torch.device(device)
+        self.row0, self.n_rows = int(row0), n_rows
         self.host = torch.Generator().manual_seed(int(seed))
         self.on_device = self.host if dev.type == "cpu" else \
             torch.Generator(device=dev).manual_seed(int(seed))
@@ -29,7 +37,14 @@ class StepRandom:
                                  dtype=torch.int64))
 
     def uniform(self, shape, device) -> torch.Tensor:
-        return torch.rand(shape, generator=self.on_device, device=device)
+        """U[0, 1) of ``shape`` (rows first): this rank's rows of a draw
+        at the global batch's shape."""
+        shape = tuple(shape)
+        if self.n_rows is None or self.n_rows == shape[0]:
+            return torch.rand(shape, generator=self.on_device, device=device)
+        full = torch.rand((self.n_rows,) + shape[1:],
+                          generator=self.on_device, device=device)
+        return full[self.row0:self.row0 + shape[0]]
 
     def get_state(self):
         """Both generators' states, for :meth:`set_state` to replay the

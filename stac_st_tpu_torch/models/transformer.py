@@ -144,7 +144,8 @@ class MultiHeadAttention(nn.Module):
             if mode == "train":
                 p = self.dropout
                 seed = rng.kernel_seed() if p > 0.0 else 0
-                out = flash_attention_train(q, k, v, bias2, seed, p)
+                out = flash_attention_train(q, k, v, bias2, seed, p,
+                                            rng.row0 if rng else 0)
             else:
                 out = flash_attention(q, k, v, bias2)
             return self.out_proj(out.reshape(B, Tq, self.d_model))

@@ -5,12 +5,15 @@ Training folds each batch into the running stats until
 ``update_until_epoch`` (``InputNormalization.should_update``), then
 freezes them; serving only applies them. The running stats are the
 arithmetic mean of all PER-UTTERANCE means and stds seen so far (not a
-pooled std): a batch update is ``(stat · count + Σ_batch) / (count + B)``.
+pooled std): a batch update is ``(stat · count + Σ_batch) / (count + B)``,
+B counting every row of the batch tensor, as the JAX step counts the
+zero-length rows that pad a batch to its mesh (each adds mean 0 and std
+√eps). Over ranks, the sums and B are the global batch's.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,12 +60,18 @@ def _per_utt_stats(feats: torch.Tensor, rel_lengths: torch.Tensor):
 
 
 def cmvn_update(state: CmvnState, feats: torch.Tensor,
-                rel_lengths: torch.Tensor) -> CmvnState:
-    """Fold a batch of utterances into the running stats."""
+                rel_lengths: torch.Tensor, reduce_sum=None,
+                n_rows: Optional[int] = None) -> CmvnState:
+    """Fold a batch of utterances into the running stats. With
+    ``reduce_sum`` (an in-place sum over ranks) the batch is this rank's
+    rows of a global batch of ``n_rows``."""
     mean_b, std_b = _per_utt_stats(feats, rel_lengths)
-    count = state.count + float(feats.shape[0])
-    mean = (state.mean * state.count + mean_b.sum(0)) / count
-    std = (state.std * state.count + std_b.sum(0)) / count
+    mean_s, std_s = mean_b.sum(0), std_b.sum(0)
+    if reduce_sum is not None:
+        mean_s, std_s = reduce_sum(torch.stack([mean_s, std_s]))
+    count = state.count + float(n_rows or feats.shape[0])
+    mean = (state.mean * state.count + mean_s) / count
+    std = (state.std * state.count + std_s) / count
     return CmvnState(mean, std, count)
 
 

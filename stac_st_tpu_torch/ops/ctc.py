@@ -15,6 +15,8 @@ torch, and autograd. Deciding that reads one flag back from the device.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -67,12 +69,15 @@ def ctc_forward_floor(logprobs: torch.Tensor, in_len: torch.Tensor,
 
 def ctc_loss(log_probs: torch.Tensor, targets: torch.Tensor,
              input_lens: torch.Tensor, target_lens: torch.Tensor,
-             blank_index: int = 0, reduction: str = "mean"):
+             blank_index: int = 0, reduction: str = "mean",
+             n_rows: Optional[int] = None):
     """CTC loss. log_probs (B, T, C) log-probabilities (or logits: they are
     log-softmaxed again, which changes nothing); targets (B, U) zero-padded;
     input_lens, target_lens (B,) relative lengths, made absolute with
     ``round``. Reductions as the reference (``mean`` divides each row by
-    its target length first)."""
+    its target length first). ``n_rows``: the global batch's row count,
+    which divides ``mean`` and ``batchmean`` in a data-parallel rank's
+    share (padding rows count, as in the JAX mesh step)."""
     B, T, _ = log_probs.shape
     U = targets.shape[1]
     abs_in = torch.round(input_lens.to(torch.float32) * T).long()
@@ -92,9 +97,11 @@ def ctc_loss(log_probs: torch.Tensor, targets: torch.Tensor,
                                   abs_tgt[rows], blank_index)
         per_seq = per_seq.index_put((rows,), floor)
     if reduction == "mean":
-        return torch.mean(per_seq / torch.clamp(abs_tgt, min=1))
+        per_tok = per_seq / torch.clamp(abs_tgt, min=1)
+        return torch.mean(per_tok) if n_rows is None \
+            else per_tok.sum() / n_rows
     if reduction == "batchmean":
-        return per_seq.sum() / B
+        return per_seq.sum() / (n_rows or B)
     if reduction == "batch":
         return per_seq
     if reduction == "sum":

@@ -7,7 +7,10 @@ fixed (n_fft, 2·n_bins) kernel, in full fp32 (the reference uses
 ``Precision.HIGHEST``; on the card the caller keeps TF32 off).
 
 The ``top_db`` clamp takes its max over the WHOLE batch tensor, as the
-reference does: an utterance's features depend on its batch mates.
+reference does: an utterance's features depend on its batch mates. Where
+the batch is split over ranks or shards, ``reduce_max`` takes that max
+over the global batch (the JAX mesh computes it globally), or the caller
+computes :meth:`Fbank.db` per shard and clamps with the shards' max.
 Frame count: ``T = 1 + L // hop``.
 """
 
@@ -82,7 +85,21 @@ class Fbank:
             self._on[device] = (self._dft.to(device), self._mel.to(device))
         return self._on[device]
 
-    def __call__(self, wavs: torch.Tensor) -> torch.Tensor:
+    def __call__(self, wavs: torch.Tensor, reduce_max=None) -> torch.Tensor:
+        """``reduce_max``: called with this batch's max dB (a 0-d tensor)
+        and returning the global batch's."""
+        x_db = self.db(wavs)
+        top = x_db.max()
+        if reduce_max is not None:
+            top = reduce_max(top)
+        return self.clamp(x_db, top)
+
+    def clamp(self, x_db: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
+        """The ``top_db`` floor below the batch's max dB ``top``."""
+        return torch.maximum(x_db, top - self.top_db)
+
+    def db(self, wavs: torch.Tensor) -> torch.Tensor:
+        """(B, L) -> (B, T, n_mels) log-mel dB before the clamp."""
         dft, mel_m = self._consts(wavs.device)
         pad = self.n_fft // 2
         x = torch.nn.functional.pad(wavs.to(torch.float32), (pad, pad))
@@ -92,8 +109,7 @@ class Fbank:
         re, im = spec[..., :n_bins], spec[..., n_bins:]
         power = re * re + im * im
         mel = torch.matmul(power, mel_m)  # (B, T, n_mels)
-        x_db = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
-        return torch.maximum(x_db, x_db.max() - self.top_db)
+        return 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
 
     def output_frames(self, n_samples: int) -> int:
         return num_frames(n_samples, self.hop_length)

@@ -34,6 +34,9 @@ coordinates are those of the reference's logical tiling (:func:`tile_rows`),
 whatever tiles the CUDA kernel itself uses; so the plain versions equal the
 JAX kernel run in interpret mode, and the CUDA kernels equal the plain
 versions. Given the same seed, forward and backward see the same mask.
+``b`` is the row's index in the global batch: a data-parallel rank holding
+rows ``row0 ..`` of it passes ``row0``, so its masks are those rows' masks
+in a step over the whole batch on one device.
 
 A wrapper given CPU tensors runs its ``*_ref`` plain version. Given CUDA
 tensors it checks dtype, shape and contiguity, launches on the current
@@ -122,12 +125,14 @@ def _inv_keep(p_drop: float) -> float:
 
 
 def dropout_keep(seed: int, B: int, H: int, Tq: int, Tk: int,
-                 p_drop: float, device=None) -> torch.Tensor:
-    """(B, H, Tq, Tk) fp32: keep/(1−p) for every (query, key) of every head."""
+                 p_drop: float, device=None, row0: int = 0) -> torch.Tensor:
+    """(B, H, Tq, Tk) fp32: keep/(1−p) for every (query, key) of every
+    head, the rows being rows ``row0 ..`` of the global batch."""
     qt_rows, kt_rows = tile_rows(Tq), tile_rows(Tk)
     i = torch.arange(Tq, device=device, dtype=torch.int64)
     j = torch.arange(Tk, device=device, dtype=torch.int64)
-    bh = torch.arange(B * H, device=device, dtype=torch.int64)
+    bh = torch.arange(row0 * H, (row0 + B) * H, device=device,
+                      dtype=torch.int64)
     x = tile_hash(seed, bh[:, None, None], (i // qt_rows)[None, :, None],
                   (j // kt_rows)[None, None, :], (i % qt_rows)[None, :, None],
                   (j % kt_rows)[None, None, :])
@@ -145,7 +150,8 @@ def _bias4(bias: Optional[torch.Tensor]):
     return 0.0 if bias is None else bias.float()[:, None, None, :]
 
 
-def flash_attention_train_fwd_ref(q, k, v, bias, seed: int, p_drop: float
+def flash_attention_train_fwd_ref(q, k, v, bias, seed: int, p_drop: float,
+                                  row0: int = 0
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O (B, Tq, H, Dh) in q's dtype and L (B, H, Tq) fp32: the max is
     floored at −1e9 and dropout hits the weights after the normaliser is
@@ -159,14 +165,14 @@ def flash_attention_train_fwd_ref(q, k, v, bias, seed: int, p_drop: float
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     if p_drop > 0.0:
-        p = p * dropout_keep(seed, B, H, Tq, Tk, p_drop, q.device)
+        p = p * dropout_keep(seed, B, H, Tq, Tk, p_drop, q.device, row0)
     den = torch.clamp(l, min=1e-30)
     out = torch.matmul(p, _heads(v)) / den
     lse = torch.where(l > 0, m + torch.log(den), NEG_INF)[..., 0]
     return out.permute(0, 2, 1, 3).to(q.dtype), lse.contiguous()
 
 
-def _bwd_parts(q, k, v, bias, seed, p_drop, dout, lse, delta):
+def _bwd_parts(q, k, v, bias, seed, p_drop, dout, lse, delta, row0):
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
     scale = 1.0 / math.sqrt(Dh)
@@ -176,7 +182,7 @@ def _bwd_parts(q, k, v, bias, seed, p_drop, dout, lse, delta):
     dpd = torch.matmul(dof, vf.transpose(-1, -2))
     pm = p
     if p_drop > 0.0:
-        keep = dropout_keep(seed, B, H, Tq, Tk, p_drop, q.device)
+        keep = dropout_keep(seed, B, H, Tq, Tk, p_drop, q.device, row0)
         dpd = dpd * keep
         pm = p * keep
     ds = p * (dpd - delta[..., None])
@@ -184,20 +190,21 @@ def _bwd_parts(q, k, v, bias, seed, p_drop, dout, lse, delta):
 
 
 def flash_attention_train_dq_ref(q, k, v, bias, seed: int, p_drop: float,
-                                 dout, lse, delta) -> torch.Tensor:
+                                 dout, lse, delta, row0: int = 0
+                                 ) -> torch.Tensor:
     """dQ (B, Tq, H, Dh) in dout's dtype."""
     scale, _, kf, _, _, ds = _bwd_parts(q, k, v, bias, seed, p_drop, dout,
-                                        lse, delta)
+                                        lse, delta, row0)
     dq = torch.matmul(ds, kf) * scale
     return dq.permute(0, 2, 1, 3).to(dout.dtype)
 
 
 def flash_attention_train_dkv_ref(q, k, v, bias, seed: int, p_drop: float,
-                                  dout, lse, delta
+                                  dout, lse, delta, row0: int = 0
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK, dV (B, Tk, H, Dh) in k's dtype."""
     scale, qf, _, dof, pm, ds = _bwd_parts(q, k, v, bias, seed, p_drop,
-                                           dout, lse, delta)
+                                           dout, lse, delta, row0)
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dv = torch.matmul(pm.transpose(-1, -2), dof)
     return (dk.permute(0, 2, 1, 3).to(k.dtype),
@@ -209,7 +216,8 @@ def lib():
     """The loaded kernel library, argument types bound."""
     lb = load_library(_LIB)
     if not getattr(lb, "_stac_bound", False):
-        drop = [_F, _U, _U, _F, _I, _I, _I, _I, _P]  # scale .. dtype, stream
+        # scale, seed, thresh, inv_keep, tiles, on, bh0, dtype, stream
+        drop = [_F, _U, _U, _F, _I, _I, _I, _U, _I, _P]
         dims = [_I, _I, _I, _I, _I]                 # B, H, Tq, Tk, Dh
         lb.stac_flash_fwd.argtypes = [_P] * 6 + dims + drop + [_I]
         lb.stac_flash_dq.argtypes = [_P] * 8 + dims + drop + [_I]
@@ -276,11 +284,11 @@ def stream() -> int:
 
 
 def drop_args(scale: float, seed: int, p_drop: float, Tq: int, Tk: int,
-              dtype: torch.dtype):
+              dtype: torch.dtype, bh0: int = 0):
     on = p_drop > 0.0
     return (scale, seed & _M32, _threshold(p_drop) if on else 0,
             _inv_keep(p_drop) if on else 1.0, tile_rows(Tq), tile_rows(Tk),
-            int(on), _DTYPES[dtype], stream())
+            int(on), bh0 & _M32, _DTYPES[dtype], stream())
 
 
 def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -302,7 +310,7 @@ def _launch(name: str, fn, dtype: torch.dtype, head_dim: int, *args):
 
 
 def launch_fwd(name: str, q, k, v, bias, with_lse: bool, scale: float,
-               seed: int, p_drop: float):
+               seed: int, p_drop: float, row0: int = 0):
     """Launch the forward on CUDA tensors; returns (O, L or None)."""
     B, H, Tq, Tk, Dh = check(name, q, k, v, bias)
     out = torch.empty_like(q)
@@ -312,17 +320,19 @@ def launch_fwd(name: str, q, k, v, bias, with_lse: bool, scale: float,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, Tq, Tk, Dh,
-            *drop_args(scale, seed, p_drop, Tq, Tk, q.dtype))
+            *drop_args(scale, seed, p_drop, Tq, Tk, q.dtype, row0 * H))
     return out, lse
 
 
-def flash_attention_train_fwd(q, k, v, bias, seed: int, p_drop: float):
+def flash_attention_train_fwd(q, k, v, bias, seed: int, p_drop: float,
+                              row0: int = 0):
     """See :func:`flash_attention_train_fwd_ref`."""
     if on_cpu(q, k, v, bias):
-        return flash_attention_train_fwd_ref(q, k, v, bias, seed, p_drop)
+        return flash_attention_train_fwd_ref(q, k, v, bias, seed, p_drop,
+                                             row0)
     return launch_fwd("flash_attention_train_fwd", q, k, v, bias,
                       with_lse=True, scale=1.0 / math.sqrt(q.shape[-1]),
-                      seed=seed, p_drop=p_drop)
+                      seed=seed, p_drop=p_drop, row0=row0)
 
 
 def _bwd_extra(q, dout, lse, delta):
@@ -333,15 +343,16 @@ def _bwd_extra(q, dout, lse, delta):
 
 
 def flash_attention_train_dq(q, k, v, bias, seed: int, p_drop: float,
-                             dout, lse, delta):
+                             dout, lse, delta, row0: int = 0):
     """See :func:`flash_attention_train_dq_ref`."""
     if on_cpu(q, k, v, bias, dout, lse, delta):
         return flash_attention_train_dq_ref(q, k, v, bias, seed, p_drop,
-                                            dout, lse, delta)
-    return launch_dq(q, k, v, bias, seed, p_drop, dout, lse, delta)
+                                            dout, lse, delta, row0)
+    return launch_dq(q, k, v, bias, seed, p_drop, dout, lse, delta, row0)
 
 
-def launch_dq(q, k, v, bias, seed: int, p_drop: float, dout, lse, delta):
+def launch_dq(q, k, v, bias, seed: int, p_drop: float, dout, lse, delta,
+              row0: int = 0):
     """Launch dQ on CUDA tensors."""
     name = "flash_attention_train_dq"
     B, H, Tq, Tk, Dh = check(name, q, k, v, bias,
@@ -351,20 +362,22 @@ def launch_dq(q, k, v, bias, seed: int, p_drop: float, dout, lse, delta):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, Dh,
-            *drop_args(1.0 / math.sqrt(Dh), seed, p_drop, Tq, Tk, q.dtype))
+            *drop_args(1.0 / math.sqrt(Dh), seed, p_drop, Tq, Tk, q.dtype,
+                       row0 * H))
     return dq
 
 
 def flash_attention_train_dkv(q, k, v, bias, seed: int, p_drop: float,
-                              dout, lse, delta):
+                              dout, lse, delta, row0: int = 0):
     """See :func:`flash_attention_train_dkv_ref`."""
     if on_cpu(q, k, v, bias, dout, lse, delta):
         return flash_attention_train_dkv_ref(q, k, v, bias, seed, p_drop,
-                                             dout, lse, delta)
-    return launch_dkv(q, k, v, bias, seed, p_drop, dout, lse, delta)
+                                             dout, lse, delta, row0)
+    return launch_dkv(q, k, v, bias, seed, p_drop, dout, lse, delta, row0)
 
 
-def launch_dkv(q, k, v, bias, seed: int, p_drop: float, dout, lse, delta):
+def launch_dkv(q, k, v, bias, seed: int, p_drop: float, dout, lse, delta,
+               row0: int = 0):
     """Launch dK/dV on CUDA tensors."""
     name = "flash_attention_train_dkv"
     B, H, Tq, Tk, Dh = check(name, q, k, v, bias,
@@ -375,7 +388,8 @@ def launch_dkv(q, k, v, bias, seed: int, p_drop: float, dout, lse, delta):
             None if bias is None else bias.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, H, Tq, Tk, Dh,
-            *drop_args(1.0 / math.sqrt(Dh), seed, p_drop, Tq, Tk, q.dtype))
+            *drop_args(1.0 / math.sqrt(Dh), seed, p_drop, Tq, Tk, q.dtype,
+                       row0 * H))
     return dk, dv
 
 
@@ -386,10 +400,11 @@ def row_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 class _FlashAttentionTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed: int, p_drop: float):
-        out, lse = flash_attention_train_fwd(q, k, v, bias, seed, p_drop)
+    def forward(ctx, q, k, v, bias, seed: int, p_drop: float, row0: int):
+        out, lse = flash_attention_train_fwd(q, k, v, bias, seed, p_drop,
+                                             row0)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.seed, ctx.p_drop = seed, p_drop
+        ctx.seed, ctx.p_drop, ctx.row0 = seed, p_drop, row0
         return out
 
     @staticmethod
@@ -397,22 +412,24 @@ class _FlashAttentionTrain(torch.autograd.Function):
         q, k, v, bias, out, lse = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
         delta = row_delta(g, out)
-        args = (q, k, v, bias, ctx.seed, ctx.p_drop, g, lse, delta)
+        args = (q, k, v, bias, ctx.seed, ctx.p_drop, g, lse, delta, ctx.row0)
         dq = flash_attention_train_dq(*args)
         dk, dv = flash_attention_train_dkv(*args)
         # the key-padding bias derives from lengths: no gradient flows to it
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_train(q, k, v, bias: Optional[torch.Tensor] = None,
-                          seed: int = 0, p_drop: float = 0.0) -> torch.Tensor:
+                          seed: int = 0, p_drop: float = 0.0,
+                          row0: int = 0) -> torch.Tensor:
     """Differentiable flash attention with in-kernel dropout.
 
     q (B, Tq, H, Dh), k/v (B, Tk, H, Dh), bias (B, Tk) additive key-padding
     bias or None, ``seed`` a host int (its low 32 bits are used; ignored
-    when ``p_drop`` is 0). Returns (B, Tq, H, Dh) in q's dtype."""
+    when ``p_drop`` is 0), ``row0`` the global batch row of q's first row
+    (the dropout mask's key). Returns (B, Tq, H, Dh) in q's dtype."""
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     return _FlashAttentionTrain.apply(q.contiguous(), k.contiguous(),
                                       v.contiguous(), bias, int(seed),
-                                      float(p_drop))
+                                      float(p_drop), int(row0))

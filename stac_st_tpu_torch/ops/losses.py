@@ -10,6 +10,11 @@ Port of ``stac_st_tpu/ops/losses.py`` (SpeechBrain semantics):
 * reductions ``mean`` (token mean), ``batchmean`` (sum / batch), ``batch``
   (per-utterance mean) and ``sum``;
 * ``LogSoftmax``, what the YAML's ``torch.nn.LogSoftmax`` resolves to.
+
+A data-parallel rank computes its share of the global batch's loss:
+``n_rows`` and ``n_tokens`` give the global row and token counts that
+replace its own in the normalizers, so the ranks' shares sum to the
+loss of the whole batch on one device.
 """
 
 from __future__ import annotations
@@ -39,12 +44,14 @@ def length_mask(rel_lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return (idx[None, :] < abs_len[:, None]).to(torch.float32)
 
 
-def _reduce(per_token: torch.Tensor, mask: torch.Tensor, reduction: str):
+def _reduce(per_token: torch.Tensor, mask: torch.Tensor, reduction: str,
+            n_rows=None, n_tokens=None):
     total = torch.sum(per_token * mask)
     if reduction == "mean":
-        return total / torch.clamp(mask.sum(), min=1.0)
+        return total / torch.clamp(
+            mask.sum() if n_tokens is None else n_tokens, min=1.0)
     if reduction == "batchmean":
-        return total / per_token.shape[0]
+        return total / (n_rows or per_token.shape[0])
     if reduction == "batch":
         dims = tuple(range(1, per_token.dim()))
         return (per_token * mask).sum(dims) / torch.clamp(mask.sum(dims),
@@ -56,8 +63,11 @@ def _reduce(per_token: torch.Tensor, mask: torch.Tensor, reduction: str):
 
 def nll_loss(log_probabilities: torch.Tensor, targets: torch.Tensor,
              length: Optional[torch.Tensor] = None,
-             label_smoothing: float = 0.0, reduction: str = "mean"):
-    """Negative log-likelihood over (B, T, C) log-probs, (B, T) targets."""
+             label_smoothing: float = 0.0, reduction: str = "mean",
+             n_rows: Optional[int] = None,
+             n_tokens: Optional[torch.Tensor] = None):
+    """Negative log-likelihood over (B, T, C) log-probs, (B, T) targets;
+    ``n_rows``/``n_tokens``: the global batch's counts (module note)."""
     B, T, _ = log_probabilities.shape
     targets = targets[..., :T].long()
     if length is not None:
@@ -66,10 +76,10 @@ def nll_loss(log_probabilities: torch.Tensor, targets: torch.Tensor,
         mask = torch.ones((B, T), dtype=torch.float32,
                           device=log_probabilities.device)
     picked = torch.gather(log_probabilities, -1, targets[..., None])[..., 0]
-    nll = _reduce(-picked, mask, reduction)
+    nll = _reduce(-picked, mask, reduction, n_rows, n_tokens)
     if label_smoothing > 0.0:
         reg = -torch.sum(log_probabilities.mean(-1) * mask) / torch.clamp(
-            mask.sum(), min=1.0)
+            mask.sum() if n_tokens is None else n_tokens, min=1.0)
         return label_smoothing * reg + (1.0 - label_smoothing) * nll
     return nll
 

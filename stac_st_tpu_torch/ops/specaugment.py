@@ -16,6 +16,10 @@ on the features' device. The reference's semantics:
 * masked cells take the mean of the whole (warped) batch, or 0 with
   ``replace_with_zero``.
 
+Over ranks (``rows=(row0, n_rows)``): the draws are made for the global
+batch's ``n_rows`` rows and the rank keeps its own; the fill is the
+global batch's mean through ``reduce_sum``.
+
 The random streams differ from JAX's; the tests feed both the same
 parameters.
 """
@@ -132,14 +136,20 @@ def _span_mask(width, start, size: int, device) -> torch.Tensor:
 
 def apply_spec_augment(feats: torch.Tensor, params: SpecAugParams,
                        time_warp_mode: str = "bicubic",
-                       replace_with_zero: bool = False,
+                       replace_with_zero: bool = False, reduce_sum=None,
+                       n_rows: Optional[int] = None,
                        **unused) -> torch.Tensor:
-    """Warp, then fill every masked cell with the batch mean (or 0)."""
+    """Warp, then fill every masked cell with the batch mean (or 0);
+    with ``reduce_sum`` the mean of the global batch of ``n_rows``."""
     if params.warp is not None:
         feats = warp_to(feats, *params.warp, time_warp_mode)
     B, T, D = feats.shape
-    fill = torch.zeros((), dtype=feats.dtype, device=feats.device) \
-        if replace_with_zero else feats.mean()
+    if replace_with_zero:
+        fill = torch.zeros((), dtype=feats.dtype, device=feats.device)
+    elif reduce_sum is not None:
+        fill = reduce_sum(feats.sum()[None])[0] / float(n_rows * T * D)
+    else:
+        fill = feats.mean()
     masked = (_span_mask(params.time_width, params.time_start, T,
                          feats.device)[:, :, None]
               | _span_mask(params.freq_width, params.freq_start, D,
@@ -148,11 +158,23 @@ def apply_spec_augment(feats: torch.Tensor, params: SpecAugParams,
 
 
 def spec_augment(feats: torch.Tensor, generator: torch.Generator,
+                 rows: Optional[Tuple[int, int]] = None, reduce_sum=None,
                  **opts) -> torch.Tensor:
-    """Draw on the host, apply on the features' device."""
-    return apply_spec_augment(
-        feats, draw_spec_augment(tuple(feats.shape), generator, **opts),
-        **opts)
+    """Draw on the host, apply on the features' device. ``rows``:
+    (first global row, global row count) of a rank's rows."""
+    if rows is None:
+        return apply_spec_augment(
+            feats, draw_spec_augment(tuple(feats.shape), generator, **opts),
+            **opts)
+    row0, n_rows = rows
+    B = feats.shape[0]
+    p = draw_spec_augment((n_rows,) + tuple(feats.shape[1:]), generator,
+                          **opts)
+    mine = slice(row0, row0 + B)
+    p = SpecAugParams(p.warp, p.freq_width[mine], p.freq_start[mine],
+                      p.time_width[mine], p.time_start[mine])
+    return apply_spec_augment(feats, p, reduce_sum=reduce_sum,
+                              n_rows=n_rows, **opts)
 
 
 class SpecAugment:

@@ -1,1 +1,2 @@
-"""Multi-process helpers (only the row partition the loader needs so far)."""
+"""Data parallelism: process groups for training, the device mesh for
+serving."""

@@ -14,13 +14,16 @@ Usage::
 
     python -m stac_st_tpu_torch.recipes.serve results/transformer_multitask/8886 \\
         --http-port 8080 [--continuous] [--kv-cache-dtype int8] \\
-        [--weights-int8] [--device cpu]
+        [--weights-int8] [--data-parallel N|-1] [--device cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--kv-cache-dtype
 int8`` and ``--weights-int8`` reach the engine (the int8 KV cache, int8
-decode weights) under either front. What the port does not serve yet
-raises, naming the flag: ``--transport grpc|both`` and ``--grpc-port``
-(the gRPC adapter) and ``--data-parallel`` > 1 (meshes). The reference's
+decode weights) under either front. ``--data-parallel N`` serves over
+the first N visible cards (``-1``: all of them; one card, or 0/1, serves
+without a mesh; N above the visible count exits), both fronts; with
+``--device cpu`` the N shards share the CPU. What the port does not
+serve yet raises, naming the flag: ``--transport grpc|both`` and
+``--grpc-port`` (the gRPC adapter). The reference's
 ``--compile-cache`` persists XLA executables and means nothing here (the
 port compiles its CUDA kernels once per checkout into
 ``build/torch_kernels/``), so the parser has no such flag.
@@ -61,8 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--buckets", default="2,4,8,16,32",
                    help="comma-separated bucket seconds")
     p.add_argument("--data-parallel", type=int, default=0,
-                   help="shard request batches over this many devices "
-                        "(not ported: 0/1 only)")
+                   help="shard request batches over this many cards "
+                        "(0/1 = single device, -1 = all)")
     p.add_argument("--no-bf16", action="store_true",
                    help="keep fp32 weights and activations")
     p.add_argument("--avg-checkpoints", type=int, default=None,
@@ -123,9 +126,34 @@ def refuse_unported(args) -> None:
     if args.grpc_port is not None:
         raise ValueError(f"--grpc-port {args.grpc_port}: the port serves "
                          "http only; the gRPC adapter is a later slice")
-    if args.data_parallel not in (0, 1):
-        raise ValueError(f"--data-parallel {args.data_parallel}: the port "
-                         "serves one device; meshes are a later slice")
+
+
+def data_mesh(args):
+    """The ``DataMesh`` ``--data-parallel`` asks for, or None."""
+    import torch
+
+    from stac_st_tpu_torch.parallel.mesh import make_mesh
+
+    if args.data_parallel in (0, 1):
+        return None
+    if torch.device(args.device).type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devs = [f"cuda:{i}" for i in range(n)]
+    else:  # CPU shards share the host
+        devs = [args.device] * max(args.data_parallel, 1)
+    n = len(devs) if args.data_parallel == -1 else args.data_parallel
+    if not 1 <= n <= len(devs):
+        raise SystemExit(
+            f"--data-parallel {args.data_parallel}: need a value in "
+            f"[2, {len(devs)}] (or -1 for all devices); {len(devs)} "
+            f"device(s) visible")
+    if n == 1:
+        # -1 on a one-card host serves without a mesh
+        logger.info("fleet serving asked for, 1 device visible: serving "
+                    "single-device")
+        return None
+    logger.info("fleet serving over %d devices", n)
+    return make_mesh(n, devs)
 
 
 def start_servers(args):
@@ -155,6 +183,7 @@ def start_servers(args):
         avg_checkpoints=args.avg_checkpoints,
         kv_cache_dtype=args.kv_cache_dtype,
         weights_int8=args.weights_int8,
+        mesh=data_mesh(args),
     )
     logger.info("loading experiment %s", args.experiment_dir)
     engine = STEngine.from_saved_experiment(

@@ -17,6 +17,18 @@ kept checkpoints into ``bleu_<split>.txt`` / ``wer_<split>.txt`` (and their
 ``_no_turn`` variants) in the output folder; a split whose file is already
 there is not decoded again. A run stopped by SIGTERM returns after its
 checkpoint, without evaluating.
+
+Data parallel over N cards, one process each::
+
+    torchrun --nproc_per_node N -m stac_st_tpu_torch.recipes.train_multitask \\
+        recipes/hparams/transformer_multitask.yaml --data_folder=... \\
+        [--distributed_backend=gloo]
+
+joins the process group (``nccl`` unless ``gloo`` is named), shards the
+train and valid loaders' audio decoding by rank, and trains the global
+batch the sampler forms (``training.trainer``); rank 0 writes the
+experiment directory, the checkpoints and the evaluation files, which
+hold every test row in order.
 """
 
 import logging
@@ -39,6 +51,11 @@ from stac_st_tpu_torch.data import (
 )
 from stac_st_tpu_torch.device import resolve_device
 from stac_st_tpu_torch.models import glorot_init_
+from stac_st_tpu_torch.parallel.distributed import (
+    barrier,
+    init_distributed,
+    is_main_process,
+)
 from stac_st_tpu_torch.training.trainer import STTrainer
 from stac_st_tpu_torch.utils.seeding import manual_seed
 
@@ -144,13 +161,17 @@ def dataio_prepare(hparams):
 def main(argv):
     hparams_file, run_opts, overrides = parse_arguments(argv)
     resolve_device(run_opts["device"])  # CUDA asked for and absent raises
+    backend = str(run_opts.get("distributed_backend"))
+    init_distributed(backend if backend == "gloo" else "nccl")
     with open(hparams_file) as fin:
         hparams = load_hyperpyyaml(fin, overrides)
 
     manual_seed(int(hparams.get("seed", 8886)))
-    create_experiment_directory(
-        hparams["output_folder"], hparams_file, overrides
-    )
+    if is_main_process():
+        create_experiment_directory(
+            hparams["output_folder"], hparams_file, overrides
+        )
+    barrier()
     logger.info("training for %s epochs (optimizer_step_limit %s)",
                 hparams.get("number_of_epochs"),
                 hparams.get("optimizer_step_limit"))
@@ -168,6 +189,12 @@ def main(argv):
         run_opts=run_opts,
         checkpointer=hparams.get("checkpointer"),
     )
+    if trainer.dp is not None:
+        # every rank iterates the same global batches and decodes audio
+        # only for its own row block (the block _device_batch ships)
+        for name in ("train", "valid"):
+            loaders[name].set_shard(trainer.dp.rank, trainer.dp.world,
+                                    trainer._row_multiple)
     trainer.fit(
         hparams["epoch_counter"], loaders["train"], loaders["valid"]
     )
@@ -190,9 +217,10 @@ def main(argv):
         hparams["wer_file_no_turn"] = os.path.join(
             out, f"wer_{name}_no_turn.txt"
         )
-        if os.path.isfile(hparams["bleu_file"]) or os.path.isfile(
-            hparams["wer_file"]
-        ):
+        present = os.path.isfile(hparams["bleu_file"]) or os.path.isfile(
+            hparams["wer_file"])
+        barrier()  # every rank reads the same answer before rank 0 writes
+        if present:
             print(f"File present, not decoding again: {hparams['bleu_file']}")
             continue
         trainer.hparams.update(hparams)

@@ -35,14 +35,33 @@ A trained experiment loads through ``from_saved_experiment(exp_dir)``
 The serving front (``serving_stream``, ``serving_http``,
 ``serving_continuous``, ``recipes.serve``) drives this engine, and
 ``SpeculativeSTEngine`` pairs two engines for draft-and-verify greedy
-decoding. Not ported yet: ``mesh``.
+decoding.
+
+``mesh`` (a ``parallel.mesh.DataMesh``) serves data-parallel, as the JAX
+engine over a mesh's ``data`` axis: the modules and CMVN are replicated
+once per distinct device, each bucket's rows are padded to a multiple of
+the shard count with full-length silence (dropped on output) and split
+into one row block per shard, and each shard encodes and searches its
+block in a host thread of its own, on its device and a CUDA stream of
+its own (so a shard's host reads wait for its own work, also where two
+shards share a card). The couplings across
+rows stay those of the whole batch: the fbank ``top_db`` max is taken
+over every shard's rows before any shard goes on, and the search's early
+exit is exact (a row it settles decodes as under the full budget), so a
+shard that settles before its batch mates gives the texts the whole
+batch gives. Each shard launches the kernels a one-device engine launches
+for its rows.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import math
 import os
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -57,6 +76,7 @@ from .models import ConvolutionFrontEnd, LinearHead, TransformerMultiTask
 from .ops import masks as M
 from .ops.cmvn import CmvnState, cmvn_apply, cmvn_init
 from .ops.fbank import Fbank
+from .parallel.mesh import device_scope, row_blocks
 from .tokenizer import SentencePieceProcessor
 from .training.checkpoint import Checkpointer, average_checkpoints
 from .utils.quantize import quantize_decode_weights
@@ -65,6 +85,15 @@ from .utils.rttm import extract_turn_events
 __all__ = ["STEngine", "SpeculativeSTEngine"]
 
 _BUCKET_SECONDS = (2.0, 4.0, 8.0, 16.0, 32.0)
+
+
+class _Replica(NamedTuple):
+    """The modules and CMVN statistics on one device of the mesh."""
+    cnn: Any
+    transformer: Any
+    seq_lin: Any
+    ctc_lin: Any
+    cmvn: CmvnState
 
 
 class STEngine:
@@ -76,13 +105,19 @@ class STEngine:
                  bf16: bool = True, pad_batch_rows=None,
                  transfer_dtype: str = "float32", turn_id: int = 7,
                  xt_id: int = 8, kv_cache_dtype: Optional[str] = None,
-                 weights_int8: bool = False, device=None):
+                 weights_int8: bool = False, device=None, mesh=None):
         """pad_batch_rows: None, an int (round rows up to a multiple) or a
         ladder of row counts (pad to the smallest rung that fits; beyond
         the top rung, round up to a multiple of it). Padded rows are
         full-length silence and are dropped on output. kv_cache_dtype:
         None or 'int8'; weights_int8: quantize the decode-path weights
-        after the dtype cast."""
+        after the dtype cast. mesh: a ``DataMesh`` to serve over (its
+        first device replaces ``device``)."""
+        self.mesh = mesh
+        if mesh is not None:
+            for dev in mesh.distinct:
+                resolve_device(dev)
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_tf32(False)
@@ -115,6 +150,23 @@ class STEngine:
         self._cnn, self._transformer = cnn, transformer
         self._ctc_lin = ctc_lin
         self.cmvn = cmvn.to(self.device)
+        self._replicas = {self.device: _Replica(cnn, transformer, seq_lin,
+                                                ctc_lin, self.cmvn)}
+        self._pool = None
+        if mesh is not None:
+            for dev in mesh.distinct:
+                if dev not in self._replicas:
+                    self._replicas[dev] = _Replica(*(
+                        None if m is None else copy.deepcopy(m).to(dev)
+                        for m in (cnn, transformer, seq_lin, ctc_lin)),
+                        self.cmvn.to(dev))
+            self._pool = ThreadPoolExecutor(len(mesh.devices),
+                                            thread_name_prefix="shard")
+            # a CUDA stream a shard: a shard's host reads wait for its own
+            # work only, also where two shards share a card
+            self._streams = [torch.cuda.Stream(device=d)
+                             if d.type == "cuda" else None
+                             for d in mesh.devices]
         self.searcher = MultiTaskBeamSearch(
             transformer, seq_lin, bos_index=1, eos_index=2, blank_index=0,
             min_decode_ratio=0.0, max_decode_ratio=1.0,
@@ -243,8 +295,11 @@ class STEngine:
             arrays.append(wav)
             by_width.setdefault(self._bucket_width(len(wav)), []).append(i)
         groups = []
+        dev = self.device if self.mesh is None else "cpu"  # sharded later
         for width, idx in sorted(by_width.items()):
             rows = self._rows(len(idx))
+            if self.mesh is not None:
+                rows += (-rows) % len(self.mesh.devices)
             batch = np.zeros((rows, width), np.int16 if pcm16 else np.float32)
             # padded rows are full-length silence (length 1.0): a zero
             # length would make every encoder position padding
@@ -252,27 +307,75 @@ class STEngine:
             for row, i in enumerate(idx):
                 batch[row, : len(arrays[i])] = arrays[i]
                 lens[row] = len(arrays[i]) / width
-            groups.append((idx, torch.from_numpy(batch).to(self.device),
-                           torch.from_numpy(lens).to(self.device)))
+            groups.append((idx, torch.from_numpy(batch).to(dev),
+                           torch.from_numpy(lens).to(dev)))
         return groups
 
-    def _encode(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+    def _encode(self, wavs: torch.Tensor, wav_lens: torch.Tensor,
+                rep: Optional[_Replica] = None):
+        """The encoder output of a batch, by ``rep``'s modules (default:
+        the engine's, on ``self.device``)."""
+        rep = rep or self._replicas[self.device]
         if wavs.dtype == torch.int16:  # PCM16 transfer: unpack on device
             wavs = wavs.to(torch.float32) / 32768.0
-        feats = cmvn_apply(self.cmvn, self._fbank(wavs)).to(self.dtype)
-        return self._transformer.encode(self._cnn(feats), wav_lens)
+        feats = cmvn_apply(rep.cmvn, self._fbank(wavs)).to(self.dtype)
+        return rep.transformer.encode(rep.cnn(feats), wav_lens)
+
+    def _searcher_for(self, rep: _Replica) -> MultiTaskBeamSearch:
+        """The engine's searcher (its settings as they are now) over one
+        replica's modules."""
+        s = copy.copy(self.searcher)
+        s.model, s.seq_lin, s.ctc_lin = rep.transformer, rep.seq_lin, \
+            rep.ctc_lin
+        return s
+
+    def _sharded(self, batch: torch.Tensor, lens: torch.Tensor,
+                 work: Callable) -> List[Any]:
+        """Run ``work(replica, searcher, enc, lens)`` on each shard's row
+        block of a bucket batch (host tensors), one host thread per shard;
+        returns the shards' results in shard order. The fbank dB of every
+        block is computed first, and the ``top_db`` clamp takes the max
+        over all of them, as over the whole batch."""
+        devs = self.mesh.devices
+        blocks = []
+        for (lo, hi), dev in zip(row_blocks(batch.shape[0], len(devs)),
+                                 devs):
+            with device_scope(dev):
+                w = batch[lo:hi].to(dev)
+                if w.dtype == torch.int16:
+                    w = w.to(torch.float32) / 32768.0
+                blocks.append((self._fbank.db(w), lens[lo:hi].to(dev)))
+        top = torch.stack([x.max().to(self.device) for x, _ in blocks]).max()
+        tops = [top.to(dev) for dev in devs]
+
+        def run(k: int):
+            dev, stream = devs[k], self._streams[k]
+            rep = self._replicas[dev]
+            with device_scope(dev), torch.inference_mode(), (
+                    contextlib.nullcontext() if stream is None
+                    else torch.cuda.stream(stream)):
+                if stream is not None:  # the blocks came on the default one
+                    stream.wait_stream(torch.cuda.default_stream(dev))
+                x_db, wl = blocks[k]
+                feats = cmvn_apply(rep.cmvn, self._fbank.clamp(
+                    x_db, tops[k])).to(self.dtype)
+                enc = rep.transformer.encode(rep.cnn(feats), wl)
+                return work(rep, self._searcher_for(rep), enc, wl)
+
+        return list(self._pool.map(run, range(len(devs))))
 
     def _prompt(self, src: str, tgt: str) -> List[int]:
         sp = self.tokenizer
         return [self.searcher.bos_token, sp.encode_as_ids(f"[{src}]")[-1],
                 sp.encode_as_ids(f"[{tgt}]")[-1]]
 
-    def _ctc_frames(self, enc: torch.Tensor, lens: torch.Tensor
-                    ) -> np.ndarray:
+    def _ctc_frames(self, enc: torch.Tensor, lens: torch.Tensor,
+                    ctc_lin=None) -> np.ndarray:
         """The CTC head's frame argmax (rows, frames) on the host; frames
         past each input's ceil(len · frames) are forced to blank, so bucket
         padding cannot fake speaker-change spikes."""
-        am = torch.argmax(self._ctc_lin(enc), dim=-1)
+        head = self._ctc_lin if ctc_lin is None else ctc_lin
+        am = torch.argmax(head(enc), dim=-1)
         n_frames = enc.shape[1]
         valid = torch.ceil(lens * n_frames).to(torch.long)
         frames = torch.arange(n_frames, device=am.device)
@@ -293,19 +396,34 @@ class STEngine:
         rttm = None
         if rttm_ids is not None and self._ctc_lin is not None:
             rttm = {"turn": [], "xt": []}
+        want_ctc = rttm is not None
+
+        def work(rep, searcher, enc, lens):
+            frames = self._ctc_frames(enc, lens, rep.ctc_lin) \
+                if want_ctc else None
+            return ([hyps for hyps, _ in searcher.call_multi(
+                enc, lens, prompts=prompts)], frames)
+
         for idx, batch, lens in self._prepare(wavs):
-            enc = self._encode(batch, lens)
-            if rttm is not None:
+            if self.mesh is None:
+                hyps, frames = work(self._replicas[self.device],
+                                    self.searcher,
+                                    self._encode(batch, lens), lens)
+            else:
+                shards = self._sharded(batch, lens, work)
+                hyps = [sum((h[p] for h, _ in shards), [])
+                        for p in range(len(prompts))]
+                frames = np.concatenate([f for _, f in shards]) \
+                    if want_ctc else None
+            if want_ctc:
                 events = extract_turn_events(
-                    [rttm_ids[i] for i in idx],
-                    self._ctc_frames(enc, lens)[: len(idx)],
+                    [rttm_ids[i] for i in idx], frames[: len(idx)],
                     {"turn": self.turn_id, "xt": self.xt_id})
                 for name in rttm:
                     rttm[name].extend(events[name])
-            for p, (hyps, _) in enumerate(
-                    self.searcher.call_multi(enc, lens, prompts=prompts)):
+            for p in range(len(prompts)):
                 for row, i in enumerate(idx):
-                    out[p][i] = self.tokenizer.decode_ids(hyps[row])
+                    out[p][i] = self.tokenizer.decode_ids(hyps[p][row])
         return out, rttm
 
     # ------------------------------------------------------------------ API
@@ -366,10 +484,15 @@ class STEngine:
             raise RuntimeError("engine built without a CTC head")
         results: List[Optional[Dict]] = [None] * len(wavs)
         for idx, batch, lens in self._prepare(wavs):
-            enc = self._encode(batch, lens)
+            if self.mesh is None:
+                frames = self._ctc_frames(self._encode(batch, lens), lens)
+            else:
+                frames = np.concatenate(self._sharded(
+                    batch, lens, lambda rep, _s, enc, wl:
+                    self._ctc_frames(enc, wl, rep.ctc_lin)))
             ids = [f"utt{i}-0-0-0" for i in idx]
             events = extract_turn_events(
-                ids, self._ctc_frames(enc, lens),
+                ids, frames[: len(idx)],
                 {"turn": self.turn_id, "xt": self.xt_id})
             for row, i in enumerate(idx):
                 results[i] = {

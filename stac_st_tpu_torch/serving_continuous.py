@@ -32,6 +32,15 @@ slots keep generating.
 * The engine's int8 options carry over: int8 weights drive every step,
   and with the int8 cache the chunk step runs the ragged int8 self
   kernel and the int8 cross kernel.
+* Over an engine's mesh (``STEngine(mesh=...)``) the slot pool is sharded
+  on its rows: ``slots`` must be a multiple of the shard count d, and
+  shard k holds slots ``k·R/d ..`` on its device, beside its replica of
+  the modules. An admission group is encoded and primed on the device of
+  the shard that owns most of its slots, and each row is scattered onto
+  the shard that owns its slot; a request takes a free slot of the shard
+  with the most free slots (ties go round the shards). A chunk launches
+  every step on every shard, shard after shard, before the one host read
+  of the chunk.
 
 Decoding in the slot loop is greedy (beam 1): one hypothesis per slot is
 what makes slot swapping exact. For the reference's test protocol (beam 10,
@@ -45,8 +54,7 @@ finalizer drains its queue once more before it exits, so a draft queued
 just before the loop ended is finalized, not failed by ``close()``.
 
 Worker threads enter ``torch.inference_mode`` themselves (it is
-thread-local) and share the default CUDA stream. What the loop cannot take
-it refuses by name: an engine with a mesh.
+thread-local) and share the default CUDA stream of each device.
 """
 
 from __future__ import annotations
@@ -63,8 +71,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .models.settings import require
 from .ops.masks import NEG_INF
+from .parallel.mesh import device_scope
 
 logger = logging.getLogger(__name__)
 
@@ -120,10 +128,19 @@ class ContinuousBatchingEngine:
                  max_new_tokens: Optional[int] = None,
                  admit_rungs: Optional[Sequence[int]] = None,
                  protocol_finalize: bool = False):
-        owner = "ContinuousBatchingEngine"
-        require(owner, "mesh", getattr(engine, "mesh", None), None)
         if slots < 1 or chunk < 1:
             raise ValueError("slots and chunk must be >= 1")
+        mesh = getattr(engine, "mesh", None)
+        devices = [engine.device] if mesh is None else list(mesh.devices)
+        if int(slots) % len(devices):
+            raise ValueError(
+                f"slots={slots} must be a multiple of the mesh's data-axis "
+                f"size {len(devices)}: the slot pool is sharded on its row "
+                f"axis across the mesh")
+        # (device, the engine's modules there) of each shard
+        self._shards = [(dev, engine._replicas[dev]) for dev in devices]
+        self._per = int(slots) // len(devices)
+        self._next_shard = 0  # where a tie between shards goes next
         self.engine = engine
         self.kv_cache_dtype = engine.searcher.kv_cache_dtype
         self.slots = int(slots)
@@ -143,7 +160,7 @@ class ContinuousBatchingEngine:
             rungs.append(self.slots)  # a full-pool burst must fit one call
         self._admit_rungs: Tuple[int, ...] = tuple(rungs)
         self._widths = [int(b * engine.sample_rate) for b in engine.buckets]
-        self._state = self._init_state()
+        self._states = [self._init_state(k) for k in range(len(devices))]
 
         # ------------------------------------------------- host-side loop
         self._queue: "queue.Queue[_Request]" = queue.Queue(
@@ -176,22 +193,23 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------ device state
     @torch.inference_mode()
-    def _init_state(self) -> Dict:
-        """The slot pool: every slot done, caches sized for the prompt and
-        the cap, cross K/V at ``S_max`` (the largest bucket's encoder
-        frames, found by encoding one silent row of it)."""
-        eng = self.engine
-        dev = eng.device
-        R, cap = self.slots, _PROMPT_LEN + self.cap
-        probe = eng._encode(
-            torch.zeros((1, self._widths[-1]), device=dev),
-            torch.ones((1,), device=dev))
-        self._S_max = S_max = probe.shape[1]
-        enc0 = torch.zeros((R, S_max, probe.shape[2]), dtype=probe.dtype,
-                           device=dev)
-        bias0 = torch.full((R, S_max), NEG_INF, device=dev)
-        cache = eng._transformer.init_decode_cache(
-            enc0, cap, bias0, cache_dtype=self.kv_cache_dtype)
+    def _init_state(self, k: int) -> Dict:
+        """Shard ``k``'s part of the slot pool: every slot done, caches
+        sized for the prompt and the cap, cross K/V at ``S_max`` (the
+        largest bucket's encoder frames, found by encoding one silent row
+        of it)."""
+        dev, rep = self._shards[k]
+        R, cap = self._per, _PROMPT_LEN + self.cap
+        with device_scope(dev):
+            probe = self.engine._encode(
+                torch.zeros((1, self._widths[-1]), device=dev),
+                torch.ones((1,), device=dev), rep)
+            self._S_max = S_max = probe.shape[1]
+            enc0 = torch.zeros((R, S_max, probe.shape[2]),
+                               dtype=probe.dtype, device=dev)
+            bias0 = torch.full((R, S_max), NEG_INF, device=dev)
+            cache = rep.transformer.init_decode_cache(
+                enc0, cap, bias0, cache_dtype=self.kv_cache_dtype)
         for layer in cache["layers"]:
             layer["self"]["index"] = torch.zeros((R,), dtype=torch.int32,
                                                  device=dev)
@@ -208,14 +226,25 @@ class ContinuousBatchingEngine:
 
     def _admit_batch(self, slot_ids: List[int], wavs: np.ndarray,
                      lens: np.ndarray, prompts: np.ndarray):
-        """Encode and prompt-prime a group of ``len(wavs)`` (a rung) rows;
-        scatter the first ``len(slot_ids)`` into those slots. Returns the
-        first tokens and done flags of the scattered rows, on the host."""
-        eng, st = self.engine, self._state
-        model, dev = eng._transformer, eng.device
+        """Encode and prompt-prime a group of ``len(wavs)`` (a rung) rows
+        on the shard that owns most of ``slot_ids``; scatter the first
+        ``len(slot_ids)`` into those slots, each onto its own shard.
+        Returns the first tokens and done flags of the scattered rows, on
+        the host."""
+        owners = [s // self._per for s in slot_ids]
+        k0 = max(set(owners), key=owners.count) if owners else 0
+        dev, rep = self._shards[k0]
+        with device_scope(dev):
+            return self._admit_on(rep, dev, slot_ids, owners, wavs, lens,
+                                  prompts)
+
+    def _admit_on(self, rep, dev, slot_ids, owners, wavs, lens, prompts):
+        eng = self.engine
+        model = rep.transformer
         S_max = self._S_max
         lens_d = torch.from_numpy(lens).to(dev)
-        enc = eng._encode(torch.from_numpy(wavs).to(dev), lens_d)  # (A,S_w,d)
+        enc = eng._encode(torch.from_numpy(wavs).to(dev), lens_d,
+                          rep)  # (A, S_w, d)
         S_w = enc.shape[1]
         # the reference's mask against the native frame count, then every
         # padded column masked too
@@ -228,53 +257,79 @@ class ContinuousBatchingEngine:
                                         cache_dtype=self.kv_cache_dtype)
         hidden = model.decode_window(
             torch.from_numpy(prompts).to(dev), 0, cache)  # (A, P, d)
-        first = torch.argmax(eng.searcher.seq_lin(hidden[:, -1, :]), dim=-1)
+        first = torch.argmax(rep.seq_lin(hidden[:, -1, :]), dim=-1)
         budget = torch.clamp(abs_len.to(torch.int32) + 1, max=self.cap)
         is_eos = first == self.eos
         gen0 = torch.where(is_eos, 0, 1).to(torch.int32)
         done0 = is_eos | (gen0 >= budget)
 
         n = len(slot_ids)
-        tgt = torch.tensor(slot_ids, dtype=torch.long, device=dev)
+        for k in sorted(set(owners)):
+            dev_k = self._shards[k][0]
+            rows = [i for i in range(n) if owners[i] == k]
+            src = torch.tensor(rows, dtype=torch.long, device=dev)
+
+            def take(x):
+                return x[src].to(dev_k)
+
+            with device_scope(dev_k):
+                self._scatter(self._states[k], torch.tensor(
+                    [slot_ids[i] % self._per for i in rows],
+                    dtype=torch.long, device=dev_k), cache, take,
+                    first, done0, gen0, budget)
+        return first[:n].cpu().numpy(), done0[:n].cpu().numpy()
+
+    @staticmethod
+    def _scatter(st, tgt, cache, take, first, done0, gen0, budget) -> None:
+        """Whole rows of every slot tensor of ``st`` at ``tgt`` from the
+        primed rows ``take`` picks."""
         for big, row in zip(st["layers"], cache["layers"]):
             for name, leaf in row["self"].items():  # K, V (and scales)
                 if name != "index":
-                    big["self"][name][tgt] = leaf[:n]
+                    big["self"][name][tgt] = take(leaf)
             big["self"]["index"][tgt] = _PROMPT_LEN
             for name in ("cross_k", "cross_v", "cross_k_scale",
                          "cross_v_scale"):
                 if name in row:
-                    big[name][tgt] = row[name][:n]
-        st["enc_bias"][tgt] = cache["enc_bias"][:n]
+                    big[name][tgt] = take(row[name])
+        st["enc_bias"][tgt] = take(cache["enc_bias"])
         st["pos"][tgt] = _PROMPT_LEN
-        st["last"][tgt] = first[:n]
-        st["done"][tgt] = done0[:n]
-        st["gen"][tgt] = gen0[:n]
-        st["budget"][tgt] = budget[:n]
-        return first[:n].cpu().numpy(), done0[:n].cpu().numpy()
+        st["last"][tgt] = take(first)
+        st["done"][tgt] = take(done0)
+        st["gen"][tgt] = take(gen0)
+        st["budget"][tgt] = take(budget)
 
     def _step_chunk(self):
         """Advance every slot ``chunk`` greedy steps; returns the emitted
         tokens (R, chunk) (-1 where a slot emitted nothing) and the done
-        flags, read on the host once."""
-        eng, st = self.engine, self._state
-        model, seq_lin = eng._transformer, eng.searcher.seq_lin
-        cache = {"layers": st["layers"], "enc_bias": st["enc_bias"]}
-        emits = []
+        flags, read on the host once (each shard's, after every shard's
+        steps were launched)."""
+        emits: List[List[torch.Tensor]] = [[] for _ in self._shards]
         for _ in range(self.chunk):
-            hidden = model.decode_step_rows(st["last"], st["pos"], cache)
-            nxt = torch.argmax(seq_lin(hidden), dim=-1)
-            active = ~st["done"]
-            is_eos = nxt == self.eos
-            emit_ok = active & ~is_eos
-            emits.append(torch.where(emit_ok, nxt, -1))
-            st["gen"] = st["gen"] + emit_ok.to(torch.int32)
-            st["done"] = st["done"] | (active & is_eos) | (
-                st["gen"] >= st["budget"])
-            st["pos"] = torch.where(active, st["pos"] + 1, st["pos"])
-            st["last"] = torch.where(emit_ok, nxt, st["last"])
-        return (torch.stack(emits, dim=1).cpu().numpy(),
-                st["done"].cpu().numpy())
+            for (dev, rep), st, out in zip(self._shards, self._states,
+                                           emits):
+                with device_scope(dev):
+                    out.append(self._step(rep, st))
+        return (np.concatenate([torch.stack(e, dim=1).cpu().numpy()
+                                for e in emits]),
+                np.concatenate([st["done"].cpu().numpy()
+                                for st in self._states]))
+
+    def _step(self, rep, st) -> torch.Tensor:
+        """One greedy step of a shard's slots; returns its emits."""
+        cache = {"layers": st["layers"], "enc_bias": st["enc_bias"]}
+        hidden = rep.transformer.decode_step_rows(st["last"], st["pos"],
+                                                  cache)
+        nxt = torch.argmax(rep.seq_lin(hidden), dim=-1)
+        active = ~st["done"]
+        is_eos = nxt == self.eos
+        emit_ok = active & ~is_eos
+        st["gen"] = st["gen"] + emit_ok.to(torch.int32)
+        st["done"] = st["done"] | (active & is_eos) | (
+            st["gen"] >= st["budget"])
+        st["pos"] = torch.where(active, st["pos"] + 1, st["pos"])
+        st["last"] = torch.where(emit_ok, nxt, st["last"])
+        return torch.where(emit_ok, nxt, -1)
 
     # ----------------------------------------------------------------- API
     def start(self) -> None:
@@ -444,7 +499,7 @@ class ContinuousBatchingEngine:
                 lens[i] = len(req.wav) / width
                 prompts[i] = self._prompt_ids(req.source_lang,
                                               req.target_lang)
-                assigned.append(self._free.pop())
+                assigned.append(self._take_free())
             first, done0 = self._admit_batch(assigned, wavs, lens, prompts)
         except Exception:
             # a failed group must not leak its slots: nothing was
@@ -462,6 +517,21 @@ class ContinuousBatchingEngine:
                 slot.tokens.append(tok)
             if bool(done0[i]):
                 self._finish(s)
+
+    def _take_free(self) -> int:
+        """A free slot: on one device the last freed one; over a mesh the
+        last free slot of the shard with the most free slots, ties going
+        round the shards, so requests spread over them."""
+        d = len(self._shards)
+        if d == 1:
+            return self._free.pop()
+        free = [[s for s in self._free if s // self._per == k]
+                for k in range(d)]
+        k = max(((self._next_shard + j) % d for j in range(d)),
+                key=lambda i: len(free[i]))
+        self._next_shard = (k + 1) % d
+        self._free.remove(free[k][-1])
+        return free[k][-1]
 
     def _finish(self, s: int) -> None:
         slot = self._slots[s]

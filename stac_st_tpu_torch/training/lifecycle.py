@@ -4,6 +4,8 @@
 ``EpochCounter`` (reference ``utils.epoch_loop.EpochCounter``, yaml:280-281)
 and ``Pretrainer`` (``utils.parameter_transfer.Pretrainer``, yaml:314-319 —
 fetches the tokenizer ``.model`` into the experiment save dir and loads it).
+Under data parallelism rank 0 collects the files and every rank waits for
+it before loading them.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import os
 import shutil
 from typing import Any, Dict, Optional
+
+from ..parallel.distributed import barrier, is_main_process
 
 __all__ = ["EpochCounter", "Pretrainer", "Stage"]
 
@@ -58,10 +62,12 @@ class Pretrainer:
         self._collected: Dict[str, str] = {}
 
     def collect_files(self) -> Dict[str, str]:
-        os.makedirs(self.collect_in, exist_ok=True)
+        write = is_main_process()
+        if write:
+            os.makedirs(self.collect_in, exist_ok=True)
         for name, src in self.paths.items():
             dst = os.path.join(self.collect_in, f"{name}.ckpt")
-            if os.path.abspath(src) != os.path.abspath(dst):
+            if write and os.path.abspath(src) != os.path.abspath(dst):
                 if os.path.islink(dst) or os.path.isfile(dst):
                     os.remove(dst)
                 try:
@@ -69,6 +75,7 @@ class Pretrainer:
                 except OSError:
                     shutil.copyfile(src, dst)
             self._collected[name] = dst
+        barrier()
         return self._collected
 
     def load_collected(self, device=None) -> None:

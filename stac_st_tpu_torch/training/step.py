@@ -25,6 +25,19 @@ gradient arrives as one flat tensor, and the optimizer updates the buffer
 in place (the modules see the new weights; nothing is copied). The step
 mutates and returns its :class:`TrainState`. Its randomness comes from
 one integer seed per call (:class:`~..models.dropout.StepRandom`).
+
+Data parallelism (``StepConfig.dp``, a
+:class:`~..parallel.distributed.DataParallel`): each rank holds an equal
+row block of the padded global batch, and its step computes what the
+whole batch computes on one device. The couplings across rows are made
+global: the fbank ``top_db`` max (an all-reduce MAX), the CMVN update's
+sums and row count, SpecAugment's draws and fill mean, the dropout draws
+(keyed to global rows), and the losses' normalizers (global row and token
+counts, padding rows included, as the JAX mesh step counts them), so the
+ranks' losses are shares that sum to the global loss. The flat fp32
+gradient is summed over ranks in ONE all-reduce of the ``FlatParams``
+buffer's gradient per microbatch, before the optimizer, so the finite
+flag and the clip norm (and every update) are the same on every rank.
 """
 
 from __future__ import annotations
@@ -40,14 +53,14 @@ from ..device import resolve_device
 from ..models.dropout import StepRandom
 from ..ops.cmvn import CmvnState, cmvn_apply, cmvn_init, cmvn_update
 from ..ops.ctc import ctc_loss
-from ..ops.losses import nll_loss
+from ..ops.losses import length_mask, nll_loss
 from ..ops.specaugment import spec_augment
 from .optim import OptimizerFactory
 
 __all__ = ["TrainState", "StepConfig", "FlatParams", "OptState",
            "ChainOptimizer", "make_optimizer", "init_train_state",
            "make_train_step", "make_eval_forward", "make_encode_forward",
-           "loss_and_grad"]
+           "loss_and_grad", "global_metrics"]
 
 MODULE_KEYS = ("CNN", "Transformer", "seq_lin", "ctc_lin")
 
@@ -69,6 +82,8 @@ class StepConfig(NamedTuple):
     #: optional ops.speed_perturb.DeviceSpeedPerturb: resample on the
     #: device in training when the batch carries a speed_idx column
     device_speed: Any = None
+    #: parallel.distributed.DataParallel of a multi-rank run, else None
+    dp: Any = None
 
     def modules(self) -> Dict[str, nn.Module]:
         return dict(zip(MODULE_KEYS, (self.cnn, self.transformer,
@@ -269,12 +284,22 @@ def _forward(params: FlatParams, flat: torch.Tensor, cmvn: CmvnState,
         # the losses keep the batch's own sig_len, as the JAX step does
         wavs, wav_lens = cfg.device_speed.apply(wavs, wav_lens,
                                                 batch["speed_idx"])
-    feats = cfg.fbank(wavs)
-    if update_cmvn:
-        cmvn = cmvn_update(cmvn, feats, wav_lens)
+    dp = cfg.dp
+    if dp is None:
+        feats = cfg.fbank(wavs)
+        if update_cmvn:
+            cmvn = cmvn_update(cmvn, feats, wav_lens)
+    else:
+        feats = cfg.fbank(wavs, reduce_max=lambda t: dp.max(t.reshape(1))[0])
+        if update_cmvn:
+            cmvn = cmvn_update(cmvn, feats, wav_lens, reduce_sum=dp.sum,
+                               n_rows=dp.rows(feats.shape[0])[1])
     feats = cmvn_apply(cmvn, feats)
     if train and cfg.specaug_opts is not None:
-        feats = spec_augment(feats, rng.host, **dict(cfg.specaug_opts))
+        feats = spec_augment(
+            feats, rng.host, **dict(cfg.specaug_opts),
+            **({} if dp is None else dict(rows=dp.rows(feats.shape[0]),
+                                          reduce_sum=dp.sum)))
     if cfg.compute_dtype is not None:
         feats = feats.to(cfg.compute_dtype)
         flat = flat.to(cfg.compute_dtype)
@@ -294,29 +319,54 @@ def _forward(params: FlatParams, flat: torch.Tensor, cmvn: CmvnState,
 
 
 def objectives(p_ctc, p_seq, batch, cfg: StepConfig):
+    """(loss, metrics); under ``cfg.dp`` this rank's share of the global
+    batch's loss (the module note)."""
+    n_rows = n_tokens = None
+    if cfg.dp is not None:
+        n_rows = cfg.dp.rows(p_seq.shape[0])[1]
+        if cfg.label_smoothing > 0.0 or cfg.loss_reduction == "mean":
+            n_tokens = cfg.dp.sum(length_mask(
+                batch["tokens_eos_len"], p_seq.shape[1]).sum().reshape(1))[0]
     att = nll_loss(p_seq, batch["tokens_eos"], batch["tokens_eos_len"],
                    label_smoothing=cfg.label_smoothing,
-                   reduction=cfg.loss_reduction)
+                   reduction=cfg.loss_reduction, n_rows=n_rows,
+                   n_tokens=n_tokens)
     ctc = torch.zeros((), device=p_seq.device)
     if cfg.ctc_weight > 0:
         ctc = ctc_loss(p_ctc, batch["tokens"], batch["sig_len"],
                        batch["tokens_len"], blank_index=cfg.blank_index,
-                       reduction=cfg.loss_reduction)
+                       reduction=cfg.loss_reduction, n_rows=n_rows)
     loss = cfg.ctc_weight * ctc + (1.0 - cfg.ctc_weight) * att
     return loss, {"loss": loss.detach(), "ctc_loss": ctc.detach(),
                   "att_loss": att.detach()}
 
 
+def global_metrics(metrics: Dict[str, torch.Tensor], dp
+                   ) -> Dict[str, torch.Tensor]:
+    """The ranks' shares of each metric summed (one all-reduce)."""
+    if dp is None:
+        return metrics
+    total = dp.sum(torch.stack([metrics[k].float() for k in metrics]))
+    return dict(zip(metrics, total.unbind()))
+
+
 def loss_and_grad(cfg: StepConfig, state: TrainState, batch, seed: int,
                   update_cmvn: bool = False):
-    """(metrics, flat fp32 gradient, new CMVN state) of one microbatch."""
+    """(metrics, flat fp32 gradient, new CMVN state) of one microbatch;
+    under ``cfg.dp`` the global batch's metrics and gradient."""
     w = state.params.flat.detach().requires_grad_(True)
-    rng = StepRandom(seed, w.device)
+    row0, n_rows = (0, None) if cfg.dp is None else \
+        cfg.dp.rows(batch["sig"].shape[0])
+    rng = StepRandom(seed, w.device, row0, n_rows)
     p_ctc, p_seq, _, cmvn = _forward(state.params, w, state.cmvn, batch, cfg,
                                      True, update_cmvn, rng)
     loss, metrics = objectives(p_ctc, p_seq, batch, cfg)
     loss.backward()
-    return metrics, w.grad, cmvn
+    grad = w.grad
+    if cfg.dp is not None:
+        cfg.dp.sum(grad)
+        metrics = global_metrics(metrics, cfg.dp)
+    return metrics, grad, cmvn
 
 
 def make_train_step(cfg: StepConfig, tx: ChainOptimizer):

@@ -1,5 +1,6 @@
 """The ST trainer: fit and evaluate loops, validation, checkpoints and
-resume on one device (port of ``stac_st_tpu/training/trainer.py``).
+resume, on one device or data-parallel over ranks (port of
+``stac_st_tpu/training/trainer.py``).
 
 ``STTrainer`` builds the step configuration from the modules and hparams
 (precision, losses, SpecAugment, device speed perturbation, the optimizer
@@ -46,9 +47,23 @@ Validation searches with the trainer's fp32 weights, as the JAX trainer
 binds its fp32 ``state.params``; on the card that takes the decode
 kernels' fp32 (``simt``) variants.
 
-Not ported yet: meshes and multi-device (the multi-host preemption flag
-reduction included), pipeline stages, and the ``train_attn_kernel`` /
-``rng_impl`` run options (the port always takes its attention kernels).
+Data parallelism: one process per card (``torchrun``, then
+``parallel.distributed.init_distributed``); ``data_parallel_count`` -1
+means the process group's world size, and any other value must equal it.
+Each rank ships its row block of the global batch, padded with zero-length
+rows to a multiple of the world size (``_device_batch``; the loader's
+``set_shard`` decodes audio for the same block), and its step computes
+the global step (``training.step``). Validation searches each rank's rows
+and gathers the hypotheses in global row order before BLEU/WER; losses,
+ACC and metrics are reduced over ranks. Only rank 0 writes checkpoints,
+then every rank waits at a barrier; every rank resumes from rank 0's
+files. A SIGTERM sets the rank's flag; a one-element all-reduce of the
+flags is dispatched every step and read one step late (all in flight are
+read at the epoch's end), so every rank stops after the same step.
+
+Not ported: pipeline stages (``pipeline_stages`` > 1 raises by name) and
+the ``train_attn_kernel`` / ``rng_impl`` run options (the port always
+takes its attention kernels).
 """
 
 from __future__ import annotations
@@ -57,20 +72,30 @@ import logging
 import shutil
 import signal
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..data.dataset import pad_batch_rows
 from ..device import resolve_device
 from ..interop.from_jax import load_jax_params, to_jax_params
 from ..ops.cmvn import CmvnState
+from ..parallel.distributed import (
+    barrier,
+    data_parallel,
+    gather_to_host,
+    is_main_process,
+    process_row_block,
+)
 from ..utils.profiling import StepTimer
 from ..utils.recipe_io import append_4gt, append_gt_preds, print_bleu_or_wer
 from .checkpoint import average_checkpoints
 from .step import (
     StepConfig,
     TrainState,
+    global_metrics,
     init_train_state,
     make_encode_forward,
     make_eval_forward,
@@ -92,8 +117,9 @@ def _specaug_opts(hparams) -> Optional[tuple]:
 
 
 class STTrainer:
-    """Drives training and evaluation of the multitask ASR+ST model on one
-    device: ``device`` if given, else ``run_opts["device"]``, else cuda."""
+    """Drives training and evaluation of the multitask ASR+ST model on
+    ``device`` if given, else ``run_opts["device"]``, else cuda (under
+    ``torchrun``, this rank's card)."""
 
     def __init__(self, modules: Dict[str, Any], opt_class=None,
                  hparams: Optional[Dict[str, Any]] = None,
@@ -106,6 +132,15 @@ class STTrainer:
         self.device = resolve_device(
             device if device is not None else self.run_opts.get("device"))
         h = self.hparams
+        stages = int(self.run_opts.get("pipeline_stages",
+                                       h.get("pipeline_stages", 1)) or 1)
+        if stages > 1:
+            raise ValueError(
+                f"pipeline_stages={stages}: the port trains data-parallel "
+                f"only (pipeline stages are not ported)")
+        self.dp = data_parallel(self.run_opts.get("data_parallel_count", -1))
+        # rows of a global batch are padded to a multiple of the world size
+        self._row_multiple = self.dp.world if self.dp is not None else 1
 
         precision = str(self.run_opts.get("precision", "") or "").lower()
         if precision == "fp32":
@@ -131,6 +166,7 @@ class STTrainer:
             device_speed=(h.get("speed_perturb")
                           if getattr(h.get("speed_perturb"), "device", False)
                           else None),
+            dp=self.dp,
         )
         self.normalize = modules.get("normalize")
         scheduler = h.get("lr_scheduler")
@@ -304,6 +340,13 @@ class STTrainer:
         extras = getattr(batch, "extras", {})
         if "speed_idx" in extras:
             arrays["speed_idx"] = np.asarray(extras["speed_idx"], np.int64)
+        if self.dp is not None:
+            # zero-length rows pad the batch to the world size; this rank
+            # ships its block (the block the loader's set_shard decoded)
+            arrays = pad_batch_rows(arrays, self._row_multiple)
+            lo, hi = process_row_block(len(arrays["sig"]), self._row_multiple,
+                                       self.dp.rank, self.dp.world)
+            arrays = {k: v[lo:hi] for k, v in arrays.items()}
         out = {}
         for key, value in arrays.items():
             t = torch.from_numpy(np.ascontiguousarray(value))
@@ -350,25 +393,53 @@ class STTrainer:
     def _save_inside_epoch(self, kind: str, epoch: int,
                            losses: List[torch.Tensor]) -> None:
         """A ``preempted`` or ``timed`` checkpoint, with the losses of the
-        batches this epoch has trained."""
-        self.checkpointer.save_checkpoint(
-            meta={kind: True, "epoch": epoch, "epoch_losses":
-                  torch.stack(losses).float().cpu().tolist()},
-            trees=self._checkpoint_trees(epoch))
+        batches this epoch has trained (rank 0 writes it)."""
+        if is_main_process():
+            self.checkpointer.save_checkpoint(
+                meta={kind: True, "epoch": epoch, "epoch_losses":
+                      torch.stack(losses).float().cpu().tolist()},
+                trees=self._checkpoint_trees(epoch))
 
     def _save_preemption_checkpoint(self, epoch: int,
                                     losses: List[torch.Tensor]) -> None:
         if self.checkpointer is not None:
             self._save_inside_epoch("preempted", epoch, losses)
+            barrier()
         logger.warning("stopped by SIGTERM at epoch %d opt step %d "
                        "(checkpoint saved)", epoch,
                        self.state.optimizer_step)
+
+    def _flag_read(self, pending: deque) -> bool:
+        work, flag = pending.popleft()
+        work.wait()
+        return float(flag) > 0.0
+
+    def _preemption_stop(self, pending: deque) -> bool:
+        """The stop decision after a step: one process reads its own
+        flag; ranks dispatch an all-reduce of their flags and read the one
+        dispatched a step earlier, so all read the same sum after the same
+        step."""
+        if self.dp is None:
+            return self.preempted
+        flag = torch.full((1,), float(self.preempted), device=self.device)
+        pending.append((self.dp.sum_async(flag), flag))
+        return len(pending) >= 2 and self._flag_read(pending)
+
+    def _drain_preempt_flags(self, pending: deque) -> bool:
+        """The epoch's end: every flag still in flight is read."""
+        if self.dp is None:
+            return self.preempted
+        stop = False
+        while pending:
+            stop = self._flag_read(pending) or stop
+        return stop
 
     def _fit_epochs(self, epoch_counter, train_set, valid_set, timer,
                     progress_every) -> None:
         ckpt_interval = float(
             self.hparams.get("ckpt_interval_minutes", 0) or 0) * 60.0
         last_timed_ckpt = time.time()
+        pending: deque = deque()
         for epoch in epoch_counter:
             t_epoch = time.time()
             if hasattr(train_set, "set_epoch"):
@@ -396,7 +467,8 @@ class STTrainer:
                     update_cmvn=update_cmvn)
                 losses.append(metrics["loss"])
                 timer.tick(items=float(np.sum(batch.duration)))
-                if self.preempted:
+                if self._preemption_stop(pending):
+                    self.preempted = True
                     self._save_preemption_checkpoint(epoch, losses)
                     return
                 if progress_every and (i + 1) % progress_every == 0:
@@ -407,12 +479,18 @@ class STTrainer:
                         float(metrics["loss"]), self.state.optimizer_step,
                         stats.get("steps_per_sec", 0.0),
                         stats.get("items_per_sec", 0.0))
-                # timed intra-epoch checkpoints (ckpt_interval_minutes)
+                # timed intra-epoch checkpoints (ckpt_interval_minutes),
+                # rank 0 alone and with no barrier, as the JAX trainer
                 if (ckpt_interval > 0 and self.checkpointer is not None
+                        and is_main_process()
                         and time.time() - last_timed_ckpt > ckpt_interval):
                     self._save_inside_epoch("timed", epoch, losses)
                     self._cleanup_timed_checkpoints()
                     last_timed_ckpt = time.time()
+            if self._drain_preempt_flags(pending):
+                self.preempted = True
+                self._save_preemption_checkpoint(epoch, losses)
+                return
             if not losses:
                 logger.warning("epoch %d: empty train loader", epoch)
                 continue
@@ -442,6 +520,23 @@ class STTrainer:
                                            self._lang_id(tgt))
         hyps, _scores = searcher(enc_out, wav_lens)
         return hyps
+
+    def _global_rows(self, *hyps, n: int):
+        """Each rank's hypotheses gathered in global row order (one
+        all-gather), cut to the batch's ``n`` rows; one list per argument."""
+        if self.dp is None:
+            return hyps if len(hyps) > 1 else hyps[0]
+        rows = gather_to_host(list(zip(*hyps)))[:n]
+        out = tuple([r[i] for r in rows] for i in range(len(hyps)))
+        return out if len(hyps) > 1 else out[0]
+
+    def _reduce_acc(self, acc) -> None:
+        """ACC's counts summed over ranks."""
+        if self.dp is not None and acc is not None:
+            t = self.dp.sum(torch.tensor([acc.correct, acc.total],
+                                         dtype=torch.float64,
+                                         device=self.device))
+            acc.correct, acc.total = float(t[0]), float(t[1])
 
     # Fused dual decode (one search over both prompts) while the fused row
     # count 2·B·beam stays small, else two searches over the same enc_out
@@ -482,19 +577,24 @@ class STTrainer:
             p_ctc, p_seq, enc_out = self.eval_forward(
                 self.state.params, self.state.cmvn, dev_batch)
             loss, _ = objectives(p_ctc, p_seq, dev_batch, self.cfg)
-            losses.append(float(loss))
+            losses.append(loss.detach().float())
             if acc is not None:
                 acc.append(p_seq, dev_batch["tokens_eos"],
                            dev_batch["tokens_eos_len"])
             if do_search:
                 t0 = time.perf_counter()
-                hyps_asr, hyps_st = self._run_search_dual(
+                hyps_asr, hyps_st = self._global_rows(*self._run_search_dual(
                     h["valid_search"], enc_out, dev_batch["sig_len"],
-                    batch.source_lang[0], batch.target_lang[0])
+                    batch.source_lang[0], batch.target_lang[0]),
+                    n=len(batch.id))
                 self.valid_search_s += time.perf_counter() - t0
                 self._append_dual_metrics(batch, hyps_st, hyps_asr, bleu,
                                           wer, bleu_nt, wer_nt, special)
 
+        if losses:  # each rank's shares of the batches' losses, summed
+            losses = global_metrics({"l": torch.stack(losses)},
+                                    self.dp)["l"].tolist()
+        self._reduce_acc(acc)
         stats: Dict[str, Any] = {"loss": float(np.mean(losses or [0.0]))}
         if acc is not None:
             stats["ACC"] = acc.summarize()
@@ -542,17 +642,19 @@ class STTrainer:
         step = int(self.state.optimizer_step)
         lr = (float(scheduler.value(step)) if scheduler is not None
               and step >= 1 else float(h.get("lr_adam", 0.0)))
-        if "train_logger" in h:
+        if "train_logger" in h and is_main_process():
             h["train_logger"].log_stats(
                 stats_meta={"epoch": epoch, "lr": lr, "steps": step,
                             "optimizer": "AdamW",
                             "epoch_time": round(epoch_time, 1)},
                 train_stats=self.train_stats, valid_stats=stage_stats)
         if self.checkpointer is not None and "ACC" in stage_stats:
-            self.checkpointer.save_and_keep_only(
-                meta={"ACC": float(stage_stats["ACC"]), "epoch": epoch},
-                trees=self._checkpoint_trees(epoch), max_keys=["ACC"],
-                num_to_keep=5)
+            if is_main_process():
+                self.checkpointer.save_and_keep_only(
+                    meta={"ACC": float(stage_stats["ACC"]), "epoch": epoch},
+                    trees=self._checkpoint_trees(epoch), max_keys=["ACC"],
+                    num_to_keep=5)
+            barrier()
 
     # ------------------------------------------------------------ evaluation
     def on_evaluate_start(self, max_key: str = "ACC") -> None:
@@ -599,8 +701,9 @@ class STTrainer:
                            dev_batch["tokens_eos_len"])
             src, tgt = batch.source_lang[0], batch.target_lang[0]
             if task == "transcription":
-                hyps = self._run_search(searcher, enc_out,
-                                        dev_batch["sig_len"], src, src)
+                hyps = self._global_rows(self._run_search(
+                    searcher, enc_out, dev_batch["sig_len"], src, src),
+                    n=len(batch.id))
                 refs = batch.extras.get("transcription")
                 ids, tgts, preds = append_gt_preds(batch.id, refs, hyps, src,
                                                    tokenizer)
@@ -612,8 +715,9 @@ class STTrainer:
                 wer_nt.append(ids, [p.split(" ") for p in preds],
                               [t.split(" ") for t in tgts])
             else:
-                hyps = self._run_search(searcher, enc_out,
-                                        dev_batch["sig_len"], src, tgt)
+                hyps = self._global_rows(self._run_search(
+                    searcher, enc_out, dev_batch["sig_len"], src, tgt),
+                    n=len(batch.id))
                 refs = batch.extras.get("translation_0")
                 has_4refs = (batch.extras.get("translation_1") is not None
                              and batch.extras["translation_1"][0] is not None)
@@ -632,25 +736,28 @@ class STTrainer:
                     bleu.append(ids, preds, [tgts])
                     bleu_nt.append(ids, preds_nt, [tgts_nt])
 
+        self._reduce_acc(acc)
         stats: Dict[str, Any] = {}
         if acc is not None and acc.total > 0:
             stats["ACC"] = acc.summarize()
+        write = is_main_process()  # every rank holds the metrics; one writes
         if wer.ids:
             stats["WER"] = wer.summarize("error_rate")
             stats["WER_no_turn"] = wer_nt.summarize("error_rate")
-            if h.get("wer_file"):
+            if h.get("wer_file") and write:
                 print_bleu_or_wer(wer, h["wer_file"], logger)
-            if h.get("wer_file_no_turn"):
+            if h.get("wer_file_no_turn") and write:
                 print_bleu_or_wer(wer_nt, h["wer_file_no_turn"], logger)
         if bleu.ids:
             stats["BLEU"] = bleu.summarize("BLEU")
             stats["BLEU_no_turn"] = bleu_nt.summarize("BLEU")
-            if h.get("bleu_file"):
+            if h.get("bleu_file") and write:
                 print_bleu_or_wer(bleu, h["bleu_file"], logger, is_bleu=True)
-            if h.get("bleu_file_no_turn"):
+            if h.get("bleu_file_no_turn") and write:
                 print_bleu_or_wer(bleu_nt, h["bleu_file_no_turn"], logger,
                                   is_bleu=True)
-        if "train_logger" in h:
+        barrier()
+        if "train_logger" in h and write:
             counter = h.get("epoch_counter")
             h["train_logger"].log_stats(
                 stats_meta={"Epoch loaded": int(counter.current

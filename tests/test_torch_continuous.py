@@ -321,13 +321,15 @@ def test_finalizer_drains_a_draft_queued_as_the_loop_exits():
 
 
 def test_refuses_what_it_cannot_serve(served):
+    from stac_st_tpu_torch.parallel.mesh import make_mesh
+
     _, port, _, _ = served
-    port.mesh = "mesh"
+    port.mesh = make_mesh(2, ("cpu", "cpu"))
     try:
-        with pytest.raises(ValueError, match="mesh"):
-            ContinuousBatchingEngine(port, slots=2)
+        with pytest.raises(ValueError, match="multiple of the mesh"):
+            ContinuousBatchingEngine(port, slots=3)
     finally:
-        del port.mesh
+        port.mesh = None
     pc = ContinuousBatchingEngine(port, slots=2, chunk=2)
     try:
         with pytest.raises(ValueError, match="speaker_turns"):

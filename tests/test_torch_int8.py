@@ -363,7 +363,7 @@ def test_int8_engine_matches_jax(engines):
     assert port.weights_int8 and port.searcher.kv_cache_dtype == "int8"
     out = port.translate(wavs)
     assert out == jax_engine.translate(wavs) and any(out)
-    assert port.transcribe(wavs[:2]) == jax_engine.transcribe(wavs[:2])
+    assert port.transcribe(wavs) == jax_engine.transcribe(wavs)
 
 
 def _greedy(eng, S_max, cap, wav):

@@ -96,16 +96,17 @@ def imported_all():
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-# the serving front's modules and int8 / speculative decoding's, which the
-# import-all subprocess must reach
+# the serving front's modules, int8 / speculative decoding's and data
+# parallelism's, which the import-all subprocess must reach
 SERVING_MODULES = ("serving_stream", "serving_http", "serving_continuous",
                    "recipes.serve", "prep.shas", "eval.long_form",
-                   "utils.quantize", "decoding.speculative")
+                   "utils.quantize", "decoding.speculative",
+                   "parallel.distributed", "parallel.mesh")
 
 
 def test_importing_every_module_pulls_in_no_jax(imported_all):
     # every module of the package was imported, the serving front's too
-    assert imported_all["modules"] >= 78
+    assert imported_all["modules"] >= 79
     for name in SERVING_MODULES:
         assert f"stac_st_tpu_torch.{name}" in imported_all["names"]
     assert imported_all["bad"] == []
@@ -245,8 +246,8 @@ def test_serving_front_runs_on_cuda_unless_asked(monkeypatch):
         STEngine(*_tiny_engine_parts(), device="cpu",
                  bucket_seconds=(0.5,)), slots=1, chunk=1)
     try:
-        assert cont._state["pos"].device.type == "cpu"
-        assert cont._state["layers"][0]["self"]["k"].device.type == "cpu"
+        assert cont._states[0]["pos"].device.type == "cpu"
+        assert cont._states[0]["layers"][0]["self"]["k"].device.type == "cpu"
     finally:
         cont.close()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -315,11 +315,13 @@ def test_serve_parser_refuses_what_the_port_cannot_serve():
     p = serve.build_parser()
     for flags, name in ((["--transport", "grpc"], "--transport"),
                         (["--transport", "both"], "--transport"),
-                        (["--grpc-port", "50051"], "--grpc-port"),
-                        (["--data-parallel", "2"], "--data-parallel"),
-                        (["--data-parallel", "-1"], "--data-parallel")):
+                        (["--grpc-port", "50051"], "--grpc-port")):
         with pytest.raises(ValueError, match=name):
             serve.start_servers(p.parse_args(["exp", *flags]))
+    # more shards than visible cards (none here) exit naming the flag
+    for n in ("2", "-1"):
+        with pytest.raises(SystemExit, match="--data-parallel"):
+            serve.start_servers(p.parse_args(["exp", "--data-parallel", n]))
     with pytest.raises(SystemExit):
         p.parse_args(["exp", "--compile-cache", "off"])
     args = p.parse_args(["exp"])
