@@ -95,14 +95,16 @@ Phases, each printed as one JSON line:
    weights, bf16, main_path's search: beam 10, eos threshold 1.5, length
    normalization, temperature 1.15, 192 tokens) in a 10 s bucket (251
    encoder frames). The CTC prefix kernel (ctc_prefix_score,
-   csrc/ctc_prefix.cu) against its plain version: 160 rows (B16 x beam
-   10), 11 candidates, 251 frames, vocab 5000, half the rows mid-prefix,
-   lengths 126-251, eos, blank and the last label among the candidates,
-   then the full vocabulary at B2 x beam 1: within 1e-4 of max(1, |plain|),
-   the -1e9 class in the same places, bitwise over two launches, its µs,
-   bound, plain µs, ptxas registers (no spills); the two cross kernels with
-   the mask's padding bias at B16 x beam 10 x 251 against their plain
-   versions. Then joint CTC/attention decoding (ctc_weight 0.3, the
+   csrc/ctc_prefix.cu, ctc_prefix_kernel v3: a warp scan a lane) against
+   its plain version: 160 rows (B16 x beam 10), 11 candidates, 251
+   frames, vocab 5000, half the rows mid-prefix, lengths 126-251, eos,
+   blank and the last label among the candidates, then the full
+   vocabulary at B2 x beam 1, then 4,200 frames at B2 x beam 3, K 4
+   (beyond the earlier designs' cap of 4,096): within 1e-4 of
+   max(1, |plain|), the -1e9 class in the same places, bitwise over two
+   launches, every call launched and counted, its µs, bound, plain µs,
+   ptxas registers (no spills); the two cross kernels with the mask's
+   padding bias at B16 x beam 10 x 251 against their plain versions. Then joint CTC/attention decoding (ctc_weight 0.3, the
    model's CTC head) of main_path's batch with the float cache (anc), via
    call_multi with both prompts, and with the int8 cache (gather): exactly
    one ctc_prefix_score launch a decode step and 6 x (3 + steps) of each
@@ -172,8 +174,9 @@ Phases, each printed as one JSON line:
    a epoch; the recipe's own output goes to
    chiprun_out/recipe_log_cuda.txt;
 8. card_vs_cpu: the port on the card against the port on the CPU, full
-   width, fp32, 2 x 2 s: one decode step's logits and the token agreement
-   of a short translate;
+   width, fp32, 2 x 2 s: one decode step's logits, and the token agreement
+   and lengths of a short search, attention-only and joint CTC/attention
+   (ctc_weight 0.3: the CTC kernel on the card);
 9. card_vs_cpu_train: one train step, full width d256/H4, 2 + 2 layers,
    B2 x 2 s, fp32 (TF32 off), dropout 0: loss, gradients and updated
    parameters, card against CPU; then the same for B3 x 2 s through
@@ -3083,6 +3086,9 @@ CTC_K, V_FLAG = BEAM + 1, 5000
 # the psi sum is taken in another order; 251 frames of such steps
 CTC_TOL = 1e-4
 NEG_CLASS = -1e8  # the -1e9 class of the recursion (ulp 64 there)
+# the long case's frames: beyond the earlier designs' cap of 4,096 (48 KB
+# of shared memory for a row's terms), 168 s of audio at 40 ms a frame
+CTC_LONG_T = 4200
 MASK_SECONDS = tuple(float(s) for s in np.linspace(2.0, 10.0, B))
 CPU_SECONDS, CPU_TOKENS, CPU_TIER = (4.0, 2.5), 24, 8
 
@@ -3184,20 +3190,102 @@ def _ctc_err(got, want):
     return (float(rel.max()) if rel.numel() else 0.0), same_class
 
 
-def ctc_kernel_cases(torch, kernels, timer):
-    """ctc_prefix_score against its plain version on the card: the
-    flagship joint search (B16 x beam 10 = 160 rows, K 11 candidates, T 251
-    frames, V 5000), half the rows on the empty prefix and half mid-prefix
-    (state from four scores and selects), input lengths 126-251, eos,
-    blank and the row's last label among the candidates; then the
-    full-vocabulary mode at B2 x beam 1. Within CTC_TOL of max(1, |plain|),
-    the -1e9 class in the same places, bitwise over two launches; µs, the
-    plain version's, the bound; ptxas registers and spills."""
+def _ctc_inputs(torch, g, b, beam, T, K, make_lens):
+    """Posteriors (b, T, V_FLAG), the rows' lengths (``make_lens(g)``) and
+    b x beam rows, half of them on the empty prefix and half mid-prefix
+    (state from four scores and selects on the card), eos, blank and the
+    row's last label among K candidates."""
     from stac_st_tpu_torch.decoding import ctc_prefix as CP
+
+    bb = b * beam
+    lp = torch.log_softmax(3.0 * torch.randn((b, T, V_FLAG), generator=g),
+                           dim=-1).to("cuda")
+    lens = make_lens(g).to("cuda")
+    state = CP.ctc_prefix_init(lp, 0, beam)
+    mid = state
+    for _ in range(4):
+        cand = torch.randint(3, V_FLAG, (bb, K), generator=g).to("cuda")
+        _, cs, cid = CP.ctc_prefix_score_all(mid, lp, lens, 0, 2, cand, beam)
+        mid = CP.ctc_prefix_select(cs, cid, torch.randint(
+            0, K, (bb,), generator=g).to("cuda"))
+    odd = (torch.arange(bb, device="cuda") % 2 == 1)
+    r_nb = torch.where(odd[:, None], mid.r_nb, state.r_nb).contiguous()
+    r_b = torch.where(odd[:, None], mid.r_b, state.r_b).contiguous()
+    last = torch.where(odd, mid.last, state.last).contiguous()
+    cand = torch.randint(3, V_FLAG, (bb, K), generator=g).to("cuda")
+    cand[:, 0], cand[:, 1] = 2, 0  # eos, blank
+    cand[:, 2] = torch.where(last >= 0, last, cand[:, 2])
+    return lp, r_nb, r_b, last, cand.contiguous(), lens
+
+
+def _ctc_case(torch, kernels, timer, key, args):
+    """One ctc_prefix_score case against the plain version: the wrapper
+    launches (counted, no plain fallback), bitwise over two launches,
+    within CTC_TOL outside the -1e9 class, the class in the same places;
+    µs, the plain version's, the bound."""
     from stac_st_tpu_torch.ops.kernels import ctc_prefix as KC
 
+    lp, r_nb, _, _, c, _, _, _, beam = args
+    b, T = lp.shape[:2]
+    run = partial(KC.ctc_prefix_score, *args)
+    plain = partial(KC.ctc_prefix_score_ref, *args)
+    before = kernels.launches.get("ctc_prefix_score", 0)
+    one, two = run(), run()
+    torch.cuda.synchronize()
+    launched = kernels.launches.get("ctc_prefix_score", 0) - before
+    check(launched == 2, f"ctc_prefix_score {key}: {launched} launches "
+          "counted for two calls")
+    check(all(torch.equal(x, y) for x, y in zip(one, two)),
+          f"ctc_prefix_score {key}: not bitwise over two launches")
+    want = plain()
+    errs = {}
+    for label, x, w in zip(("scores", "r_nb", "r_b"), one, want):
+        err, same = _ctc_err(x, w)
+        check(same, f"ctc_prefix_score {key} {label}: -1e9 class differs")
+        check(err <= CTC_TOL, f"ctc_prefix_score {key} {label}: "
+              f"relative err {err} > {CTC_TOL}")
+        errs[label] = err
+    rows = r_nb.shape[0]
+    K = V_FLAG if c is None else c.shape[1]
+    # bytes this run's data needs: the distinct (utterance, token)
+    # posterior columns over T (the candidates and blank), the prefix
+    # state, the indices; the scores and the (rows, K, T) state written
+    cols = sum(int(torch.unique(torch.cat([
+        (torch.arange(V_FLAG, device="cuda") if c is None
+         else c[u * beam:(u + 1) * beam].reshape(-1)),
+        torch.zeros(1, dtype=torch.long, device="cuda")])).numel())
+        for u in range(b))
+    nbytes = (cols * T * 4 + 2 * rows * T * 4 + rows * 8 * (2 + (
+        0 if c is None else K)) + rows * K * 4 + 2 * rows * K * T * 4)
+    # a lane-frame: three logaddexps (phi, nb, b) and the psi term,
+    # about 20 operations
+    b_ms, b_by = bound_ms(nbytes, 20.0 * rows * K * T, "float32")
+    return {"rows": rows, "K": K, "T": T, "beam": beam, "rel_err": errs,
+            "max_abs_err": max(float((x - w).abs()[w > NEG_CLASS].max())
+                               for x, w in zip(one, want)),
+            "bitwise_repeatable": True, "launches_counted": launched,
+            "ms": timer.ms(run),
+            "plain_ms": timer.ms(plain, n=3 if T < CTC_LONG_T else 1),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "library_ms": None,
+            "library": "none: no PyTorch call scores CTC prefixes of "
+                       "candidate continuations (F.ctc_loss is a "
+                       "full-label forward)",
+            "host_us": host_us(torch, run)}
+
+
+def ctc_kernel_cases(torch, kernels, timer):
+    """ctc_prefix_score (v3, ctc_prefix_kernel) against its plain version
+    on the card: the flagship joint search (B16 x beam 10 = 160 rows, K 11
+    candidates, T 251 frames, V 5000), half the rows on the empty prefix
+    and half mid-prefix, input lengths 126-251, eos, blank and the row's
+    last label among the candidates; the full-vocabulary mode at B2 x beam
+    1; and beyond the earlier designs' 4,096-frame cap, T 4,200 at B2 x
+    beam 3, K 4, lengths below T. Each case as _ctc_case checks it; ptxas registers and
+    spills."""
     g = torch.Generator(device="cpu").manual_seed(13)
     rec = {"phase": "kernel", "name": "ctc_prefix_score",
+           "kernel": "ctc_prefix_kernel",
            "registers": registers(kernels.build_logs["ctc_prefix"],
                                   "ctc_prefix_kernel"),
            "spills": spills(kernels.build_logs["ctc_prefix"],
@@ -3205,73 +3293,25 @@ def ctc_kernel_cases(torch, kernels, timer):
     check(len(rec["spills"]) == 1 and not any(
         sum(v) for v in rec["spills"].values()),
         f"ctc_prefix_kernel spills: {rec['spills']}")
-    T, BB = S_ENC, B * BEAM
-    lp = torch.log_softmax(3.0 * torch.randn((B, T, V_FLAG), generator=g),
-                           dim=-1).to("cuda")
-    lens = (126 + torch.randperm(BB, generator=g) * 125 // (BB - 1)) \
-        .to("cuda")
-    # mid prefixes from a real sequence of scores and selects (plain)
-    state = CP.ctc_prefix_init(lp, 0, BEAM)
-    mid = state
-    for _ in range(4):
-        cand = torch.randint(3, V_FLAG, (BB, CTC_K), generator=g).to("cuda")
-        _, cs, cid = CP.ctc_prefix_score_all(mid, lp, lens, 0, 2, cand, BEAM)
-        mid = CP.ctc_prefix_select(cs, cid, torch.randint(
-            0, CTC_K, (BB,), generator=g).to("cuda"))
-    odd = (torch.arange(BB, device="cuda") % 2 == 1)
-    r_nb = torch.where(odd[:, None], mid.r_nb, state.r_nb).contiguous()
-    r_b = torch.where(odd[:, None], mid.r_b, state.r_b).contiguous()
-    last = torch.where(odd, mid.last, state.last).contiguous()
-    cand = torch.randint(3, V_FLAG, (BB, CTC_K), generator=g).to("cuda")
-    cand[:, 0], cand[:, 1] = 2, 0  # eos, blank
-    cand[:, 2] = torch.where(last >= 0, last, cand[:, 2])
-    cand = cand.contiguous()
+    BB = B * BEAM
+    lp, r_nb, r_b, last, cand, lens = _ctc_inputs(
+        torch, g, B, BEAM, S_ENC, CTC_K,
+        lambda g: 126 + torch.randperm(BB, generator=g) * 125 // (BB - 1))
     for key, b, beam, c, rows_ in (
             ("joint", B, BEAM, cand, slice(None)),
             ("full_vocabulary", 2, 1, None, slice(0, 2))):
-        args = (lp[:b].contiguous(), r_nb[rows_].contiguous(),
-                r_b[rows_].contiguous(), last[rows_].contiguous(), c,
-                lens[rows_].contiguous(), 0, 2, beam)
-        run = partial(KC.ctc_prefix_score, *args)
-        plain = partial(KC.ctc_prefix_score_ref, *args)
-        one, two = run(), run()
-        torch.cuda.synchronize()
-        check(all(torch.equal(x, y) for x, y in zip(one, two)),
-              f"ctc_prefix_score {key}: not bitwise over two launches")
-        want = plain()
-        errs = {}
-        for label, x, w in zip(("scores", "r_nb", "r_b"), one, want):
-            err, same = _ctc_err(x, w)
-            check(same, f"ctc_prefix_score {key} {label}: -1e9 class differs")
-            check(err <= CTC_TOL, f"ctc_prefix_score {key} {label}: "
-                  f"relative err {err} > {CTC_TOL}")
-            errs[label] = err
-        rows, K = args[1].shape[0], (V_FLAG if c is None else CTC_K)
-        # bytes this run's data needs: the distinct (utterance, token)
-        # posterior columns over T (the candidates and blank), the prefix
-        # state, the indices; the scores and the (rows, K, T) state written
-        cols = sum(int(torch.unique(torch.cat([
-            (torch.arange(V_FLAG, device="cuda") if c is None
-             else c[u * beam:(u + 1) * beam].reshape(-1)),
-            torch.zeros(1, dtype=torch.long, device="cuda")])).numel())
-            for u in range(b))
-        nbytes = (cols * T * 4 + 2 * rows * T * 4 + rows * 8 * (2 + (
-            0 if c is None else K)) + rows * K * 4 + 2 * rows * K * T * 4)
-        # a lane-frame: three logaddexps (phi, nb, b) and the psi term,
-        # about 20 operations
-        b_ms, b_by = bound_ms(nbytes, 20.0 * rows * K * T, "float32")
-        rec[key] = {"rows": rows, "K": K, "T": T, "beam": beam,
-                    "rel_err": errs, "max_abs_err": max(
-                        float((x - w).abs()[w > NEG_CLASS].max())
-                        for x, w in zip(one, want)),
-                    "bitwise_repeatable": True, "ms": timer.ms(run),
-                    "plain_ms": timer.ms(plain, n=3), "bound_ms": b_ms,
-                    "bound_by": b_by, "bytes": nbytes,
-                    "library_ms": None,
-                    "library": "none: no PyTorch call scores CTC prefixes "
-                               "of candidate continuations (F.ctc_loss is "
-                               "a full-label forward)",
-                    "host_us": host_us(torch, run)}
+        rec[key] = _ctc_case(torch, kernels, timer, key, (
+            lp[:b].contiguous(), r_nb[rows_].contiguous(),
+            r_b[rows_].contiguous(), last[rows_].contiguous(), c,
+            lens[rows_].contiguous(), 0, 2, beam))
+    del lp
+    g = torch.Generator(device="cpu").manual_seed(17)
+    T = CTC_LONG_T
+    lp, r_nb, r_b, last, cand, lens = _ctc_inputs(
+        torch, g, 2, 3, T, 4, lambda g: torch.tensor(
+            [T - 7, T - 1000, T - 1, T - 333, T - 2047, T - 64]))
+    rec["long"] = _ctc_case(torch, kernels, timer, "long",
+                            (lp, r_nb, r_b, last, cand, lens, 0, 2, 3))
     rec["timer_floor_ms"] = timer.floor_ms()
     emit(rec)
     return rec
@@ -4365,8 +4405,12 @@ def data_parallel_phase(torch, kernels, smi: str, root: str) -> dict:
     return rec
 
 
-def card_vs_cpu_phase(torch):
-    """The port on the card against the port on the CPU, fp32, 2 x 2 s."""
+def card_vs_cpu_phase(torch, kernels):
+    """The port on the card against the port on the CPU, fp32, 2 x 2 s:
+    a decode step's logits, the attention-only search's tokens and
+    lengths, and those of the joint CTC/attention search (ctc_weight 0.3,
+    the model's CTC head; the CTC kernel on the card, its plain version on
+    the CPU)."""
     rng = np.random.default_rng(1)
     wavs = [(0.1 * rng.standard_normal(int(2 * SR))).astype(np.float32)
             for _ in range(2)]
@@ -4389,16 +4433,35 @@ def card_vs_cpu_phase(torch):
                     model.decode_step(toks, p, cache))
             prompt = torch.tensor(eng._prompt("es", "en"))
             tokens, lengths, _, _ = eng.searcher.search(enc, prompt)
-        outs[dev] = (logits.float().cpu(), tokens.cpu(), lengths.cpu())
+            ctc = torch.log_softmax(eng._ctc_lin(enc).float(), dim=-1)
+            eng.searcher.config = eng.searcher.config._replace(
+                ctc_weight=CTC_WEIGHT)
+            kernels.reset_launches()
+            joint, joint_len, _, _ = eng.searcher.search(
+                enc, prompt, wav_lens=lens, ctc_log_probs=ctc)
+            ctc_launches = kernels.launches.get("ctc_prefix_score", 0)
+        check((ctc_launches > 0) == (dev == "cuda"),
+              f"card vs CPU joint search on {dev}: {ctc_launches} CTC "
+              "launches")
+        outs[dev] = (logits.float().cpu(), tokens.cpu(), lengths.cpu(),
+                     joint.cpu(), joint_len.cpu())
     err = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item()
     check(err <= 1e-3, f"card vs CPU decode-step logits: err {err}")
-    tok_c, len_c = outs["cuda"][1], outs["cuda"][2]
-    tok_h, len_h = outs["cpu"][1], outs["cpu"][2]
-    steps = min(tok_c.shape[1], tok_h.shape[1])
-    same = (tok_c[:, :steps] == tok_h[:, :steps]).float().mean().item()
+
+    def agreement(i):
+        """(token agreement, lengths equal) of the search at outs[dev][i]."""
+        tok_c, len_c = outs["cuda"][i], outs["cuda"][i + 1]
+        tok_h, len_h = outs["cpu"][i], outs["cpu"][i + 1]
+        steps = min(tok_c.shape[1], tok_h.shape[1])
+        same = (tok_c[:, :steps] == tok_h[:, :steps]).float().mean().item()
+        return same, bool(torch.equal(len_c, len_h))
+
+    (same, equal), (joint_same, joint_equal) = agreement(1), agreement(3)
     rec.update({"logits_max_abs_err": err, "logits_atol": 1e-3,
-                "translate_token_agreement": same,
-                "lengths_equal": bool(torch.equal(len_c, len_h))})
+                "translate_token_agreement": same, "lengths_equal": equal,
+                "joint_ctc_weight": CTC_WEIGHT,
+                "joint_ctc_token_agreement": joint_same,
+                "joint_ctc_lengths_equal": joint_equal})
     emit(rec)
 
 
@@ -4469,7 +4532,7 @@ def main() -> int:
         served = serve_phase(torch, kernels, K, smi, root, args.profile)
         encoders_phase(torch, kernels, smi, root)
         data_parallel_phase(torch, kernels, smi, root)
-    card_vs_cpu_phase(torch)
+    card_vs_cpu_phase(torch, kernels)
     card_vs_cpu_train_phase(torch)
 
     kernel_line = []
@@ -4518,7 +4581,7 @@ def main() -> int:
     replaces, source = KC.KERNELS["ctc_prefix_score"]
     kernel_line.append({
         "name": "ctc_prefix_score", "route": "cuda", "source": source,
-        "replaces": replaces,
+        "replaces": replaces, "kernel": options["kernel"]["kernel"],
         # one launch a decode step of the joint search (float cache)
         "launches": options["joint_ctc"]["float"]["ctc_prefix_score_launches"],
         "max_abs_err": ctc["max_abs_err"], "ms": ctc["ms"],

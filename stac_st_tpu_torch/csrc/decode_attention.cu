@@ -1047,19 +1047,30 @@ self_split_rows_kernel(const T* __restrict__ q, const T* __restrict__ kT,
 // dtype codes shared with the Python wrapper
 enum DType { F32 = 0, BF16 = 1, F16 = 2 };
 
-// Raise a kernel's dynamic shared-memory limit once, to the largest size
-// asked for so far (the default cap is 48 KB including static memory).
-// Serving launches from several host threads, so the check and the raise
-// happen under one lock.
+// Raise a kernel's dynamic shared-memory limit on the launching (current)
+// device, to the largest size asked for so far there (the default cap is
+// 48 KB including static memory). cudaFuncSetAttribute acts on the current
+// device only and one process may launch on several cards (a serving
+// mesh), so each kernel keeps the size raised per device ordinal. Serving
+// launches from several host threads, so the check and the raise happen
+// under one lock.
+constexpr int SMEM_DEVICES = 64;
+struct SmemRaised {
+  size_t by_device[SMEM_DEVICES] = {};
+};
 std::mutex smem_mutex;
 
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem, size_t* allowed) {
+cudaError_t allow_smem(K kernel, size_t smem, SmemRaised& raised) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= SMEM_DEVICES) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> hold(smem_mutex);
-  if (smem <= *allowed) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) *allowed = smem;
+  size_t& allowed = raised.by_device[dev];
+  if (smem <= allowed) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) allowed = smem;
   return e;
 }
 
@@ -1067,8 +1078,8 @@ template <typename T>
 cudaError_t launch_self(const void* q, const void* kT, const void* v, void* out,
                         int BB, int H, int S, int idx, cudaStream_t st) {
   const size_t smem = (size_t)S * sizeof(float);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(self_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(self_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   self_kernel<T><<<BB * H, THREADS, smem, st>>>(
       (const T*)q, (const T*)kT, (const T*)v, (T*)out, S, idx);
@@ -1079,8 +1090,8 @@ template <typename T>
 cudaError_t launch_self_rows(const void* q, const void* kT, const void* v, const void* rows,
                              void* out, int BB, int H, int S, cudaStream_t st) {
   const size_t smem = (size_t)S * sizeof(float);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(self_rows_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(self_rows_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   self_rows_kernel<T><<<BB * H, THREADS, smem, st>>>(
       (const T*)q, (const T*)kT, (const T*)v, (const int32_t*)rows, (T*)out, H, S);
@@ -1092,8 +1103,8 @@ cudaError_t launch_anc(const void* q, const void* k, const void* v, const void* 
                        void* out, int BB, int H, int S, int beam, int idx,
                        cudaStream_t st) {
   const size_t smem = (size_t)S * (sizeof(float) + sizeof(int));
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(anc_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(anc_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   anc_kernel<T><<<BB * H, THREADS, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int32_t*)anc, (T*)out, H, S, beam,
@@ -1105,8 +1116,8 @@ template <typename T>
 cudaError_t launch_cross(const void* q, const void* kT, const void* v, const void* bias,
                          void* out, int B, int H, int S, int beam, cudaStream_t st) {
   const size_t smem = (size_t)beam * S * sizeof(float);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(cross_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(cross_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   cross_kernel<T><<<B * H, THREADS, smem, st>>>(
       (const T*)q, (const T*)kT, (const T*)v, (const float*)bias, (T*)out, H, S, beam);
@@ -1142,8 +1153,8 @@ cudaError_t launch_anc_split(const void* q, const void* k, const void* v, const 
   const int span = (tiles + cs - 1) / cs * ANC_TILE;
   const int threads = GROUP * ((beam + 3) / 4 * 4);  // whole warps
   const size_t smem = (size_t)beam * span * sizeof(int);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(anc_split_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(anc_split_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   ClusterLaunch L(BB / beam * H * cs, cs, threads, smem, st);
   e = cudaLaunchKernelEx(&L.cfg, anc_split_kernel<T>, (const T*)q, (const T*)k, (const T*)v,
@@ -1172,8 +1183,8 @@ cudaError_t launch_self_split(const void* q, const void* kT, const void* v, void
   const int n = idx + 1;
   const int tiles = (n + SELF_TILE - 1) / SELF_TILE;
   const size_t smem = self_smem(sh.warps, sh.cs * sh.warps);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(self_split_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(self_split_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   ClusterLaunch L(BB * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
   e = cudaLaunchKernelEx(&L.cfg, self_split_kernel<T>, (const T*)q, (const T*)kT,
@@ -1190,8 +1201,8 @@ cudaError_t launch_self_split_rows(const void* q, const void* kT, const void* v,
   const int tiles = (S + SELF_TILE - 1) / SELF_TILE;
   const SelfShape sh = self_shape(tiles);
   const size_t smem = self_smem(sh.warps, sh.cs * sh.warps);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(self_split_rows_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(self_split_rows_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   ClusterLaunch L(BB * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
   e = cudaLaunchKernelEx(&L.cfg, self_split_rows_kernel<T>, (const T*)q, (const T*)kT,
@@ -1309,8 +1320,8 @@ cudaError_t launch_self(const void* q, const void* kT, const void* v, const void
                         const void* vs, void* out, int BB, int H, int S, int idx,
                         cudaStream_t st) {
   const size_t smem = (size_t)S * sizeof(float);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(self_i8_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(self_i8_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   self_i8_kernel<T><<<BB * H, THREADS, smem, st>>>(
       (const T*)q, (const int8_t*)kT, (const int8_t*)v, (const float*)ks,
@@ -1323,8 +1334,8 @@ cudaError_t launch_self_rows(const void* q, const void* kT, const void* v, const
                              const void* vs, const void* rows, void* out, int BB, int H,
                              int S, cudaStream_t st) {
   const size_t smem = (size_t)S * sizeof(float);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(self_i8_rows_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(self_i8_rows_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   self_i8_rows_kernel<T><<<BB * H, THREADS, smem, st>>>(
       (const T*)q, (const int8_t*)kT, (const int8_t*)v, (const float*)ks,
@@ -1337,8 +1348,8 @@ cudaError_t launch_cross(const void* q, const void* kT, const void* v, const voi
                          const void* vs, const void* bias, void* out, int B, int H,
                          int S, int beam, cudaStream_t st) {
   const size_t smem = (size_t)S * sizeof(float);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(cross_i8_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(cross_i8_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   cross_i8_kernel<T><<<B * beam * H, THREADS, smem, st>>>(
       (const T*)q, (const int8_t*)kT, (const int8_t*)v, (const float*)ks,
@@ -2102,8 +2113,8 @@ cudaError_t launch_self_split(const void* q, const void* kT, const void* v, cons
                               Shape sh, cudaStream_t st) {
   const int n = idx + 1, tiles = (n + TILE - 1) / TILE, slots = slots_of(tiles, sh);
   const size_t smem = self_smem(sh, slots);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(self_i8_split_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(self_i8_split_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   ClusterLaunch L(BB * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
   e = cudaLaunchKernelEx(&L.cfg, self_i8_split_kernel<T>, (const T*)q, (const int8_t*)kT,
@@ -2118,8 +2129,8 @@ cudaError_t launch_self_split_rows(const void* q, const void* kT, const void* v,
                                    int S, Shape sh, cudaStream_t st) {
   const int tiles = (S + TILE - 1) / TILE, slots = slots_of(tiles, sh);
   const size_t smem = self_smem(sh, slots);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(self_i8_split_rows_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(self_i8_split_rows_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   ClusterLaunch L(BB * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
   e = cudaLaunchKernelEx(&L.cfg, self_i8_split_rows_kernel<T>, (const T*)q, (const int8_t*)kT,
@@ -2136,8 +2147,8 @@ cudaError_t launch_cross_split(const void* q, const void* kT, const void* v, con
   const int own = (beam + sh.cs - 1) / sh.cs;
   const size_t smem = cross_head_bytes(sh.cs, own, sh.cs * sh.warps, S, bias != nullptr) +
                       sh.warps * cross_warp_bytes(slots);
-  static size_t allowed = 0;
-  cudaError_t e = allow_smem(cross_i8_split_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  cudaError_t e = allow_smem(cross_i8_split_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   ClusterLaunch L(B * H * sh.cs, sh.cs, 32 * sh.warps, smem, st);
   e = cudaLaunchKernelEx(&L.cfg, cross_i8_split_kernel<T>, (const T*)q, (const int8_t*)kT,

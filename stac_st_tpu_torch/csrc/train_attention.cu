@@ -77,6 +77,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -1108,14 +1109,28 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
 enum DType { F32 = 0, BF16 = 1, F16 = 2 };
 
-// Raise a kernel's dynamic shared-memory limit once, to the largest size
-// asked for so far (the default cap is 48 KB).
+// Raise a kernel's dynamic shared-memory limit on the launching (current)
+// device, to the largest size asked for so far there (the default cap is
+// 48 KB). cudaFuncSetAttribute acts on the current device only and one
+// process may launch on several cards, so each kernel keeps the size
+// raised per device ordinal, checked and raised under one lock.
+constexpr int SMEM_DEVICES = 64;
+struct SmemRaised {
+  size_t by_device[SMEM_DEVICES] = {};
+};
+std::mutex smem_mutex;
+
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem, size_t* allowed) {
-  if (smem <= *allowed) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) *allowed = smem;
+cudaError_t allow_smem(K kernel, size_t smem, SmemRaised& raised) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= SMEM_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(smem_mutex);
+  size_t& allowed = raised.by_device[dev];
+  if (smem <= allowed) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) allowed = smem;
   return e;
 }
 
@@ -1131,15 +1146,15 @@ cudaError_t launch_fwd_simt(const void* q, const void* k, const void* v, const v
       sizeof(float) * (2 * TILE * (Dh + 1) + BLOCK_ROWS * Dh + BLOCK_ROWS * TILE);
   cudaError_t e;
   if (lse != nullptr) {
-    static size_t allowed = 0;
-    e = allow_smem(fwd_kernel<T, true>, smem, &allowed);
+    static SmemRaised raised;
+    e = allow_smem(fwd_kernel<T, true>, smem, raised);
     if (e != cudaSuccess) return e;
     fwd_kernel<T, true><<<grid_of(B, H, Tq), THREADS, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, (float*)lse, H,
         Tq, Tk, Dh, scale, dr);
   } else {
-    static size_t allowed = 0;
-    e = allow_smem(fwd_kernel<T, false>, smem, &allowed);
+    static SmemRaised raised;
+    e = allow_smem(fwd_kernel<T, false>, smem, raised);
     if (e != cudaSuccess) return e;
     fwd_kernel<T, false><<<grid_of(B, H, Tq), THREADS, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, nullptr, H, Tq,
@@ -1234,8 +1249,8 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* bias,
   CUtensorMap m[4];
   int e = tc_maps<T>(m, q, k, v, dout, B, H, Tq, Tk);
   if (e != 0) return e;
-  static size_t allowed = 0;
-  e = (int)allow_smem(dq_tc_kernel<T>, tc::BWD_SMEM, &allowed);
+  static SmemRaised raised;
+  e = (int)allow_smem(dq_tc_kernel<T>, tc::BWD_SMEM, raised);
   if (e != 0) return e;
   dq_tc_kernel<T><<<tc_grid(B, H, Tq), tc::THREADS, tc::BWD_SMEM, st>>>(
       m[0], m[1], m[2], m[3], (const float*)bias, (const float*)lse, (const float*)delta,
@@ -1250,8 +1265,8 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* bias,
   CUtensorMap m[4];
   int e = tc_maps<T>(m, q, k, v, dout, B, H, Tq, Tk);
   if (e != 0) return e;
-  static size_t allowed = 0;
-  e = (int)allow_smem(dkv_tc_kernel<T>, tc::BWD_SMEM, &allowed);
+  static SmemRaised raised;
+  e = (int)allow_smem(dkv_tc_kernel<T>, tc::BWD_SMEM, raised);
   if (e != 0) return e;
   dkv_tc_kernel<T><<<tc_grid(B, H, Tk), tc::THREADS, tc::BWD_SMEM, st>>>(
       m[0], m[1], m[2], m[3], (const float*)bias, (const float*)lse, (const float*)delta,
@@ -1265,8 +1280,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* b
                       int H, int Tq, int Tk, int Dh, float scale, Drop dr, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * (2 * TILE * (Dh + 1) + 2 * BLOCK_ROWS * Dh + BLOCK_ROWS * TILE);
-  static size_t allowed = 0;
-  const cudaError_t e = allow_smem(dq_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  const cudaError_t e = allow_smem(dq_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   dq_kernel<T><<<grid_of(B, H, Tq), THREADS, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (const T*)dout,
@@ -1281,8 +1296,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        cudaStream_t st) {
   const size_t smem = sizeof(float) * (2 * TILE * (Dh + 1) + 2 * TILE +
                                        2 * BLOCK_ROWS * Dh + 2 * BLOCK_ROWS * TILE);
-  static size_t allowed = 0;
-  const cudaError_t e = allow_smem(dkv_kernel<T>, smem, &allowed);
+  static SmemRaised raised;
+  const cudaError_t e = allow_smem(dkv_kernel<T>, smem, raised);
   if (e != cudaSuccess) return e;
   dkv_kernel<T><<<grid_of(B, H, Tk), THREADS, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (const T*)dout,

@@ -6,11 +6,13 @@ CTC/attention decode step with an XLA ``lax.scan`` over the encoder frames
 (``stac_st_tpu/decoding/ctc_prefix.py:126``, ``ctc_prefix_score_all``). As
 plain PyTorch that scan is a Python loop of T frames × a few small kernels
 inside every decode step, so the port computes it in one kernel a step
-(``csrc/ctc_prefix.cu``): one block a (row, group of up to 32
-candidates) stages the row's shared frame terms in shared memory, one
-warp walks each candidate's frames in order while three warps reduce its
-prefix score. It is bound by the latency of its T-step chain of
-logaddexps, not by bytes.
+(``csrc/ctc_prefix.cu``): one warp a (row, candidate) lane scans the
+frames as affine maps in the log semiring, tile by tile of 256 frames,
+a block's warps sharing the row's frame terms staged in shared memory.
+The scan cuts each lane's chain of T dependent logaddexps to about 30 a
+tile, which leaves the kernel bound by its gather of the candidates'
+posterior columns (a sector a candidate and frame); shared memory holds
+one tile whatever T is, so T has no cap.
 
 ``ctc_prefix_score`` given CPU tensors returns :func:`ctc_prefix_score_ref`.
 Given CUDA tensors it checks dtype, shape and contiguity, launches the
@@ -109,8 +111,6 @@ def _lib():
     if not getattr(lib, "_stac_bound", False):
         lib.stac_ctc_prefix_score.argtypes = [_P] * 9 + [_I] * 7 + [_P]
         lib.stac_ctc_prefix_score.restype = _I
-        lib.stac_ctc_max_frames.argtypes = []
-        lib.stac_ctc_max_frames.restype = _I
         lib.stac_ctc_error_string.argtypes = [_I]
         lib.stac_ctc_error_string.restype = ctypes.c_char_p
         lib._stac_bound = True
@@ -152,8 +152,6 @@ def ctc_prefix_score(log_probs: torch.Tensor, r_nb: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
     lib = _lib()
-    if T > lib.stac_ctc_max_frames():
-        raise ValueError(f"{name}: {T} frames > {lib.stac_ctc_max_frames()}")
     scores = torch.empty((BB, K), device=r_nb.device)
     nb_all = torch.empty((BB, K, T), device=r_nb.device)
     b_all = torch.empty((BB, K, T), device=r_nb.device)

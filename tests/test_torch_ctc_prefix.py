@@ -11,7 +11,9 @@ sequence of scores and selects (one of them a repeated label), with
 atol 1e-5 (the two sides take the same operations in the same order; exp,
 log1p and the cumulative sum may differ by an ulp at magnitudes up to
 about 50); entries at or below -1e8 (the -1e9 class, whose ulp is 64) are
-compared as a class: the same places on both sides.
+compared as a class: the same places on both sides. One more case runs
+4,200 frames (beyond the kernel's old 4,096-frame cap) at a tiny V and K,
+one JAX program of its own.
 
 The wrapper's dispatch (plain version on CPU tensors, no count) and the
 kernel on the card are checked in ``test_torch_ctc_prefix_kernel.py``
@@ -147,3 +149,49 @@ def test_select_matches_jax_and_commits_by_parent(walk):
                                 cstate.last[rows])
     for g, w in zip(by_rows, P.ctc_prefix_select(gathered, cand[rows], k)):
         assert torch.equal(g, w)
+
+
+LONG_T = 4200  # frames: beyond the 4,096 the kernel's first designs took
+
+
+def test_plain_version_matches_jax_beyond_the_old_frame_cap():
+    """T 4,200 frames, past the cap of the kernel's first designs (whose
+    shared memory held a whole row of frames): the plain version, which
+    the kernel is held to on the card, against the JAX scan. B 1 x beam
+    2, V 6, candidates eos, blank and two more; row 0 on the empty prefix,
+    row 1 mid-prefix (a score and select of the port), lengths below T.
+    Tolerance: 1e-5 of max(1, |JAX|) (the kernel is held to 1e-4 of the
+    plain version): both sides take the same fp32 operations in the same
+    order, but exp and log1p may differ by an ulp between the two
+    libraries, and 4,200 dependent frames carry that at magnitudes up to
+    about 13,000; the -1e9 class as a class."""
+    rng = np.random.default_rng(21)
+    beam = 2
+    lp = _log_softmax(2.0 * rng.standard_normal((1, LONG_T, 6)))
+    lens = np.asarray([LONG_T - 3, LONG_T - 1500], np.int64)
+    cand = np.asarray([[EOS, BLANK, 3, 4], [EOS, BLANK, 4, 5]])
+    lp_t, lens_t = torch.from_numpy(lp), torch.from_numpy(lens)
+    empty = P.ctc_prefix_init(lp_t, BLANK, beam)
+    _, cs, cid = P.ctc_prefix_score_all(empty, lp_t, lens_t, BLANK, EOS,
+                                        torch.from_numpy(cand), beam)
+    mid = P.ctc_prefix_select(cs, cid, torch.tensor([3, 3]))
+    state = P.CtcPrefixState(
+        torch.stack([empty.r_nb[0], mid.r_nb[1]]),
+        torch.stack([empty.r_b[0], mid.r_b[1]]),
+        torch.stack([empty.last[0], mid.last[1]]))
+    got = P.ctc_prefix_score_all(state, lp_t, lens_t, BLANK, EOS,
+                                 torch.from_numpy(cand), beam)
+    want = j_score(J.CtcPrefixState(*(jnp.asarray(a.numpy())
+                                      for a in state)),
+                   jnp.asarray(np.repeat(lp, beam, axis=0)),
+                   jnp.asarray(lens), BLANK, EOS, jnp.asarray(cand))
+    for g, w, what in ((got[0], want[0], "scores"),
+                       (got[1].r_nb, want[1].r_nb, "r_nb"),
+                       (got[1].r_b, want[1].r_b, "r_b")):
+        g, w = np.asarray(g), np.asarray(w)
+        neg = w <= NEG_CLASS
+        np.testing.assert_array_equal(g <= NEG_CLASS, neg,
+                                      err_msg=f"{what}: -1e9 class")
+        rel = np.abs(g - w)[~neg] / np.maximum(1.0, np.abs(w[~neg]))
+        assert rel.max() <= 1e-5, what
+    assert (np.asarray(got[1].r_nb)[1, :, LONG_T - 1] > NEG_CLASS).all()

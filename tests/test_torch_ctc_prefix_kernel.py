@@ -44,6 +44,27 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
         assert torch.equal(x, w)
 
 
+def _assert_matches_plain(args, beam):
+    """The kernel on the card (two launches, both counted) against the
+    plain version of the same CPU inputs: bitwise over the launches,
+    the -1e9 class in the same places, others within 1e-4 of
+    max(1, |plain|)."""
+    want = ctc_prefix_score_ref(*args, BLANK, EOS, beam)
+    dev = [a if a is None else a.cuda() for a in args]
+    kernels.reset_launches()
+    one = ctc_prefix_score(*dev, BLANK, EOS, beam)
+    two = ctc_prefix_score(*dev, BLANK, EOS, beam)
+    torch.cuda.synchronize()
+    assert kernels.launches == {"ctc_prefix_score": 2}
+    for g1, g2, w in zip(one, two, want):
+        assert torch.equal(g1, g2)
+        g1 = g1.cpu()
+        neg = w <= NEG_CLASS
+        assert torch.equal(g1 <= NEG_CLASS, neg)
+        tol = 1e-4 * w.abs().clamp(min=1.0)
+        assert ((g1 - w).abs() <= tol)[~neg].all()
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version on the card: the search's
@@ -69,16 +90,35 @@ def test_kernel_matches_plain_on_card():
     r_b = torch.where(keep, state.r_b, mid.r_b)
     cand[:, 0], cand[:, 1], cand[:, 2] = EOS, BLANK, last.clamp(min=3)
     for c in (cand, None):
-        args = [lp, r_nb, r_b, last, c, lens]
-        want = ctc_prefix_score_ref(*args, BLANK, EOS, beam)
-        dev = [a if a is None else a.cuda() for a in args]
-        one = ctc_prefix_score(*dev, BLANK, EOS, beam)
-        two = ctc_prefix_score(*dev, BLANK, EOS, beam)
-        torch.cuda.synchronize()
-        for g1, g2, w in zip(one, two, want):
-            assert torch.equal(g1, g2)
-            g1 = g1.cpu()
-            neg = w <= NEG_CLASS
-            assert torch.equal(g1 <= NEG_CLASS, neg)
-            tol = 1e-4 * w.abs().clamp(min=1.0)
-            assert ((g1 - w).abs() <= tol)[~neg].all()
+        _assert_matches_plain([lp, r_nb, r_b, last, c, lens], beam)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long", "full_vocabulary"])
+def test_kernel_matches_plain_on_card_at_search_shapes(case):
+    """``long``: 4,200 frames (more than one shared-memory tile of the
+    old design could hold; the kernel has no frame cap), B 2 x beam 3,
+    V 5000, K 4, lengths below T, one row mid-prefix after a select;
+    ``full_vocabulary``: every token of V 5000 a candidate, B 2 x beam 1,
+    T 251 (the flagship's 10 s bucket)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(7)
+    b, beam, t, v = (2, 3, 4200, 5000) if case == "long" else (2, 1, 251,
+                                                               5000)
+    bb = b * beam
+    lp = torch.log_softmax(3 * torch.randn((b, t, v), generator=g), -1)
+    lens = t - torch.randint(0, t // 2, (bb,), generator=g)
+    state = P.ctc_prefix_init(lp, BLANK, beam)
+    cand = torch.randint(3, v, (bb, 4), generator=g)
+    cand[:, 0], cand[:, 1] = EOS, BLANK
+    _, cs, _ = P.ctc_prefix_score_all(state, lp, lens, BLANK, EOS, cand,
+                                      beam)
+    mid = P.ctc_prefix_select(cs, cand, torch.full((bb,), 2))
+    keep = (torch.arange(bb) % 2 == 0)
+    r_nb = torch.where(keep[:, None], state.r_nb, mid.r_nb)
+    r_b = torch.where(keep[:, None], state.r_b, mid.r_b)
+    last = torch.where(keep, state.last, mid.last)
+    cand[:, 2] = last.clamp(min=3)
+    _assert_matches_plain(
+        [lp, r_nb, r_b, last, cand if case == "long" else None, lens], beam)
