@@ -126,7 +126,11 @@ Phases, each printed as one JSON line:
    CMVN update on; counts zeroed just before and read just after (exactly
    18 training-forward, 18 dQ and 18 dK/dV launches a step, every one on
    a tensor-core kernel), then one eval forward (exactly 18
-   flash_attention launches, all on the tensor-core kernel);
+   flash_attention launches, all on the tensor-core kernel); then the
+   same cell with train_attn_kernel=off (the model's matmul + softmax
+   attention, dropout on the weights): a warm step's ms and peak memory
+   beside a warm kernel step's, measured the same way, and no launch of
+   the four flash kernels in that step or its eval forward;
 6. data_train: training from a manifest on disk, as
    recipes/train_multitask.py drives it: 128 utterances of 12-15 s of
    seeded audio at 8 kHz written to a temporary directory (PCM16 WAV,
@@ -263,14 +267,37 @@ Phases, each printed as one JSON line:
    going round the shards) token-equal to the sequential greedy oracle;
    bf16 launches of the meshed translate equal to one
    device's over each shard's rows (anc and cross on split), the texts'
-   agreement, and warm RTFx at one device and on the mesh.
+   agreement, and warm RTFx at one device and on the mesh;
+13. protocol, run after data_parallel: the flagship quality run as
+   stac_st_tpu_torch.tools.flagship_run drives it, cut to the script's
+   budget. The learnable synthetic corpus (tools.flagship_corpus: 2,000
+   training utterances of about 4.5 s, 32 dev, 32 held-out, 2
+   conversations of 8; the BPE vocabulary 5000 or the largest the
+   trainer reaches, reported); the shipped
+   recipes/hparams/transformer_synth_flagship.yaml (d256, 4 heads of 64,
+   12 + 6 layers, FFN 1024, CNN (256, 256), bf16) through
+   recipes.train_multitask.main with its schedule's step limit, warm-up
+   and cool-down cut in proportion (PROTOCOL_STEPS of 4,000) and a wall
+   cap on fit (a SIGTERM: the kept ACC checkpoints load); then
+   tools.eval_flagship on the experiment: held-out BLEU (ST) and WER
+   (ASR) for beam 10, continuous greedy and the hybrid with each
+   engine's RTFx, the beam-10 pass's decoder steps per search against
+   its 192-token budget, the long-form grid cut to two of its four
+   points (pause and shas 6-12), speaker-change F1, precision and recall
+   at each tolerance; and
+   the trained experiment's warm translate of B16 x 10 s (held-out audio
+   padded to 10 s). Checks: training launched the four flash kernels, the
+   protocol the ragged self, anc and cross kernels, every number finite.
+   Each stage's seconds and launches by kernel and variant (stage lines
+   in chiprun_out/protocol_stages.jsonl, the recipe's output in
+   chiprun_out/protocol_train_log.txt). No bound on quality.
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through, and its
-launches in the recipe and serve phases; the ragged self forms are lines
-of their own, their launches the serve phase's; the int8 kernels' launches
-are phase int8's; ctc_prefix_score's those of phase search_options' joint
-CTC search with the float cache),
+launches in the recipe, serve and protocol phases; the ragged self forms
+are lines of their own, their launches the serve phase's; the int8
+kernels' launches are phase int8's; ctc_prefix_score's those of phase
+search_options' joint CTC search with the float cache),
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. It needs the rest of the repository;
@@ -1737,13 +1764,15 @@ def train_phase(torch, kernels, profile: bool):
                      - apply_spec_augment(feats.cpu(), params)).abs().max())
     check(aug_err <= 1e-3, f"SpecAugment card vs CPU: err {aug_err}")
     warm = float(np.median(steps[2:]))
+    off = attn_off_step(torch, kernels, trainer, batch)
     rec = {"phase": "train", "batch": TB, "seconds": SECONDS_TRAIN,
            "dtype": "bfloat16", "dropout": 0.1, "steps": len(steps),
            "step_ms": [x * 1e3 for x in steps], "warm_step_ms": warm * 1e3,
            "audio_s_per_s": TB * SECONDS_TRAIN / warm,
            "peak_memory_gb": peak / 1e9, "losses": losses,
            "launches_fit": launches, "launches_eval": eval_launches,
-           "specaugment_card_vs_cpu_err": aug_err}
+           "specaugment_card_vs_cpu_err": aug_err,
+           "train_attn_kernel_off": off}
     if profile:
         seed = trainer.next_seed()
         t0 = time.perf_counter()
@@ -1754,6 +1783,44 @@ def train_phase(torch, kernels, profile: bool):
             time.perf_counter() - t0, "train_step")
     emit(rec)
     return rec, {**launches, **eval_launches}
+
+
+def _warm_step(torch, trainer, dev_batch):
+    """(ms, peak GB) of one train step after a first one, the peak reset
+    just before it."""
+    state = trainer.ensure_state()
+    trainer.train_step(state, dev_batch, trainer.next_seed())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train_step(state, dev_batch, trainer.next_seed())
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def attn_off_step(torch, kernels, kernel_trainer, batch) -> dict:
+    """Phase train's cell with train_attn_kernel=off (the model's matmul +
+    softmax attention, dropout on the weights): a warm step's ms and peak
+    beside the kernel route's, measured the same way, and no launch of
+    the four flash kernels in that step or in the eval forward."""
+    trainer = _trainer(torch, flagship(0), bf16=True,
+                       run_opts={"train_attn_kernel": "off"})
+    dev_batch = trainer._device_batch(batch)
+    trainer.ensure_state()
+    kernels.reset_launches()
+    ms, peak = _warm_step(torch, trainer, dev_batch)
+    trainer.eval_forward(trainer.state.params, trainer.state.cmvn, dev_batch)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(not any(launches.get(n) for n in FLASH),
+          f"train_attn_kernel=off launched a flash kernel: {launches}")
+    del trainer
+    k_ms, k_peak = _warm_step(torch, kernel_trainer,
+                              kernel_trainer._device_batch(batch))
+    return {"warm_step_ms": ms, "peak_memory_gb": peak,
+            "kernel_warm_step_ms": k_ms, "kernel_peak_memory_gb": k_peak,
+            "launches": launches}
 
 
 # the data phase: a telephone-speech corpus written to disk (Fisher /
@@ -4405,6 +4472,104 @@ def data_parallel_phase(torch, kernels, smi: str, root: str) -> dict:
     return rec
 
 
+# phase protocol: the flagship quality run (tools/flagship_run.py) cut to
+# the script's budget; the full run is 10,000 / 96 / 400 utterances, 4
+# conversations of 16, and the YAML's 4,000-step schedule (warm-up and
+# cool-down 400), cut here in proportion. A first run on the card made
+# about 2 updates a second (24 an epoch of 2,000 utterances) and spent
+# 243 s in eval_flagship with 64 held-out utterances, the hybrid 90 s of
+# it; a whole run of this script with 32 of them, 200 steps and the four
+# grid points read 964 s, the phase 413 s (the long-form grid 115 s of
+# it). 32 held-out, 120 steps and two grid points keep the script well
+# inside its 1200 s
+PROTOCOL_CORPUS = dict(train_utts=2000, dev_utts=32, heldout_utts=32,
+                       convs=2, utts_per_conv=8)
+PROTOCOL_STEPS = 120
+PROTOCOL_WARMUP = PROTOCOL_STEPS * 400 // 4000
+PROTOCOL_TRAIN_BUDGET_S = 150.0  # a wall cap on fit (SIGTERM), not a target
+PROTOCOL_GRID = "pause,shas_6_12"
+
+
+def _finite_numbers(obj) -> bool:
+    if isinstance(obj, dict):
+        return all(_finite_numbers(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(_finite_numbers(v) for v in obj)
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return bool(np.isfinite(obj))
+    return True
+
+
+def protocol_phase(torch, kernels, smi: str, root: str) -> dict:
+    """Phase protocol (see the module docstring): corpus, the shipped
+    transformer_synth_flagship.yaml through the recipe, eval_flagship and
+    the trained model's serving cell, on the card."""
+    from stac_st_tpu_torch.tools import flagship_run as FR
+
+    lines = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = FR.run(os.path.join(root, "flagship"), **PROTOCOL_CORPUS,
+                    steps=PROTOCOL_STEPS, warmup=PROTOCOL_WARMUP,
+                    budget_s=PROTOCOL_TRAIN_BUDGET_S, device="cuda",
+                    grid=PROTOCOL_GRID,
+                    train_log=os.path.join(OUT_DIR,
+                                           "protocol_train_log.txt"),
+                    emit=lines.append)
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    st = report["stages"]
+    with open(os.path.join(OUT_DIR, "protocol_stages.jsonl"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    corpus, train, prot, serve = (st[k] for k in ("corpus", "train",
+                                                  "protocol", "serve"))
+    check(train["updates"] >= PROTOCOL_STEPS or train["stopped_by_budget"],
+          f"training stopped early: {train}")
+    check(np.isfinite(train["final_train_loss"]), f"train loss {train}")
+    tl = train["launches"]
+    for name in FLASH:
+        check(tl.get(name, 0) > 0, f"training launched no {name}: {tl}")
+    pl = {k: v for k, v in prot["launches"].items()}
+    check(pl.get("decode_self_attention/rows", 0) > 0
+          and pl.get("decode_self_attention_anc", 0) > 0
+          and pl.get("decode_cross_attention", 0) > 0,
+          f"the protocol's decode launches {pl}")
+    heldout = {r["engine"]: r for r in prot["heldout"]}
+    check(sorted(heldout) == ["batch_beam10", "continuous_greedy",
+                              "hybrid_finalized"], f"engines {heldout}")
+    check(len(prot["speaker_change_f1"]) == 6
+          and len(prot["long_form_grid"])
+          == len(PROTOCOL_GRID.split(",")), "protocol tables")
+    check(_finite_numbers(prot) and _finite_numbers(serve),
+          "protocol numbers finite")
+    beam = heldout["batch_beam10"]
+    rec = {"phase": "protocol", "gpu": smi, "phase_s": phase_s,
+           "corpus": {**PROTOCOL_CORPUS, "vocab": corpus["vocab"],
+                      "vocab_asked": 5000},
+           "stage_s": {k: v["stage_s"] for k, v in st.items()},
+           "protocol_s": prot["seconds"],
+           "schedule": {"steps": PROTOCOL_STEPS, "warmup": PROTOCOL_WARMUP,
+                        "of": {"steps": FR.STEPS, "warmup": FR.WARMUP}},
+           "grid": PROTOCOL_GRID,
+           "train": {k: train[k] for k in ("updates", "micro_steps",
+                                           "epochs", "final_train_loss",
+                                           "last_valid",
+                                           "stopped_by_budget")},
+           "heldout": prot["heldout"],
+           "decode_steps_per_search": beam["decode_steps_per_search"],
+           "max_decode_tokens": beam["max_decode_tokens"],
+           "long_form_grid": prot["long_form_grid"],
+           "speaker_change_f1": prot["speaker_change_f1"],
+           "serve_b16_10s": {k: serve[k] for k in (
+               "translate_warm_rtfx", "translate_warm_s",
+               "decode_steps_per_search", "max_decode_tokens")},
+           "launches": launches,
+           "launches_by_stage": {k: v["launches"] for k, v in st.items()}}
+    emit(rec)
+    return rec
+
+
 def card_vs_cpu_phase(torch, kernels):
     """The port on the card against the port on the CPU, fp32, 2 x 2 s:
     a decode step's logits, the attention-only search's tokens and
@@ -4532,6 +4697,7 @@ def main() -> int:
         served = serve_phase(torch, kernels, K, smi, root, args.profile)
         encoders_phase(torch, kernels, smi, root)
         data_parallel_phase(torch, kernels, smi, root)
+        protocol = protocol_phase(torch, kernels, smi, root)
     card_vs_cpu_phase(torch, kernels)
     card_vs_cpu_train_phase(torch)
 
@@ -4551,6 +4717,7 @@ def main() -> int:
             "launches": path.get(rec["name"], 0),
             "recipe_launches": recipe["launches"].get(rec["name"], 0),
             "serve_launches": served["launches"].get(rec["name"], 0),
+            "protocol_launches": protocol["launches"].get(rec["name"], 0),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
@@ -4567,6 +4734,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": train_launches.get(rec["name"], 0),
             "recipe_launches": recipe["launches"].get(rec["name"], 0),
+            "protocol_launches": protocol["launches"].get(rec["name"], 0),
             "max_abs_err": max(v for k, v in rec["abs_err"].items()
                                if "bfloat16" in k),
             "ms": enc["ms"], "plain_ms": enc["plain_ms"],
@@ -4584,6 +4752,7 @@ def main() -> int:
         "replaces": replaces, "kernel": options["kernel"]["kernel"],
         # one launch a decode step of the joint search (float cache)
         "launches": options["joint_ctc"]["float"]["ctc_prefix_score_launches"],
+        "protocol_launches": protocol["launches"].get("ctc_prefix_score", 0),
         "max_abs_err": ctc["max_abs_err"], "ms": ctc["ms"],
         "plain_ms": ctc["plain_ms"], "bound_ms": ctc["bound_ms"],
         "bound_by": ctc["bound_by"], "library_ms": None,

@@ -15,8 +15,13 @@ command lines parse unchanged; the port reads ``device``, ``precision``,
 value must equal it, the run launched as ``torchrun --nproc_per_node N
 -m stac_st_tpu_torch.recipes.train_multitask ...``),
 ``distributed_backend`` (``nccl``, the default for any other value, or
-``gloo``) and ``pipeline_stages`` (> 1 raises: pipeline stages are not
-ported; nor are ``rng_impl`` and ``train_attn_kernel``).
+``gloo``), ``train_attn_kernel`` (``auto``/``on``: the flash kernels;
+``off``: the model's matmul + softmax attention), ``rng_impl`` (every
+value the JAX trainer takes, served by the port's one counter RNG; another
+raises) and ``pipeline_stages`` (> 1 raises: pipeline stages are not
+ported). ``compile_cache_dir``, ``jit_compile``, ``profile_dir``,
+``find_unused_parameters``, ``distributed_launch`` and ``local_rank`` are
+accepted and unused.
 """
 
 from __future__ import annotations

@@ -31,6 +31,23 @@ same key set, each module under ``{"params": ...}``, numpy fp32 in the JAX
 layouts, int8 kernels and their scales for quantized modules). The port
 writes its ``model`` checkpoints in that layout, so each package reads the
 other's.
+
+``optax_opt_tree`` / ``optax_opt_fields`` write and read the JAX trainer's
+optimizer state (its ``opt`` checkpoint tree) as
+``flax.serialization.to_state_dict`` lays it out for the chain of
+``stac_st_tpu.training.step.make_optimizer``::
+
+    MultiSteps (accumulation > 1: mini_step, gradient_step,
+                inner_opt_state, acc_grads, skip_state)
+      (0: apply_if_finite (patience > 0: notfinite_count, last_finite,
+                           total_notfinite, inner_state)
+            (0: clip_by_global_norm (if clipping): {}
+             next: adam(w) at lr 1 (0: count, mu, nu; 1: {}; 2: {} for adamw)),
+       1: scale_by_schedule (count))
+
+The moment and accumulator trees are in the parameters' JAX layout; the
+trainer maps them from and to its flat vectors through the same mapping
+as the parameters.
 """
 
 from __future__ import annotations
@@ -50,7 +67,7 @@ from ..ops.cmvn import CmvnState
 from ..utils.quantize import CrossInProjInt8, Int8Linear
 
 __all__ = ["load_jax_params", "to_jax_params", "cmvn_from_jax",
-           "check_settings"]
+           "check_settings", "optax_opt_tree", "optax_opt_fields"]
 
 _MISSING = object()
 
@@ -278,8 +295,9 @@ def _load_conformer_layer(ld: _Loader, layer: ConformerEncoderLayer,
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
+    """A host copy (never a view of a CPU parameter's memory)."""
     dtype = torch.int8 if t.dtype == torch.int8 else torch.float32
-    return np.ascontiguousarray(t.detach().to("cpu", dtype).numpy())
+    return np.array(t.detach().to("cpu", dtype).numpy(), order="C")
 
 
 def _dense(lin: nn.Module) -> Dict[str, np.ndarray]:
@@ -397,3 +415,72 @@ def cmvn_from_jax(state: Sequence) -> CmvnState:
     mean, std, count = (torch.from_numpy(np.array(x, np.float32))
                         for x in state)
     return CmvnState(mean=mean, std=std, count=count)
+
+
+def _i32(x) -> np.ndarray:
+    return np.asarray(int(x), np.int32)
+
+
+def optax_opt_tree(mu: Any, nu: Any, *, count: int, sched_count: int,
+                   kind: str = "adamw", clip: bool = False,
+                   patience: int = 0, notfinite: int = 0,
+                   total_notfinite: int = 0, accum: int = 1,
+                   mini_step: int = 0, acc: Any = None) -> Dict[str, Any]:
+    """The optax state dict of the JAX trainer's optimizer chain (see the
+    module note) holding these values; ``mu``, ``nu`` and ``acc`` are
+    parameter-layout trees. ``count`` counts the applied updates,
+    ``sched_count`` the attempts (applied or skipped)."""
+    adam = {"count": _i32(count), "mu": mu, "nu": nu}
+    core = {"0": adam, "1": {}, "2": {}} if kind == "adamw" else \
+        {"0": adam, "1": {}}
+    inner = {"0": {}, "1": core} if clip else {"0": core}
+    if patience:
+        inner = {"notfinite_count": _i32(notfinite),
+                 "last_finite": np.asarray(int(notfinite) == 0),
+                 "total_notfinite": _i32(total_notfinite),
+                 "inner_state": inner}
+    tree = {"0": inner, "1": {"count": _i32(sched_count)}}
+    if accum > 1:
+        tree = {"mini_step": _i32(mini_step),
+                "gradient_step": _i32(sched_count),
+                "inner_opt_state": tree, "acc_grads": acc,
+                "skip_state": {}}
+    return tree
+
+
+def optax_opt_fields(raw: Mapping, *, kind: str = "adamw",
+                     clip: bool = False, patience: int = 0,
+                     accum: int = 1) -> Dict[str, Any]:
+    """The values ``optax_opt_tree`` writes, read from a checkpoint's
+    ``opt`` tree of the chain these settings build. Raises ``KeyError``
+    or ``ValueError`` for a tree of another chain."""
+    out: Dict[str, Any] = {"mini_step": 0, "acc": None}
+    node = raw
+    if accum > 1:
+        out["mini_step"] = int(node["mini_step"])
+        out["acc"] = node["acc_grads"]
+        node = node["inner_opt_state"]
+    elif "mini_step" in node:
+        raise ValueError("an accumulating chain's state for a chain "
+                         "without accumulation")
+    if set(node) != {"0", "1"}:
+        raise ValueError(f"not the trainer's chain: keys {sorted(node)}")
+    out["sched_count"] = int(node["1"]["count"])
+    inner = node["0"]
+    if patience:
+        out["notfinite"] = int(inner["notfinite_count"])
+        out["total_notfinite"] = int(inner["total_notfinite"])
+        inner = inner["inner_state"]
+    else:
+        if "notfinite_count" in inner:
+            raise ValueError("an apply_if_finite state for a chain "
+                             "without it")
+        out["notfinite"] = out["total_notfinite"] = 0
+    core = inner["1"] if clip else inner["0"]
+    if len(inner) != (2 if clip else 1) or \
+            len(core) != (3 if kind == "adamw" else 2):
+        raise ValueError("not the trainer's chain: clipping or the "
+                         "optimizer's kind differ")
+    adam = core["0"]
+    out.update(count=int(adam["count"]), mu=adam["mu"], nu=adam["nu"])
+    return out

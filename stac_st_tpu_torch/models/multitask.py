@@ -55,6 +55,7 @@ from .relpos import RelPosMultiHeadAttention
 from .conformer import ConformerEncoder
 from .settings import check_model
 from .transformer import (
+    MultiHeadAttention,
     NormalizedEmbedding,
     TransformerDecoder,
     TransformerEncoder,
@@ -149,6 +150,15 @@ class TransformerMultiTask(nn.Module):
         if self.encoder_module == "conformer":
             return self.encoder(h, bias, pad, mode, rng)
         return self.encoder(h, bias, mode, rng)
+
+    def use_attention_kernels(self, on: bool) -> None:
+        """Route the teacher-forced forward's key-padding attention
+        through the flash kernels (True, the default) or the plain matmul +
+        softmax path (False: the run option ``train_attn_kernel=off``).
+        Decoding is not affected."""
+        for m in self.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.use_kernel = bool(on)
 
     # ------------------------------------------------------------- forward
     def forward(self, src: torch.Tensor, tgt: torch.Tensor,

@@ -56,6 +56,11 @@ Full-sequence attention takes a ``mode``:
   other bias (decoder self-attention with its causal mask) takes matmul +
   softmax + dropout on the weights. Dropout also hits the FFN hidden
   layer and the residual branches, as in the reference.
+
+With ``use_kernel`` False (``TransformerMultiTask.use_attention_kernels``,
+the run option ``train_attn_kernel=off``) ``"train"`` and ``"eval"`` send
+every bias down the matmul + softmax path, dropout on the weights in
+training: the reference's XLA ``_attend`` route.
 """
 
 from __future__ import annotations
@@ -114,6 +119,9 @@ class MultiHeadAttention(nn.Module):
         self.scale = 1.0 / math.sqrt(self.head_dim)
         self.in_proj = nn.Linear(d_model, 3 * d_model)  # rows: q | k | v
         self.out_proj = nn.Linear(d_model, d_model)
+        # False: "train" and "eval" modes take the plain path too (run
+        # option train_attn_kernel=off)
+        self.use_kernel = True
 
     def _proj(self, x: torch.Tensor, part: int) -> torch.Tensor:
         if not isinstance(self.in_proj, nn.Linear):  # int8 cross in_proj
@@ -139,7 +147,7 @@ class MultiHeadAttention(nn.Module):
         v = self._proj(value, 2).reshape(B, Tk, H, Dh)
         key_pad_only = bias is None or (
             bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1)
-        if mode is not None and key_pad_only:
+        if mode is not None and key_pad_only and self.use_kernel:
             bias2 = None if bias is None else bias.reshape(B, Tk).contiguous()
             if mode == "train":
                 p = self.dropout

@@ -147,6 +147,7 @@ class OptState:
     sched_count: int = 0          # attempts so far (applied or skipped)
     acc: Optional[torch.Tensor] = None  # accumulated gradient mean
     mini_step: int = 0
+    total_notfinite: Optional[torch.Tensor] = None  # () int64: all skips
 
 
 class ChainOptimizer:
@@ -187,7 +188,8 @@ class ChainOptimizer:
             mu=torch.zeros_like(flat), nu=torch.zeros_like(flat),
             count=torch.zeros((), dtype=torch.float32, device=dev),
             notfinite=torch.zeros((), dtype=torch.int64, device=dev),
-            acc=torch.zeros_like(flat) if self.accum > 1 else None)
+            acc=torch.zeros_like(flat) if self.accum > 1 else None,
+            total_notfinite=torch.zeros((), dtype=torch.int64, device=dev))
 
     @torch.no_grad()
     def update(self, grad: torch.Tensor, st: OptState,
@@ -206,6 +208,7 @@ class ChainOptimizer:
         if self.patience:
             finite = torch.isfinite(g).all()
             st.notfinite = torch.where(finite, 0, st.notfinite + 1)
+            st.total_notfinite = st.total_notfinite + (~finite).long()
             apply = finite | (st.notfinite > self.patience)
         else:
             apply = torch.ones((), dtype=torch.bool, device=flat.device)

@@ -28,11 +28,17 @@ Checkpoints hold the trees both packages read, in the JAX layouts:
 ``std``, ``count``) and ``counters`` (``optimizer_step``, ``micro_step``,
 ``epoch``). The port's optimizer state goes in ``opt_torch``: Adam's
 ``mu``/``nu`` (flat, in the port's parameter order), ``count``,
-``notfinite``, ``sched_count``, the accumulator, and the state of the
-trainer's step-seed generator, so a resumed run draws the seeds the
-uninterrupted run would have drawn. The JAX package's ``opt`` tree (optax
-layout) is not read: resuming from a JAX checkpoint restores parameters,
-CMVN and counters, and the moments restart (logged). A checkpoint written
+``notfinite``, ``total_notfinite``, ``sched_count``, the accumulator, and
+the state of the trainer's step-seed generator, so a resumed run draws the
+seeds the uninterrupted run would have drawn. The same optimizer state
+also goes in ``opt``, the JAX trainer's optax layout
+(``interop.from_jax.optax_opt_tree``: moments and accumulator mapped to
+the parameters' JAX layout, the counts, the nonfinite counters and the
+schedule's count), so the JAX trainer resumes a port checkpoint with its
+moments; a checkpoint that holds ``opt`` and no ``opt_torch`` (the JAX
+trainer's) is read the same way. Only a tree of another chain (another
+accumulation, clipping, patience or optimizer) restarts the moments
+(logged). A checkpoint written
 inside epoch k (``preempted`` or ``timed``) also records in its meta the
 losses of the batches epoch k had trained (``epoch_losses``); the resumed
 run re-enters epoch k, reads those batches from the loader again without
@@ -61,9 +67,16 @@ files. A SIGTERM sets the rank's flag; a one-element all-reduce of the
 flags is dispatched every step and read one step late (all in flight are
 read at the epoch's end), so every rank stops after the same step.
 
-Not ported: pipeline stages (``pipeline_stages`` > 1 raises by name) and
-the ``train_attn_kernel`` / ``rng_impl`` run options (the port always
-takes its attention kernels).
+Run options: ``train_attn_kernel`` ``auto`` (the default) and ``on``
+send key-padding attention of the train step to ``flash_attention_train``
+and of the teacher-forced eval forward to ``flash_attention``, the JAX
+package's route on its accelerator; ``off`` sends both down the model's
+matmul + softmax path, dropout on the weights in training (the JAX
+package's XLA route). ``rng_impl`` takes every value the JAX trainer takes
+(``rbg``, ``unsafe_rbg``, ``threefry``, each also ``_scoped``); the port's
+one counter-based dropout RNG serves them all (logged once), and another
+value raises ``ValueError``. Pipeline stages are not ported
+(``pipeline_stages`` > 1 raises by name).
 """
 
 from __future__ import annotations
@@ -80,7 +93,12 @@ import torch
 
 from ..data.dataset import pad_batch_rows
 from ..device import resolve_device
-from ..interop.from_jax import load_jax_params, to_jax_params
+from ..interop.from_jax import (
+    load_jax_params,
+    optax_opt_fields,
+    optax_opt_tree,
+    to_jax_params,
+)
 from ..ops.cmvn import CmvnState
 from ..parallel.distributed import (
     barrier,
@@ -106,7 +124,28 @@ from .step import (
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["STTrainer"]
+__all__ = ["STTrainer", "RNG_IMPLS", "TRAIN_ATTN_KERNEL", "check_rng_impl"]
+
+#: the JAX trainer's rng_impl values (each also with ``_scoped``)
+RNG_IMPLS = ("rbg", "unsafe_rbg", "threefry")
+TRAIN_ATTN_KERNEL = ("auto", "on", "off")
+_rng_logged = False
+
+
+def check_rng_impl(value) -> str:
+    """The run option ``rng_impl``, lower-cased as the JAX trainer reads
+    it; ``ValueError`` where the JAX trainer would fail."""
+    global _rng_logged
+    impl = str(value).lower()
+    base = impl[:-len("_scoped")] if impl.endswith("_scoped") else impl
+    if base not in RNG_IMPLS:
+        raise ValueError(f"rng_impl={value!r}: expected one of "
+                         f"{', '.join(RNG_IMPLS)}, each also with _scoped")
+    if not _rng_logged:
+        _rng_logged = True
+        logger.info("rng_impl=%s: the port's counter-based dropout RNG "
+                    "serves every rng_impl value", impl)
+    return impl
 
 
 def _specaug_opts(hparams) -> Optional[tuple]:
@@ -138,6 +177,12 @@ class STTrainer:
             raise ValueError(
                 f"pipeline_stages={stages}: the port trains data-parallel "
                 f"only (pipeline stages are not ported)")
+        self.rng_impl = check_rng_impl(self.run_opts.get("rng_impl", "rbg"))
+        tak = str(self.run_opts.get("train_attn_kernel", "auto")).lower()
+        if tak not in TRAIN_ATTN_KERNEL:
+            raise ValueError(f"train_attn_kernel={tak!r}: expected one of "
+                             f"{', '.join(TRAIN_ATTN_KERNEL)}")
+        self.attn_kernel = tak != "off"
         self.dp = data_parallel(self.run_opts.get("data_parallel_count", -1))
         # rows of a global batch are padded to a multiple of the world size
         self._row_multiple = self.dp.world if self.dp is not None else 1
@@ -168,6 +213,8 @@ class STTrainer:
                           else None),
             dp=self.dp,
         )
+        if hasattr(self.cfg.transformer, "use_attention_kernels"):
+            self.cfg.transformer.use_attention_kernels(self.attn_kernel)
         self.normalize = modules.get("normalize")
         scheduler = h.get("lr_scheduler")
         factory = opt_class if opt_class is not None else h.get("Adam")
@@ -247,8 +294,10 @@ class STTrainer:
         self._load_model_tree(ckpt.load("model"))
         if "opt_torch" in names and self.tx is not None:
             self._load_opt_tree(ckpt.load("opt_torch"))
+        elif "opt" in names and self.tx is not None:
+            self._load_optax_tree(ckpt.load("opt"), ckpt.path)
         elif self.tx is not None:
-            logger.warning("%s holds no port optimizer state: Adam's "
+            logger.warning("%s holds no optimizer state: Adam's "
                            "moments restart", ckpt.path)
         if "normalizer" in names:
             raw = ckpt.load("normalizer")
@@ -283,7 +332,69 @@ class STTrainer:
         st.sched_count = int(raw["sched_count"])
         st.mini_step = int(raw["mini_step"])
         st.acc = t(raw["acc"]) if "acc" in raw else None
+        if "total_notfinite" in raw:
+            st.total_notfinite = t(raw["total_notfinite"])
         self.generator.set_state(torch.from_numpy(np.array(raw["generator"])))
+
+    def _chain(self) -> Dict[str, Any]:
+        tx = self.tx
+        return dict(kind=tx.kind, clip=bool(tx.max_grad_norm),
+                    patience=tx.patience, accum=tx.accum)
+
+    @torch.no_grad()
+    def _as_jax_tree(self, vec: torch.Tensor) -> Dict[str, Any]:
+        """A flat vector in the parameters' order as a tree in their
+        JAX layout (the parameters' own mapping, through their buffer)."""
+        flat = self.state.params.flat
+        saved = flat.clone()
+        flat.copy_(vec)
+        try:
+            cfg = self.cfg
+            return to_jax_params(cfg.cnn, cfg.transformer, cfg.seq_lin,
+                                 cfg.ctc_lin)
+        finally:
+            flat.copy_(saved)
+
+    @torch.no_grad()
+    def _as_flat(self, tree) -> torch.Tensor:
+        """The inverse of ``_as_jax_tree``."""
+        flat = self.state.params.flat
+        saved = flat.clone()
+        try:
+            self._load_model_tree(tree)
+            return flat.clone()
+        finally:
+            flat.copy_(saved)
+
+    def _load_optax_tree(self, raw, path: str) -> None:
+        """The JAX trainer's ``opt`` tree (optax layout) into the port's
+        optimizer state."""
+        st, dev = self.state.opt_state, self.device
+        try:
+            f = optax_opt_fields(raw, **self._chain())
+            mu, nu = self._as_flat(f["mu"]), self._as_flat(f["nu"])
+            acc = None if f["acc"] is None else self._as_flat(f["acc"])
+        except (KeyError, ValueError, TypeError) as err:
+            logger.warning("%s: its optax state is another chain's (%s): "
+                           "Adam's moments restart", path, err)
+            return
+        st.mu, st.nu, st.acc = mu, nu, acc
+        st.count = torch.tensor(float(f["count"]), device=dev)
+        st.notfinite = torch.tensor(f["notfinite"], device=dev)
+        st.total_notfinite = torch.tensor(f["total_notfinite"], device=dev)
+        st.sched_count, st.mini_step = f["sched_count"], f["mini_step"]
+
+    def _optax_tree(self) -> Dict[str, Any]:
+        """The optimizer state in the JAX trainer's ``opt`` layout."""
+        st = self.state.opt_state
+        return optax_opt_tree(
+            self._as_jax_tree(st.mu), self._as_jax_tree(st.nu),
+            count=int(st.count), sched_count=st.sched_count,
+            notfinite=int(st.notfinite),
+            total_notfinite=int(st.total_notfinite),
+            mini_step=st.mini_step,
+            acc=None if st.acc is None else self._as_jax_tree(st.acc),
+            **self._chain())
 
     def _cleanup_timed_checkpoints(self, keep: int = 1) -> None:
         """Keep only the newest `keep` timed checkpoints (ACC-keyed saves
@@ -310,12 +421,15 @@ class STTrainer:
         st = state.opt_state
         if st is not None:
             opt = {"mu": st.mu, "nu": st.nu, "count": st.count,
-                   "notfinite": st.notfinite, "sched_count": st.sched_count,
+                   "notfinite": st.notfinite,
+                   "total_notfinite": st.total_notfinite,
+                   "sched_count": st.sched_count,
                    "mini_step": st.mini_step,
                    "generator": self.generator.get_state()}
             if st.acc is not None:
                 opt["acc"] = st.acc
             trees["opt_torch"] = opt
+            trees["opt"] = self._optax_tree()
         return trees
 
     # --------------------------------------------------------------- batches

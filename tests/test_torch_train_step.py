@@ -7,7 +7,8 @@ functions (fp32, atol 1e-5 unless stated); then the slice: the JAX
 CNN (8, 8), 16 mels, B2 x 0.5 s, U8), fp32, dropout 0, accumulation 2,
 clipping at 1.0, five microsteps with a NaN boundary batch, the JAX step
 running its Pallas training kernels in interpret mode (built once; the
-port runs their plain versions). Tolerances are
+port runs their plain versions; under xdist the JAX half is built once
+per run and shared through a file lock). Tolerances are
 test_train_oracle's, for its reasons: per-step loss rtol 2e-5 (fp32
 forward noise ~1e-6), gradients atol 2e-5 x the largest gradient with rtol
 2e-3, parameters rtol 5e-3 with atol 5e-4 (per-step noise through AdamW,
@@ -16,11 +17,17 @@ path is held against the port by the eval forward (and against the Pallas
 path by the JAX package's own tests). JAX steps are built once per module.
 """
 
+import os
+import pickle
+from functools import partial
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from filelock import FileLock
 
 from stac_st_tpu.models import ConvolutionFrontEnd, LinearHead
 from stac_st_tpu.models import TransformerMultiTask
@@ -316,14 +323,19 @@ def _assert_params(got: dict, want: dict, rtol, atol):
                                    atol=atol, err_msg=name)
 
 
-@pytest.fixture(scope="module")
-def slice_run():
-    """Five microsteps of both steps (accumulation 2; batch 4 is NaN, a
-    group boundary), and the microbatch-1 gradients of both."""
+def _slice_batches():
     rng = np.random.default_rng(2024)
     mean, std = _cmvn(rng)
     batches = [_make_batch(rng) for _ in range(5)]
     batches[3]["sig"][0, 100] = np.nan
+    return batches, mean, std
+
+
+def _jax_slice_reference():
+    """The JAX half of ``slice_run`` as host arrays: five microsteps of
+    the JAX step with its Pallas training kernels in interpret mode, and
+    the microbatch-1 gradients."""
+    batches, mean, std = _slice_batches()
     cfg_j = _jax_cfg()
     params_j = _jax_params(cfg_j)
     sched = JSched(lr=LR, **SCHED)
@@ -357,7 +369,39 @@ def slice_run():
                                                 state_j.opt_state.acc_grads)
     finally:
         jpallas.disable()
+    host = partial(jax.tree_util.tree_map, np.asarray)
+    return dict(params_j=host(params_j), grad_j=grad_j,
+                state_j=SimpleNamespace(
+                    params=host(state_j.params),
+                    optimizer_step=int(state_j.optimizer_step),
+                    micro_step=int(state_j.micro_step)),
+                losses_j=losses_j, norms_j=norms_j)
 
+
+def built_once(tmp_path_factory, name, build):
+    """``build()`` (host data) once per test run: under xdist the first
+    worker to ask builds it under a file lock in the run's shared
+    temporary directory and the others read it."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return build()
+    path = tmp_path_factory.getbasetemp().parent / f"{name}.pkl"
+    with FileLock(str(path) + ".lock"):
+        if path.is_file():
+            return pickle.loads(path.read_bytes())
+        ref = build()
+        path.write_bytes(pickle.dumps(ref))
+        return ref
+
+
+@pytest.fixture(scope="module")
+def slice_run(tmp_path_factory):
+    """Five microsteps of both steps (accumulation 2; batch 4 is NaN, a
+    group boundary), and the microbatch-1 gradients of both."""
+    batches, mean, std = _slice_batches()
+    ref = built_once(tmp_path_factory, "torch_slice_run",
+                     _jax_slice_reference)
+    params_j = ref["params_j"]
+    cfg_j = _jax_cfg()
     cfg_p = _port_cfg(_port_modules(params_j))
     tx_p = pstep.make_optimizer(
         AdamW(lr=LR), WarmCoolDecayLRSchedule(lr=LR, **SCHED).value, ACCUM,
@@ -371,10 +415,9 @@ def slice_run():
         state_p, m = step_p(state_p, _port_batch(b), 0)
         losses_p.append(float(m["loss"]))
         norms_p.append(float(m["grad_norm"]))
-    return dict(params_j=params_j, grad_j=grad_j, state_j=state_j,
-                losses_j=losses_j, norms_j=norms_j, grad_p=grad_p,
-                state_p=state_p, losses_p=losses_p, norms_p=norms_p,
-                batches=batches, mean=mean, std=std, cfg_j=cfg_j,
+    return dict(ref, grad_p=grad_p, state_p=state_p, losses_p=losses_p,
+                norms_p=norms_p, batches=batches, mean=mean, std=std,
+                cfg_j=cfg_j,
                 # one jitted JAX eval forward for every test of the module
                 eval_j=jstep.make_eval_forward(cfg_j))
 
