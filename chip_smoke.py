@@ -290,11 +290,35 @@ Phases, each printed as one JSON line:
    protocol the ragged self, anc and cross kernels, every number finite.
    Each stage's seconds and launches by kernel and variant (stage lines
    in chiprun_out/protocol_stages.jsonl, the recipe's output in
-   chiprun_out/protocol_train_log.txt). No bound on quality.
+   chiprun_out/protocol_train_log.txt). No bound on quality;
+14. reference_io, run after protocol: the reference's own data and
+   checkpoints. (b) A seeded raw Fisher/CALLHOME tree in the LDC layouts
+   (stac_st_tpu_torch/examples/ldc_tree.py: 8 conversations of each
+   corpus, 3 min each, two-channel 8 kHz mu-law SPHERE, overlapping
+   turns) through the port's prepare_fisher_turns and
+   prepare_callhome_turns at 30 s and the driver's training mixture:
+   windows, [turn] and [xt] counts (both must occur), audio seconds and
+   the seconds each took. (a) The native library (csrc/stacnative.cpp,
+   g++) built into an empty folder (seconds), its PCM16 decoder on the
+   prepared wavs, its mu-law decoder on the SPHERE files and its BPE
+   encoder on the manifests' texts, each against the numpy / pure-Python
+   version (ms an item, bitwise equal ids and samples), and the loader's
+   audio-s/s over the mixture at 1 and 4 workers: findings, not claims.
+   (c) STTrainer.fit of the flagship (bf16, seeded) over the mixture for
+   20 updates: finite losses, 18 launches a step of each training flash
+   kernel, all wgmma. (d) The trained modules exported to the SpeechBrain
+   layout (model.ckpt, normalizer.ckpt), imported back with
+   tools.import_sb_ckpt (save_imported's checkpoint) and loaded with
+   STEngine.from_experiment: parameters and normalizer bitwise the
+   trained ones, an fp32 B2 x 4 s beam-10 search's texts equal to an
+   engine on the trained modules', then a warm bf16 B16 x 10 s beam-10
+   translate (anc and cross exactly 6 x its decoder steps, split) and a
+   beam-1 translate of 2 x 10 s (self and cross likewise), each with its
+   RTFx.
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through, and its
-launches in the recipe, serve and protocol phases; the ragged self forms
+launches in the recipe, serve, protocol and reference_io phases; the ragged self forms
 are lines of their own, their launches the serve phase's; the int8
 kernels' launches are phase int8's; ctc_prefix_score's those of phase
 search_options' joint CTC search with the float cache),
@@ -4570,6 +4594,301 @@ def protocol_phase(torch, kernels, smi: str, root: str) -> dict:
     return rec
 
 
+# the reference_io phase: the reference's own data and checkpoints. A
+# seeded raw Fisher/CALLHOME tree (REF_CONVS conversations of each corpus,
+# REF_CONV_S each, two-channel 8 kHz mu-law SPHERE) through the port's
+# multi-turn preparation at REF_TURN_S, the flagship trained REF_UPDATES
+# updates over its manifests, exported to the SpeechBrain layout, imported
+# back and served
+REF_CONVS, REF_CONV_S, REF_TURN_S, REF_UPDATES, REF_SEED = 8, 180.0, 30, 20, 18
+REF_CHECK_S, REF_CHECK_TOKENS = 4.0, 48  # the fp32 texts check, B2
+
+
+class Capped:
+    """A BatchLoader that stops handing out batches after ``n`` of them,
+    across epochs."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.left = loader, n
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        for batch in self.loader:
+            if self.left <= 0:
+                return
+            self.left -= 1
+            yield batch
+
+
+def _encode_plain(enc, text):
+    """``BpeEncoder.encode_as_ids`` with the merge loop in pure Python."""
+    from stac_st_tpu_torch.tokenizer.bpe import normalize_text
+
+    ids = []
+    for segment, is_uds in enc._split_user_defined(normalize_text(text)):
+        ids += ([enc.piece_to_id_map[segment]] if is_uds
+                else enc._bpe_segment_plain(segment))
+    return ids
+
+
+def _per_item_ms(fn, items) -> float:
+    t0 = time.perf_counter()
+    for x in items:
+        fn(x)
+    return (time.perf_counter() - t0) / len(items) * 1e3
+
+
+def _native_rates(base, tree, wav_files, texts, enc) -> dict:
+    """The library's build into an empty folder, and host ms per item of
+    its decoders and BPE encoder against the numpy / pure-Python versions
+    on this phase's data, bitwise equal."""
+    from stac_st_tpu_torch import native
+    from stac_st_tpu_torch.data import audio as PA
+
+    first_use = native.build_seconds
+    t0 = time.perf_counter()
+    native.build(os.path.join(base, "native_build"))
+    build_s = time.perf_counter() - t0
+    pcm = []
+    for path in wav_files:
+        with open(path, "rb") as f:
+            pcm.append(f.read()[44:])  # write_wav's 44-byte header
+    ulaw = []
+    for name in sorted(os.listdir(tree["speech"])):
+        with open(os.path.join(tree["speech"], name), "rb") as f:
+            ulaw.append(f.read()[1024:])
+    for data in pcm:
+        check(np.array_equal(PA._pcm16_bytes(data).view(np.uint32),
+                             PA._pcm16_bytes_plain(data).view(np.uint32)),
+              "native PCM16 decode differs from numpy")
+    for data in ulaw:
+        check(np.array_equal(PA._ulaw_bytes(data).view(np.uint32),
+                             PA._ulaw_bytes_plain(data).view(np.uint32)),
+              "native mu-law decode differs from numpy")
+    for text in texts:
+        check(enc.encode_as_ids(text) == _encode_plain(enc, text),
+              f"native BPE ids differ: {text!r}")
+    return {
+        "native_build_s": build_s, "native_first_use_build_s": first_use,
+        "pcm16_utterances": len(pcm),
+        "pcm16_ms_per_utt": {
+            "native": _per_item_ms(PA._pcm16_bytes, pcm),
+            "plain": _per_item_ms(PA._pcm16_bytes_plain, pcm)},
+        "ulaw_conversations": len(ulaw),
+        "ulaw_ms_per_conversation": {
+            "native": _per_item_ms(PA._ulaw_bytes, ulaw),
+            "plain": _per_item_ms(PA._ulaw_bytes_plain, ulaw)},
+        "bpe_texts": len(texts),
+        "bpe_ms_per_utt": {
+            "native": _per_item_ms(enc.encode_as_ids, texts),
+            "plain": _per_item_ms(lambda t: _encode_plain(enc, t), texts)},
+        "bitwise_equal": True}
+
+
+def _ref_prep(base) -> tuple:
+    """The raw tree, the port's multi-turn preparation of both corpora and
+    the training mixture; (tree, data folder, mixture manifest, record)."""
+    from stac_st_tpu_torch.datasets.fisher_callhome import (
+        run_data_preparation_turns as RT,
+    )
+    from stac_st_tpu_torch.examples.ldc_tree import make_ldc_tree
+    from stac_st_tpu_torch.prep.callhome import prepare_callhome_turns
+    from stac_st_tpu_torch.prep.fisher import prepare_fisher_turns
+
+    t0 = time.perf_counter()
+    tree = make_ldc_tree(os.path.join(base, "ldc"), n_fisher=REF_CONVS,
+                         n_callhome=REF_CONVS, seconds=REF_CONV_S,
+                         seed=REF_SEED, fisher_splits=("train",),
+                         callhome_splits=("train",))
+    tree["speech"] = os.path.join(tree["raw"], "LDC2010T04", "fisher_spa",
+                                  "data", "speech")
+    tree_s = time.perf_counter() - t0
+    out = os.path.join(base, "data")
+    t0 = time.perf_counter()
+    prepare_fisher_turns(tree["raw"], out, REF_TURN_S,
+                         corpus_path=tree["corpus"], datasets=["train"])
+    t1 = time.perf_counter()
+    prepare_callhome_turns(tree["raw"], out, REF_TURN_S,
+                           corpus_path=tree["corpus"], datasets=["train"])
+    t2 = time.perf_counter()
+    parts = [os.path.join(out, f"{split}-{REF_TURN_S}s", f"data-turns-{t}.json")
+             for split in ("train", "callhome-train") for t in ("asr", "st")]
+    mix = "fisher-callhome-train-30s"
+    RT.merge(out, mix, parts)
+    manifest = os.path.join(out, mix, "data-turns-asr-st.json")
+    rec = {"tree": {"conversations": 2 * REF_CONVS,
+                    "conversation_s": REF_CONV_S,
+                    "mapped_utterances": tree["utterances"],
+                    "write_s": tree_s},
+           "prepare_fisher_turns_s": t1 - t0,
+           "prepare_callhome_turns_s": t2 - t1, "turn_s": REF_TURN_S}
+    for name, split in (("fisher", "train"), ("callhome", "callhome-train")):
+        with open(os.path.join(out, f"{split}-{REF_TURN_S}s",
+                               "data-turns-st.json")) as f:
+            data = json.load(f)
+        text = " ".join(e["transcription"] for e in data.values())
+        rec[name] = {"utterances": len(data),
+                     "turn": text.count("[turn]"), "xt": text.count("[xt]"),
+                     "audio_s": float(sum(e["duration"]
+                                          for e in data.values()))}
+        check(len(data) > 0 and rec[name]["turn"] > 0 and rec[name]["xt"] > 0,
+              f"{name} turns: {rec[name]}")
+    return tree, out, manifest, rec
+
+
+def reference_io_phase(torch, kernels, smi: str, root: str) -> dict:
+    """Phase reference_io (see the module docstring): the raw Fisher/
+    CALLHOME tree through the port's preparation, the native library on its
+    data, the flagship trained over the manifests, and the SpeechBrain
+    export, import and serving of the trained model."""
+    import copy
+
+    from stac_st_tpu_torch.interop import sb_export
+    from stac_st_tpu_torch.interop.from_jax import to_jax_params
+    from stac_st_tpu_torch.ops.cmvn import CmvnState
+    from stac_st_tpu_torch.serving import STEngine
+    from stac_st_tpu_torch.tokenizer import SentencePieceProcessor, train_bpe
+    from stac_st_tpu_torch.tools import import_sb_ckpt
+    from stac_st_tpu_torch.tools.eval_flagship import _StepCounter
+
+    base = os.path.join(root, "reference_io")
+    t_phase = time.perf_counter()
+    tree, out, manifest, prep = _ref_prep(base)
+    rec = {"phase": "reference_io", "gpu": smi, "prep": prep}
+    with open(manifest) as f:
+        entries = json.load(f)
+    lines = [e["transcription_and_translation"] for e in entries.values()]
+    t0 = time.perf_counter()
+    tok_path = os.path.join(base, "bpe.model")
+    train_bpe(lines, vocab_size=600, user_defined_symbols=[
+        "[es]", "[en]", "[turn]", "[xt]"]).save(tok_path)
+    tok = SentencePieceProcessor(tok_path)
+    rec["tokenizer"] = {"vocab": tok.get_piece_size(),
+                        "train_s": time.perf_counter() - t0}
+    texts = [t for e in entries.values()
+             for t in (e["transcription"], e["translation_0"])]
+    wav_files = sorted({e["wav"] for e in entries.values()})
+    rec["native"] = _native_rates(base, tree, wav_files, texts, tok._enc())
+    loader_rate(corpus_loader(manifest, out, tok, None, 4))  # page cache
+    rec["native"]["loader_audio_s_per_s"] = {
+        f"workers{w}": loader_rate(corpus_loader(manifest, out, tok, None, w))
+        for w in (1, 4)}
+
+    # (c) the flagship over the prepared manifests
+    loader = corpus_loader(manifest, out, tok, None, 4)
+    trainer = _trainer(torch, flagship(REF_SEED), bf16=True)
+    feeds, losses, epoch = Capped(loader, REF_UPDATES), [], 0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    while feeds.left > 0:
+        epoch += 1
+        trainer.fit([epoch], feeds)
+        losses += [float(x) for x in trainer.epoch_losses]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(kernels.launches)
+    check(trainer.state.optimizer_step == REF_UPDATES
+          and len(losses) == REF_UPDATES and all(np.isfinite(losses)),
+          f"fit: {trainer.state.optimizer_step} updates, losses {losses}")
+    for name in FLASH[1:]:
+        check(fit_launches.get(name, 0) == 18 * REF_UPDATES
+              and fit_launches.get(f"{name}/{TC}", 0) == 18 * REF_UPDATES,
+              f"{name}: {fit_launches}, want 18 a step on {TC}")
+    rec["train"] = {"updates": REF_UPDATES, "epochs": epoch, "fit_s": fit_s,
+                    "batches_per_epoch": len(loader), "losses": losses,
+                    "launches": fit_launches}
+
+    # (d) SpeechBrain export, import, save_imported, serving
+    cfg = trainer.cfg
+    trained_mods = (cfg.cnn, cfg.transformer, cfg.seq_lin, cfg.ctc_lin)
+    trained = to_jax_params(*trained_mods)
+    sb_dir, exp = os.path.join(base, "sb"), os.path.join(base, "exp")
+    os.makedirs(sb_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    sd = sb_export.export_modules(*trained_mods)
+    torch.save({k: torch.from_numpy(v.copy()) for k, v in sd.items()},
+               os.path.join(sb_dir, "model.ckpt"))
+    stats = sb_export.export_normalizer_dict(trainer.state.cmvn)
+    torch.save({k: torch.from_numpy(v.copy()) if isinstance(v, np.ndarray)
+                else v for k, v in stats.items()},
+               os.path.join(sb_dir, "normalizer.ckpt"))
+    check(import_sb_ckpt.main([sb_dir, os.path.join(exp, "save")]) == 0,
+          "import_sb_ckpt")
+    sb_s = time.perf_counter() - t0
+
+    def served_engine(**kw):
+        return STEngine.from_experiment(exp, tok_path, device="cuda", **kw)
+
+    eng32 = served_engine(bf16=False, beam_size=BEAM,
+                          max_decode_tokens=REF_CHECK_TOKENS)
+    check(trees_equal(to_jax_params(eng32._cnn, eng32._transformer,
+                                    eng32.searcher.seq_lin, eng32._ctc_lin),
+                      trained), "imported parameters differ from the trained")
+    cmvn = CmvnState(*(t.detach().cpu() for t in trainer.state.cmvn))
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(eng32.cmvn, cmvn)),
+          "imported normalizer differs from the trained")
+    ref32 = STEngine(*(copy.deepcopy(m) for m in (cfg.transformer, cfg.cnn,
+                                                  cfg.seq_lin, cfg.ctc_lin)),
+                     cmvn, tok, device="cuda", bf16=False, beam_size=BEAM,
+                     max_decode_tokens=REF_CHECK_TOKENS)
+    rng = np.random.default_rng(REF_SEED)
+    check_wavs = [(rng.standard_normal(int(REF_CHECK_S * SR)) * 3000)
+                  .astype(np.int16) for _ in range(2)]
+    texts_imported = eng32.translate(check_wavs)
+    texts_trained = ref32.translate(check_wavs)
+    check(texts_imported == texts_trained,
+          f"fp32 texts: imported {texts_imported} trained {texts_trained}")
+    del eng32, ref32
+
+    wavs = serving_wavs()
+    served = {}
+    for label, beam, batch in (("beam10", BEAM, wavs), ("beam1", 1, wavs[:2])):
+        eng = served_engine(bf16=True, beam_size=beam, max_decode_tokens=192,
+                            transfer_dtype="int16")
+        eng.translate(batch)  # first call: set-up
+        torch.cuda.synchronize()
+        counter = _StepCounter(eng)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = eng.translate(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items()
+                    if k.startswith("decode_")}
+        counter.restore()
+        check(len(got) == len(batch) and all(isinstance(t, str) for t in got),
+              f"{label} texts")
+        names = (("decode_self_attention_anc", "decode_cross_attention")
+                 if beam > 1 else ("decode_self_attention",
+                                   "decode_cross_attention"))
+        want = {f"{n}{v}": 6 * counter.steps for n in names
+                for v in ("", f"/{SPLIT}")}
+        check(launches == want, f"{label}: launches {launches}, want {want}")
+        served[label] = {"batch": len(batch), "seconds": SECONDS,
+                         "warm_s": wall,
+                         "rtfx": len(batch) * SECONDS / wall,
+                         "decode_steps": counter.steps,
+                         "searches": counter.searches,
+                         "launches": launches}
+        del eng
+    rec["sb"] = {"parameters": int(sum(v.size for v in sd.values())),
+                 "export_import_s": sb_s, "parameters_bitwise": True,
+                 "fp32_texts_equal": True, "fp32_check": {
+                     "batch": 2, "seconds": REF_CHECK_S, "beam": BEAM,
+                     "max_decode_tokens": REF_CHECK_TOKENS},
+                 "served": served}
+    total = dict(fit_launches)
+    for call in served.values():
+        for name, n in call["launches"].items():
+            total[name] = total.get(name, 0) + n
+    rec["launches"] = total
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 def card_vs_cpu_phase(torch, kernels):
     """The port on the card against the port on the CPU, fp32, 2 x 2 s:
     a decode step's logits, the attention-only search's tokens and
@@ -4698,6 +5017,7 @@ def main() -> int:
         encoders_phase(torch, kernels, smi, root)
         data_parallel_phase(torch, kernels, smi, root)
         protocol = protocol_phase(torch, kernels, smi, root)
+        ref_io = reference_io_phase(torch, kernels, smi, root)
     card_vs_cpu_phase(torch, kernels)
     card_vs_cpu_train_phase(torch)
 
@@ -4718,6 +5038,7 @@ def main() -> int:
             "recipe_launches": recipe["launches"].get(rec["name"], 0),
             "serve_launches": served["launches"].get(rec["name"], 0),
             "protocol_launches": protocol["launches"].get(rec["name"], 0),
+            "reference_io_launches": ref_io["launches"].get(rec["name"], 0),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
@@ -4735,6 +5056,7 @@ def main() -> int:
             "launches": train_launches.get(rec["name"], 0),
             "recipe_launches": recipe["launches"].get(rec["name"], 0),
             "protocol_launches": protocol["launches"].get(rec["name"], 0),
+            "reference_io_launches": ref_io["launches"].get(rec["name"], 0),
             "max_abs_err": max(v for k, v in rec["abs_err"].items()
                                if "bfloat16" in k),
             "ms": enc["ms"], "plain_ms": enc["plain_ms"],

@@ -6,10 +6,14 @@ of ``stac_st_tpu/data/audio.py``).
 * resampling: scipy's polyphase filter (Kaiser-windowed), through
   :func:`..data.resample.fast_resample_poly` for one channel.
 
-These are the numpy paths that the JAX package calls authoritative; its
-native decoders (``_stacnative``) and the compressed-container decoder
-(``_stacaudio``) are not ported, so a compressed file raises
-``ValueError`` as the JAX package does when ``_stacaudio`` is not built.
+The PCM16 (either byte order), µ-law and A-law byte decoders run in the
+port's native library (``native.py``, ``csrc/stacnative.cpp``), as the
+JAX package runs them in its C++ extension when that is built; their
+output is bitwise the numpy versions' (``_*_bytes_plain``, which only the
+tests call). The library's resampler is not on this path: the JAX reader
+resamples with numpy too. Compressed containers (the JAX package's
+ffmpeg extension) are not ported, so a compressed file raises
+``ValueError`` as the JAX package does when that extension is not built.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from .resample import fast_resample_poly
 
 __all__ = ["read_audio", "read_wav", "read_sphere", "write_wav", "resample"]
@@ -55,17 +60,23 @@ def _pcm_to_float(x: np.ndarray, bits: int) -> np.ndarray:
     return (x.astype(np.float32) / float(2 ** (bits - 1))).clip(-1.0, 1.0)
 
 
-def _pcm16_bytes(data: bytes, big_endian: bool = False) -> np.ndarray:
+# the numpy versions, which the native decoders below equal bitwise
+def _pcm16_bytes_plain(data: bytes, big_endian: bool = False) -> np.ndarray:
     dtype = ">i2" if big_endian else "<i2"
     return _pcm_to_float(np.frombuffer(data, dtype), 16)
 
 
-def _ulaw_bytes(data: bytes) -> np.ndarray:
+def _ulaw_bytes_plain(data: bytes) -> np.ndarray:
     return _pcm_to_float(_ulaw_decode(np.frombuffer(data, np.uint8)), 16)
 
 
-def _alaw_bytes(data: bytes) -> np.ndarray:
+def _alaw_bytes_plain(data: bytes) -> np.ndarray:
     return _pcm_to_float(_alaw_decode(np.frombuffer(data, np.uint8)), 16)
+
+
+_pcm16_bytes = native.pcm16_to_float
+_ulaw_bytes = native.ulaw_to_float
+_alaw_bytes = native.alaw_to_float
 
 
 # ----------------------------------------------------------------------- WAV

@@ -17,21 +17,36 @@ which ``STEngine.long_form`` runs before it decodes:
   log-energy through a sigmoid); any frame-probability function can be
   passed instead.
 
-The corpus-preparation rest of the reference module (segmentation YAML
-files, wav masking, resegmented manifests) is not ported.
+The corpus-preparation rest follows: one wav through either method to
+SHAS's segment dicts (:func:`pause_based_segmentation`,
+:func:`shas_segmentation`), the SHAS YAML interchange file,
+:func:`mask_wav_files` (every sample outside the ground-truth utterances of
+the manifest's keys zeroed) and :func:`create_json_and_segment` (the YAML's
+segments filtered against the ground-truth span, cut at 16 kHz and written
+as ``data-resegmented-{asr,st}.json`` in the reference's schema). The
+output is byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 from collections import deque
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ..data.audio import read_audio, write_wav
+
+logger = logging.getLogger(__name__)
+
 __all__ = [
     "EnergyFrameVAD", "webrtc_vad_or_fallback", "frame_generator",
-    "vad_collector", "pause_based_segments", "speech_probabilities", "pdac",
-    "shas_segments",
+    "vad_collector", "pause_based_segments", "pause_based_segmentation",
+    "speech_probabilities", "pdac", "shas_segments", "shas_segmentation",
+    "mask_wav_files", "create_json_and_segment", "write_segmentation_yaml",
+    "read_segmentation_yaml",
 ]
 
 SAMPLERATE = 16000
@@ -150,6 +165,20 @@ def pause_based_segments(
     return vad_collector(frames, vad, sample_rate, frame_ms, padding_ms)
 
 
+def pause_based_segmentation(
+    wav_path: str,
+    frame_ms: int = 10,
+    aggressiveness: int = 1,
+    padding_ms: int = 300,
+    vad=None,
+) -> List[Dict]:
+    """One wav → SHAS-style segment dicts (offset/duration/wav), the
+    pause-based method of ``run_shas_segmentation.sh:113-121``."""
+    samples, rate = read_audio(wav_path, sample_rate=SAMPLERATE)
+    return _segment_dicts(wav_path, pause_based_segments(
+        samples, rate, frame_ms, aggressiveness, padding_ms, vad))
+
+
 # ---------------------------------------------------------------------------
 # SHAS pDAC
 # ---------------------------------------------------------------------------
@@ -240,3 +269,160 @@ def shas_segments(
         np.asarray(probs), dac_max_segment_length, dac_min_segment_length,
         frame_s, threshold,
     )
+
+
+def shas_segmentation(
+    wav_path: str,
+    dac_min_segment_length: float,
+    dac_max_segment_length: float,
+    prob_fn: Callable[[np.ndarray, int], np.ndarray] = None,
+    frame_s: float = 0.02,
+    threshold: float = 0.5,
+) -> List[Dict]:
+    """One wav → SHAS segment dicts over the DAC min/max constraint
+    (``run_shas_segmentation.sh:217-224``)."""
+    samples, rate = read_audio(wav_path, sample_rate=SAMPLERATE)
+    return _segment_dicts(wav_path, shas_segments(
+        samples, rate, dac_min_segment_length, dac_max_segment_length,
+        prob_fn, frame_s, threshold))
+
+
+def _segment_dicts(wav_path: str, segments) -> List[Dict]:
+    """(offset, duration) pairs as the SHAS YAML's segment dicts."""
+    name = os.path.basename(wav_path)
+    return [{"duration": round(dur, 6), "offset": round(off, 6), "rW": 0,
+             "uW": 0, "speaker_id": "NA", "wav": name}
+            for off, dur in segments]
+
+
+# ---------------------------------------------------------------------------
+# YAML IO (SHAS interchange format)
+# ---------------------------------------------------------------------------
+
+def write_segmentation_yaml(segments: List[Dict], path: str) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(segments, f, default_flow_style=True)
+
+
+def read_segmentation_yaml(path: str) -> List[Dict]:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+# ---------------------------------------------------------------------------
+# exact ports: mask_wav_files / create_json_and_segment
+# ---------------------------------------------------------------------------
+
+def mask_wav_files(ground_truth_json: str, input_folder: str,
+                   output_folder: str) -> None:
+    """Zero un-annotated audio (exact ``mask_wav_files.py`` semantics: the
+    centisecond fields of each manifest KEY define keep regions in samples
+    at 16 kHz; output is mono 16-bit PCM)."""
+    with open(ground_truth_json) as f:
+        dataset_gt = json.load(f)
+    start_end: Dict[str, List[List[int]]] = {}
+    for key in dataset_gt:
+        _id = key.split("-")[0]
+        start_frame = int((int(key.split("-")[2]) / 100) * SAMPLERATE)
+        end_frame = int((float(key.split("-")[3]) / 100) * SAMPLERATE)
+        start_end.setdefault(_id, [[start_frame, end_frame]])
+        start_end[_id].append([start_frame, end_frame])
+
+    os.makedirs(output_folder, exist_ok=True)
+    for utt_id, regions in start_end.items():
+        wav_path = os.path.join(input_folder, f"{utt_id}.wav")
+        samples, rate = read_audio(wav_path)
+        mask = np.zeros(len(samples), np.float32)
+        for lo, hi in regions:
+            mask[lo:hi] = 1.0
+        write_wav(
+            os.path.join(output_folder, f"{utt_id}.wav"),
+            samples * mask, rate,
+        )
+
+
+def create_json_and_segment(
+    segmentation_file: str,
+    base_folder: str,
+    data_folder: str,
+    output_folder: str,
+    cut_wavs: bool = True,
+) -> Tuple[str, str]:
+    """Exact port of ``create_json_and_segment.py:18-113``: VAD YAML →
+    boundary-filtered per-segment wav cuts + ``data-resegmented-{asr,st}.json``
+    in the reference's field-for-field schema."""
+    ground_truth_data = os.path.join(base_folder, "data.json")
+    with open(ground_truth_data) as f:
+        dataset_gt = json.load(f)
+
+    start_end_dict: Dict[str, Dict[str, float]] = {}
+    for key in dataset_gt:
+        _id = key.split("-")[0]
+        if _id not in start_end_dict:
+            start_end_dict[_id] = {
+                "start": float(key.split("-")[2]),
+                "end": float(key.split("-")[3]),
+            }
+        start_end_dict[_id]["end"] = float(key.split("-")[3])
+
+    segmented_data = read_segmentation_yaml(segmentation_file)
+
+    output_json_file_asr: Dict[str, Dict] = {}
+    output_json_file_st: Dict[str, Dict] = {}
+    os.makedirs(output_folder, exist_ok=True)
+    for segmented in segmented_data:
+        _id = segmented["wav"].split(".")[0]
+        start = int(float(segmented["offset"]) * 100)
+        duration = int(float(segmented["duration"]) * 100)
+        end = start + duration
+
+        min_start_allowed = start_end_dict[_id]["start"]
+        max_end_allowed = start_end_dict[_id]["end"]
+        utterance_id = f"{_id}-{0}-{start:06d}-{end:06d}"
+
+        if (start < min_start_allowed and end < min_start_allowed) or (
+            start > max_end_allowed and end > max_end_allowed
+        ):
+            logger.warning("error processing this file %s", utterance_id)
+            continue
+
+        wav_path = os.path.join(data_folder, segmented["wav"])
+        wav_save_path = os.path.join(
+            os.path.abspath(output_folder), utterance_id + ".wav"
+        )
+        if cut_wavs and not os.path.exists(wav_save_path):
+            samples, rate = read_audio(wav_path, sample_rate=SAMPLERATE)
+            lo = int(start / 100 * SAMPLERATE)
+            hi = int(end / 100 * SAMPLERATE)
+            write_wav(wav_save_path, samples[lo:hi], SAMPLERATE)
+
+        for target_lang, task, output_json_file in zip(
+            ["es", "en"],
+            ["transcription", "translation"],
+            [output_json_file_asr, output_json_file_st],
+        ):
+            output_json_file[utterance_id] = {
+                "wav": wav_save_path,
+                "source_lang": "es",
+                "target_lang": target_lang,
+                "segments_start": 0,
+                "segments_duration": f"{duration / 100:.2f}",
+                "segments_channel": "0",
+                "duration": f"{duration / 100:.2f}",
+                "task": task,
+                "transcription": "",
+                "translation_0": "",
+            }
+
+    outputs = []
+    for task in ["asr", "st"]:
+        output_file = os.path.join(base_folder, f"data-resegmented-{task}.json")
+        payload = output_json_file_asr if task == "asr" else output_json_file_st
+        with open(output_file, "w", encoding="utf-8") as f:
+            json.dump(payload, f, indent=2, ensure_ascii=False)
+        outputs.append(output_file)
+    return outputs[0], outputs[1]

@@ -12,9 +12,10 @@ Replicates the inference-time behavior the reference relies on
 * unknown characters map to ``<unk>`` (id 0 in the reference contract),
   decoded with the standard `` ⁇ `` unk surface.
 
-The JAX package can hand the hot path to its native C++ extension; the
-port runs this pure Python implementation (the JAX package's reference
-path, identical output).
+The merge loop runs in the port's native library (``native.py``,
+``csrc/stacnative.cpp``), as the JAX package runs it in its C++ extension
+when that is built; ``BpeEncoder._bpe_segment_plain`` is the pure Python
+version, which only the tests call (the ids are identical).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import heapq
 import unicodedata
 from typing import Dict, List, Optional, Tuple
 
+from ..native import BpeVocab
 from .spm_model import (
     PIECE_CONTROL,
     PIECE_UNKNOWN,
@@ -136,6 +138,8 @@ class BpeEncoder:
                 self._control_ids.add(idx)
         # longest-first for greedy matching
         self.user_defined.sort(key=len, reverse=True)
+        self._native = BpeVocab([p.piece for p in model.pieces],
+                                [float(p.score) for p in model.pieces])
 
     # ------------------------------------------------------------- encoding
     def _split_user_defined(self, text: str) -> List[Tuple[str, bool]]:
@@ -165,6 +169,12 @@ class BpeEncoder:
 
     def _bpe_segment(self, segment: str) -> List[int]:
         """Greedy highest-score pair merging over one segment."""
+        if not segment:
+            return []
+        return self._native.encode(segment, self.unk_id)
+
+    def _bpe_segment_plain(self, segment: str) -> List[int]:
+        """:meth:`_bpe_segment` in pure Python."""
         if not segment:
             return []
         # symbols as a doubly-linked list over initial characters

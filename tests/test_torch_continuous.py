@@ -30,6 +30,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_model import (  # noqa: E402

@@ -25,6 +25,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu.decoding import ctc_prefix as J
 from stac_st_tpu_torch.decoding import ctc_prefix as P

@@ -11,6 +11,7 @@ The plain version itself is held to the JAX package on the CPU by
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu_torch.decoding import ctc_prefix as P
 from stac_st_tpu_torch.ops import kernels

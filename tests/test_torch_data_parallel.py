@@ -32,6 +32,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 import torch.distributed as dist
 import torch.multiprocessing as mp
 

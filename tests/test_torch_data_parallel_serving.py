@@ -31,6 +31,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu_torch import models as P
 from stac_st_tpu_torch.interop.from_jax import to_jax_params

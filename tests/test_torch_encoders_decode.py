@@ -29,6 +29,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu.decoding.beam_search import MultiTaskBeamSearch as JaxSearch
 from stac_st_tpu.ops import Fbank as JFbank

@@ -18,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu.ops.cmvn import CmvnState as JaxCmvnState
 from stac_st_tpu.serving import STEngine as JaxEngine

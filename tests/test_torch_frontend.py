@@ -8,6 +8,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu.models import ConvolutionFrontEnd as JaxCNN
 from stac_st_tpu.ops.cmvn import CmvnState as JaxCmvnState

@@ -33,6 +33,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu.decoding import speculative as jax_spec
 from stac_st_tpu.decoding.beam_search import (
@@ -60,6 +61,7 @@ from test_torch_model import (  # noqa: E402
     build_jax_tiny,
     build_port_twin,
 )
+from torch_once import built_once  # noqa: E402
 
 SEARCH = dict(bos_index=1, eos_index=2, blank_index=0,
               min_decode_ratio=0.0, max_decode_ratio=1.0,
@@ -275,9 +277,14 @@ def test_decode_step_matches_jax(tiny, case):
 
 # ---------------------------------------------------------------- searcher
 @pytest.fixture(scope="module")
-def jax_int8_searches(tiny):
+def jax_int8_searches(tiny, tmp_path_factory):
     """The JAX searcher with the int8 cache, beam 4 and beam 1, under two
-    prompts, on one seeded encoder output."""
+    prompts, on one seeded encoder output (built once a run)."""
+    return built_once(tmp_path_factory, "torch_int8_searches",
+                      lambda: _jax_int8_searches(tiny))
+
+
+def _jax_int8_searches(tiny):
     jx, _, _, _ = tiny
     enc = np.random.default_rng(5).standard_normal((2, 12, D)) \
         .astype(np.float32)
@@ -288,7 +295,8 @@ def jax_int8_searches(tiny):
         s.bind(jx["params"]["Transformer"], jx["params"]["seq_lin"])
         for prompt in ((5, 6), (5, 9)):
             s.set_decoder_prefix_tokens(*prompt)
-            out[beam, prompt] = s(jnp.asarray(enc))
+            hyps, scores = s(jnp.asarray(enc))
+            out[beam, prompt] = hyps, np.asarray(scores)
     return enc, out
 
 

@@ -11,6 +11,7 @@ import sys
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu_torch import device as port_device
 
@@ -96,17 +97,26 @@ def imported_all():
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-# the serving front's modules, int8 / speculative decoding's and data
-# parallelism's, which the import-all subprocess must reach
+# the serving front's modules, int8 / speculative decoding's, data
+# parallelism's, and the native library's, the corpus preparation's and
+# the SpeechBrain bridge's, which the import-all subprocess must reach
 SERVING_MODULES = ("serving_stream", "serving_http", "serving_continuous",
                    "recipes.serve", "prep.shas", "eval.long_form",
                    "utils.quantize", "decoding.speculative",
-                   "parallel.distributed", "parallel.mesh")
+                   "parallel.distributed", "parallel.mesh", "native",
+                   "prep.records", "prep.turns", "prep.tdf", "prep.cleaning",
+                   "prep.audio_prep", "prep.segmentation", "prep.fisher",
+                   "prep.callhome", "utils.moses", "examples.ldc_tree",
+                   "interop.sb_import", "interop.sb_export",
+                   "tools.import_sb_ckpt", "tools.export_sb_ckpt",
+                   "datasets.fisher_callhome.run_data_preparation",
+                   "datasets.fisher_callhome.run_data_preparation_turns",
+                   "datasets.fisher_callhome.run_segmentation")
 
 
 def test_importing_every_module_pulls_in_no_jax(imported_all):
     # every module of the package was imported, the serving front's too
-    assert imported_all["modules"] >= 79
+    assert imported_all["modules"] >= 101
     for name in SERVING_MODULES:
         assert f"stac_st_tpu_torch.{name}" in imported_all["names"]
     assert imported_all["bad"] == []
@@ -134,17 +144,20 @@ _DYNAMIC = re.compile(r"(import_module|__import__)\(\s*[\"']("
                       + "|".join(_FORBIDDEN) + r")(\.|[\"'])")
 
 
-def _imports(tree):
+def _imports(tree, package=""):
     """(line, module) of every import statement in the tree; a relative
-    import of the JAX package's native loader counts as ``_stacnative``."""
+    import is resolved against ``package``, the package of the file."""
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield node.lineno, alias.name
         elif isinstance(node, ast.ImportFrom):
-            if node.level and (node.module or "").split(".")[-1] == "native":
-                yield node.lineno, "_stacnative"
-            elif not node.level:
+            if node.level:
+                parts = package.split(".")[:len(package.split("."))
+                                             - node.level + 1]
+                yield node.lineno, ".".join(parts + ([node.module]
+                                                     if node.module else []))
+            else:
                 yield node.lineno, node.module or ""
 
 
@@ -158,8 +171,9 @@ def _sources():
     out = []
     for path in files:
         src = open(path, encoding="utf-8").read()
-        out.append((os.path.relpath(path, ROOT), src,
-                    list(_imports(ast.parse(src, path)))))
+        rel = os.path.relpath(path, ROOT)
+        package = ".".join(rel.split(os.sep)[:-1])
+        out.append((rel, src, list(_imports(ast.parse(src, path), package))))
     return out
 
 
@@ -170,6 +184,16 @@ def test_no_source_imports_jax_or_the_jax_package_anywhere():
                   if mod.split(".")[0] in _FORBIDDEN]
         found += [f"{rel}: {m.group(0)}" for m in _DYNAMIC.finditer(src)]
     assert len(_sources()) >= 50
+    assert found == []
+
+
+def test_no_source_names_the_jax_packages_native_extensions():
+    """The port builds and loads its own native library (``native.py``);
+    no source names the JAX package's extensions, so none can load them
+    or copy the loader that falls back without saying so."""
+    found = [f"{rel}:{src[:m.start()].count(chr(10)) + 1}"
+             for rel, src, _ in _sources()
+             for m in re.finditer(r"_stac(native|audio)", src)]
     assert found == []
 
 
@@ -189,12 +213,16 @@ def test_no_source_imports_a_package_the_card_lacks():
 def test_the_source_check_sees_lazy_imports():
     src = ("def f():\n    import jax.numpy as jnp\n"
            "    from stac_st_tpu.data import audio\n"
-           "    from ..native import get_native\n"
+           "    import _stacnative\n"
+           "    from ..native import BpeVocab\n"
+           "    from .. import native\n"
            "    from stac_st_tpu_torch.data import audio\n")
-    assert [m for _, m in _imports(ast.parse(src))] == [
-        "jax.numpy", "stac_st_tpu.data", "_stacnative", "stac_st_tpu_torch.data"]
-    assert [m.split(".")[0] in _FORBIDDEN for _, m in
-            _imports(ast.parse(src))] == [True, True, True, False]
+    found = [m for _, m in _imports(ast.parse(src), "stac_st_tpu_torch.data")]
+    assert found == ["jax.numpy", "stac_st_tpu.data", "_stacnative",
+                     "stac_st_tpu_torch.native", "stac_st_tpu_torch",
+                     "stac_st_tpu_torch.data"]
+    assert [m.split(".")[0] in _FORBIDDEN for m in found] == [
+        True, True, True, False, False, False]
     assert _DYNAMIC.search('importlib.import_module("jax")')
     assert _DYNAMIC.search("__import__('stac_st_tpu.ops')")
     assert not _DYNAMIC.search('import_module("stac_st_tpu_torch.ops")')

@@ -14,8 +14,10 @@ import sys
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_search_options import (  # noqa: E402,F401
@@ -27,6 +29,14 @@ from test_torch_search_options import (  # noqa: E402,F401
     port_searcher,
     tiny,
 )
+from torch_once import built_once  # noqa: E402
+
+
+def host(tree):
+    """JAX results with their arrays on the host, to share across
+    workers."""
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x) if isinstance(x, jax.Array) else x, tree)
 
 
 def bigram(favored):
@@ -74,12 +84,17 @@ def lm_pair(np_params):
 
 
 @pytest.fixture(scope="module")
-def jax_lm(tiny):
+def jax_lm(tiny, tmp_path_factory):
     """The JAX results: at weight 0.3, ``call_multi`` over both prompts
     with the bigram LM, then with the stateful one (one searcher: the LM's
     params are swapped in the dict it holds, so its program is reused); at
     weight 5.0, ``__call__`` under [1, 5, 9] with the bigram LM (favoring
-    token 7)."""
+    token 7). Built once a run (host arrays)."""
+    return built_once(tmp_path_factory, "torch_lm_fusion",
+                      lambda: host(_jax_lm(tiny)))
+
+
+def _jax_lm(tiny):
     enc = jnp.asarray(tiny["enc"])
     (j_step, j_init, params), _ = lm_pair(bigram(11))
     s = jax_searcher(tiny)

@@ -15,6 +15,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu_torch import run_default as p_run_default
 from stac_st_tpu_torch.evaluations.vad_shas import run_full_protocol as pproto

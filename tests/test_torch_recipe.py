@@ -20,6 +20,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu_torch.config import load_hyperpyyaml
 from stac_st_tpu_torch.interop.from_jax import to_jax_params

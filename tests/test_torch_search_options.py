@@ -35,6 +35,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu.decoding.beam_search import (
     MultiTaskBeamSearch as JaxSearcher,
@@ -47,6 +48,7 @@ from stac_st_tpu_torch.interop.from_jax import to_jax_params
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_model import _seeded_leaf  # noqa: E402
+from torch_once import built_once  # noqa: E402
 
 D, VOCAB, IN = 32, 40, 16
 ATOL = 1e-4
@@ -129,13 +131,16 @@ def assert_same(got, want):
 
 # ------------------------------------ joint CTC and the encoder-padding mask
 @pytest.fixture(scope="module")
-def jax_ctc(tiny):
+def jax_ctc(tiny, tmp_path_factory):
     """JAX's joint CTC search (weight 0.5) with the padding mask, over
-    both prompts in one ``call_multi``."""
-    s = jax_searcher(tiny, ctc_weight=0.5, mask_encoder_padding=True)
-    return s.call_multi(jnp.asarray(tiny["enc"]), jnp.asarray(WAV_LENS),
-                        prompts=PROMPTS,
-                        ctc_log_probs=jnp.asarray(tiny["ctc"]))
+    both prompts in one ``call_multi`` (built once a run)."""
+    def build():
+        s = jax_searcher(tiny, ctc_weight=0.5, mask_encoder_padding=True)
+        fused = s.call_multi(jnp.asarray(tiny["enc"]), jnp.asarray(WAV_LENS),
+                             prompts=PROMPTS,
+                             ctc_log_probs=jnp.asarray(tiny["ctc"]))
+        return [(hyps, np.asarray(scores)) for hyps, scores in fused]
+    return built_once(tmp_path_factory, "torch_search_options_ctc", build)
 
 
 def test_joint_ctc_with_the_padding_mask_matches_jax(tiny, jax_ctc):
@@ -189,11 +194,17 @@ TIER, CAP = 3, 8
 
 
 @pytest.fixture(scope="module")
-def jax_tier(tiny):
+def jax_tier(tiny, tmp_path_factory):
     """The JAX search at the tier's budget (3 steps) certified against the
     cap's (8), as its tiered searcher runs it, on the eos-biased head
     (every row settles) and on the plain one (some row does not): tokens,
-    lengths, scores and settled flags, one program for both heads."""
+    lengths, scores and settled flags, one program for both heads (built
+    once a run)."""
+    return built_once(tmp_path_factory, "torch_search_options_tier",
+                      lambda: _jax_tier(tiny))
+
+
+def _jax_tier(tiny):
     rng = np.random.default_rng(9)
     enc = jnp.asarray(rng.standard_normal((3, 20, D)).astype(np.float32))
     biased = jax.tree_util.tree_map(lambda a: a, tiny["params"]["seq_lin"])

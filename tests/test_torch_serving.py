@@ -20,6 +20,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_model import build_jax_tiny, build_port_twin  # noqa: E402

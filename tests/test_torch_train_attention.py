@@ -31,6 +31,7 @@ same inputs give bitwise-equal gradients. The card tests need no JAX:
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu_torch.device import set_tf32
 from stac_st_tpu_torch.ops import kernels

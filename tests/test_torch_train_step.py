@@ -17,8 +17,6 @@ path is held against the port by the eval forward (and against the Pallas
 path by the JAX package's own tests). JAX steps are built once per module.
 """
 
-import os
-import pickle
 from functools import partial
 from types import SimpleNamespace
 
@@ -27,7 +25,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
-from filelock import FileLock
+import torch_threads  # noqa: F401  (this worker's share of the cores)
 
 from stac_st_tpu.models import ConvolutionFrontEnd, LinearHead
 from stac_st_tpu.models import TransformerMultiTask
@@ -63,6 +61,8 @@ from stac_st_tpu_torch.training import step as pstep
 from stac_st_tpu_torch.training.optim import AdamW
 from stac_st_tpu_torch.training.schedulers import WarmCoolDecayLRSchedule
 from stac_st_tpu_torch.training.trainer import STTrainer
+
+from torch_once import built_once_all
 
 from test_torch_model import _seeded_leaf
 
@@ -378,30 +378,24 @@ def _jax_slice_reference():
                 losses_j=losses_j, norms_j=norms_j)
 
 
-def built_once(tmp_path_factory, name, build):
-    """``build()`` (host data) once per test run: under xdist the first
-    worker to ask builds it under a file lock in the run's shared
-    temporary directory and the others read it."""
-    if not os.environ.get("PYTEST_XDIST_WORKER"):
-        return build()
-    path = tmp_path_factory.getbasetemp().parent / f"{name}.pkl"
-    with FileLock(str(path) + ".lock"):
-        if path.is_file():
-            return pickle.loads(path.read_bytes())
-        ref = build()
-        path.write_bytes(pickle.dumps(ref))
-        return ref
-
-
 @pytest.fixture(scope="module")
-def slice_run(tmp_path_factory):
-    """Five microsteps of both steps (accumulation 2; batch 4 is NaN, a
-    group boundary), and the microbatch-1 gradients of both."""
+def slice_inputs():
+    """The slice's batches, CMVN and initial JAX parameters (host arrays,
+    the ones ``_jax_slice_reference`` starts from), and one jitted JAX
+    eval forward for every test of the module: what the tests that run
+    neither step need, without waiting for the steps."""
     batches, mean, std = _slice_batches()
-    ref = built_once(tmp_path_factory, "torch_slice_run",
-                     _jax_slice_reference)
-    params_j = ref["params_j"]
     cfg_j = _jax_cfg()
+    return dict(batches=batches, mean=mean, std=std, cfg_j=cfg_j,
+                params_j=jax.tree_util.tree_map(np.asarray,
+                                                _jax_params(cfg_j)),
+                eval_j=jstep.make_eval_forward(cfg_j))
+
+
+def _port_slice_run(params_j, batches, mean, std):
+    """The port half of ``slice_run``: the same five microsteps and
+    microbatch-1 gradients on the port's step, as host tensors by the
+    port's parameter names."""
     cfg_p = _port_cfg(_port_modules(params_j))
     tx_p = pstep.make_optimizer(
         AdamW(lr=LR), WarmCoolDecayLRSchedule(lr=LR, **SCHED).value, ACCUM,
@@ -409,17 +403,33 @@ def slice_run(tmp_path_factory):
     state_p = _port_state(cfg_p, tx_p, mean, std)
     _, grad_p, _ = pstep.loss_and_grad(cfg_p, state_p, _port_batch(batches[0]),
                                        0)
+    grads_p = {n: t.detach().clone()
+               for n, t in state_p.params.named(grad_p).items()}
     step_p = pstep.make_train_step(cfg_p, tx_p)
     losses_p, norms_p = [], []
     for b in batches:
         state_p, m = step_p(state_p, _port_batch(b), 0)
         losses_p.append(float(m["loss"]))
         norms_p.append(float(m["grad_norm"]))
-    return dict(ref, grad_p=grad_p, state_p=state_p, losses_p=losses_p,
-                norms_p=norms_p, batches=batches, mean=mean, std=std,
-                cfg_j=cfg_j,
-                # one jitted JAX eval forward for every test of the module
-                eval_j=jstep.make_eval_forward(cfg_j))
+    return dict(grads_p=grads_p, losses_p=losses_p, norms_p=norms_p,
+                params_p={n: t.detach().clone()
+                          for n, t in state_p.params.named().items()},
+                optimizer_step_p=state_p.optimizer_step,
+                micro_step_p=state_p.micro_step)
+
+
+@pytest.fixture(scope="module")
+def slice_run(tmp_path_factory, slice_inputs):
+    """Five microsteps of both steps (accumulation 2; batch 4 is NaN, a
+    group boundary), and the microbatch-1 gradients of both; each half
+    built once a run."""
+    r = slice_inputs
+    halves = built_once_all(tmp_path_factory, {
+        "torch_slice_run": _jax_slice_reference,
+        "torch_slice_run_port": lambda: _port_slice_run(
+            r["params_j"], r["batches"], r["mean"], r["std"])})
+    return dict(r, **halves["torch_slice_run"],
+                **halves["torch_slice_run_port"])
 
 
 def test_slice_losses_match_jax(slice_run):
@@ -433,8 +443,7 @@ def test_slice_losses_match_jax(slice_run):
 def test_slice_gradients_match_jax(slice_run):
     r = slice_run
     want = _as_port_named(r["grad_j"])
-    got = {n: t.detach() for n, t in
-           r["state_p"].params.named(r["grad_p"]).items()}
+    got = r["grads_p"]
     scale = max(float(w.abs().max()) for w in want.values())
     assert set(got) == set(want)
     for name, w in want.items():
@@ -444,12 +453,11 @@ def test_slice_gradients_match_jax(slice_run):
 
 def test_slice_parameters_match_jax_after_five_microsteps(slice_run):
     r = slice_run
-    assert r["state_p"].optimizer_step == int(r["state_j"].optimizer_step) \
-        == 2
-    assert r["state_p"].micro_step == int(r["state_j"].micro_step) == 5
+    assert r["optimizer_step_p"] == int(r["state_j"].optimizer_step) == 2
+    assert r["micro_step_p"] == int(r["state_j"].micro_step) == 5
     want = _as_port_named(jax.tree_util.tree_map(np.asarray,
                                                  r["state_j"].params))
-    got = {n: t.detach() for n, t in r["state_p"].params.named().items()}
+    got = r["params_p"]
     _assert_params(got, want, rtol=5e-3, atol=5e-4)
     # the NaN group was skipped: the update of group 1 is the only one
     moved = [float((got[n] - w).abs().max()) for n, w in
@@ -457,10 +465,10 @@ def test_slice_parameters_match_jax_after_five_microsteps(slice_run):
     assert max(moved) > 1e-3
 
 
-def test_eval_forward_matches_jax(slice_run):
+def test_eval_forward_matches_jax(slice_inputs):
     """The port's eval forward (flash_attention's plain version on the
     key-padding routes) against JAX's eval forward, fp32 atol 1e-4."""
-    r = slice_run
+    r = slice_inputs
     batch = r["batches"][1]
     p_ctc_j, p_seq_j, enc_j = r["eval_j"](
         r["params_j"], _jcmvn(r["mean"], r["std"]), {k: jnp.asarray(v)
@@ -507,14 +515,14 @@ def _trainer(jparams, **run_opts):
     return STTrainer(modules, AdamW(lr=LR), hparams, run_opts, device="cpu")
 
 
-def test_trainer_fit_equals_direct_steps(slice_run):
+def test_trainer_fit_equals_direct_steps(slice_inputs):
     batches = _padded_batches(np.random.default_rng(7), 3)
-    trainer = _trainer(slice_run["params_j"])
+    trainer = _trainer(slice_inputs["params_j"])
     trainer.fit([1], batches)
     assert trainer.state.optimizer_step == trainer.state.micro_step == 3
     assert float(trainer.state.cmvn.count) == 6.0  # epoch 1 < 4 updates
 
-    other = _trainer(slice_run["params_j"])
+    other = _trainer(slice_inputs["params_j"])
     state = other.ensure_state()
     gen = torch.Generator().manual_seed(11)
     for b in batches:
@@ -527,7 +535,7 @@ def test_trainer_fit_equals_direct_steps(slice_run):
     assert np.isfinite(trainer.train_stats["loss"])
 
 
-def test_pcm16_device_batch_is_exact(slice_run):
+def test_pcm16_device_batch_is_exact():
     pcm = np.random.default_rng(8).integers(-3000, 3000, (2, WAV_LEN))
     batch = _padded_batches(np.random.default_rng(9), 1)[0]
     batch.sig[0][:] = (pcm / 32768.0).astype(np.float32)
@@ -572,7 +580,7 @@ def test_collate_and_pad_rows_match_jax():
             np.testing.assert_array_equal(g, w)
 
 
-def test_validation_loss_and_acc_match_jax(slice_run, monkeypatch):
+def test_validation_loss_and_acc_match_jax(slice_inputs, monkeypatch):
     """The port's validation (teacher-forced loss and ACC, no search)
     against the JAX trainer's ``_validate`` on identical batches, weights
     and CMVN: fp32, atol 1e-4. The JAX trainer runs the module's one
@@ -582,7 +590,7 @@ def test_validation_loss_and_acc_match_jax(slice_run, monkeypatch):
     from stac_st_tpu.utils.metrics import AccuracyStats as JaxAccuracy
     from stac_st_tpu_torch.utils.metrics import AccuracyStats
 
-    r = slice_run
+    r = slice_inputs
     batches = _padded_batches(np.random.default_rng(12), 2)
     cfg = r["cfg_j"]
     # eos wins the argmax, so ACC counts each row's eos position
