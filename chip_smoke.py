@@ -314,11 +314,48 @@ Phases, each printed as one JSON line:
    engine on the trained modules', then a warm bf16 B16 x 10 s beam-10
    translate (anc and cross exactly 6 x its decoder steps, split) and a
    beam-1 translate of 2 x 10 s (self and cross likewise), each with its
-   RTFx.
+   RTFx;
+15. corpora_baselines, run after reference_io: the paper's other corpora
+   and its two baselines. (a) A seeded CommonVoice/CoVoST2 + MSLT tree
+   (stac_st_tpu_torch/examples/corpora_tree.py: 96 clips of tone speech
+   in Spanish and in English with their prepared CV manifests, CoVoST
+   TSVs es->en and en->de with one missing clip and one two-word
+   translation each, 16 MSLT en->de utterances with UTF-16 T2/T3 .snt
+   files) through the port's three drivers as a user runs them
+   (datasets.covost2.run_prepare_covost2 for both pairs,
+   datasets.mslt.run_prepare_mslt, datasets.cross_datasets_experiments.
+   prepare_cross_datasets with the 30 s multi-turn variant): utterances,
+   missing clips (exactly one a pair), [turn] counts, multi-file entries
+   and seconds of every manifest; the port's BPE trained on the joined
+   transcription_and_translation field with [es], [en], [de], [turn] and
+   [xt] as user symbols. (b) STTrainer.fit of the flagship (bf16, seeded)
+   over the two pairs' 30 s multi-turn mixture (space-joined wav fields
+   read through the dataset) for 20 updates: finite losses, 18 launches a
+   step of each training flash kernel, all wgmma. (c) An fp32 B2 beam-10
+   prompted search of each pair (es->en, en->de; 4 s, 24 tokens) on the
+   trained modules, card texts equal to the CPU's (TF32 off); then,
+   warm, two bf16 beam-10 translate calls of B8 x 10 s each (es->en on 8
+   Spanish inputs, en->de on 8 English ones, CV clips end to end), anc
+   and cross exactly 6 x their decoder steps, split, the RTFx of the 16
+   inputs over the two calls' time. (d) The pyannote
+   baseline's local segmentation checkpoint built on the card (150 Adam
+   steps), run_pyannote_manifest's SCD path and the diarization pipeline
+   on the card over 8 multi-turn conversations of the mixture (one wav
+   each, the parts' speakers as reference turns), the posteriors of one
+   conversation card against CPU within 1e-4 (TF32 off), and the
+   speaker-change F1 at each tolerance of both paths beside STAC-ST's
+   own CTC [turn] events on the same conversations (findings, no bound).
+   (e) The Whisper baseline (transformers) with a tiny random checkpoint
+   built here: run_whisper_baseline on the card and on the CPU for both
+   tasks over two utterances, equal generated token ids (read off
+   generate; the tiny byte vocabulary decodes most ids to U+FFFD, so the
+   texts alone would hide a difference) and equal texts, the BLEU / WER
+   files written.
 
 Then the card's name and power limit, a {"kernels": [...]} line (every
 kernel names the variant its main-path launches went through, and its
-launches in the recipe, serve, protocol and reference_io phases; the ragged self forms
+launches in the recipe, serve, protocol, reference_io and
+corpora_baselines phases; the ragged self forms
 are lines of their own, their launches the serve phase's; the int8
 kernels' launches are phase int8's; ctc_prefix_score's those of phase
 search_options' joint CTC search with the float cache),
@@ -331,6 +368,7 @@ alone, or without a CUDA device, it fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -4622,6 +4660,58 @@ class Capped:
             yield batch
 
 
+def _fit_counted(torch, kernels, loader, seed: int, updates: int) -> tuple:
+    """The flagship (bf16, ``seed``) trained ``updates`` updates over
+    ``loader``: finite losses, and rows 5-7 launched exactly 18 a step on
+    the tensor-core variant; (trainer, the fit's launches, record)."""
+    trainer = _trainer(torch, flagship(seed), bf16=True)
+    feeds, losses, epoch = Capped(loader, updates), [], 0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    while feeds.left > 0:
+        epoch += 1
+        trainer.fit([epoch], feeds)
+        losses += [float(x) for x in trainer.epoch_losses]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(trainer.state.optimizer_step == updates
+          and len(losses) == updates and all(np.isfinite(losses)),
+          f"fit: {trainer.state.optimizer_step} updates, losses {losses}")
+    for name in FLASH[1:]:
+        check(launches.get(name, 0) == 18 * updates
+              and launches.get(f"{name}/{TC}", 0) == 18 * updates,
+              f"{name}: {launches}, want 18 a step on {TC}")
+    return trainer, launches, {
+        "updates": updates, "epochs": epoch, "fit_s": fit_s,
+        "batches_per_epoch": len(loader), "losses": losses,
+        "launches": launches}
+
+
+def _warm_search_counted(torch, kernels, eng, call, names) -> tuple:
+    """``call()`` once for set-up, then once timed with the decode kernels
+    counted: each of ``names`` must have launched 6 x the decoder steps,
+    all on the split variant; (its result, record)."""
+    from stac_st_tpu_torch.tools.eval_flagship import _StepCounter
+
+    call()  # first call: set-up
+    torch.cuda.synchronize()
+    counter = _StepCounter(eng)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.launches.items()
+                if k.startswith("decode_")}
+    counter.restore()
+    want = {f"{n}{v}": 6 * counter.steps for n in names
+            for v in ("", f"/{SPLIT}")}
+    check(launches == want, f"launches {launches}, want {want}")
+    return got, {"warm_s": wall, "decode_steps": counter.steps,
+                 "searches": counter.searches, "launches": launches}
+
+
 def _encode_plain(enc, text):
     """``BpeEncoder.encode_as_ids`` with the merge loop in pure Python."""
     from stac_st_tpu_torch.tokenizer.bpe import normalize_text
@@ -4751,7 +4841,6 @@ def reference_io_phase(torch, kernels, smi: str, root: str) -> dict:
     from stac_st_tpu_torch.serving import STEngine
     from stac_st_tpu_torch.tokenizer import SentencePieceProcessor, train_bpe
     from stac_st_tpu_torch.tools import import_sb_ckpt
-    from stac_st_tpu_torch.tools.eval_flagship import _StepCounter
 
     base = os.path.join(root, "reference_io")
     t_phase = time.perf_counter()
@@ -4777,28 +4866,9 @@ def reference_io_phase(torch, kernels, smi: str, root: str) -> dict:
         for w in (1, 4)}
 
     # (c) the flagship over the prepared manifests
-    loader = corpus_loader(manifest, out, tok, None, 4)
-    trainer = _trainer(torch, flagship(REF_SEED), bf16=True)
-    feeds, losses, epoch = Capped(loader, REF_UPDATES), [], 0
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    while feeds.left > 0:
-        epoch += 1
-        trainer.fit([epoch], feeds)
-        losses += [float(x) for x in trainer.epoch_losses]
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    fit_launches = dict(kernels.launches)
-    check(trainer.state.optimizer_step == REF_UPDATES
-          and len(losses) == REF_UPDATES and all(np.isfinite(losses)),
-          f"fit: {trainer.state.optimizer_step} updates, losses {losses}")
-    for name in FLASH[1:]:
-        check(fit_launches.get(name, 0) == 18 * REF_UPDATES
-              and fit_launches.get(f"{name}/{TC}", 0) == 18 * REF_UPDATES,
-              f"{name}: {fit_launches}, want 18 a step on {TC}")
-    rec["train"] = {"updates": REF_UPDATES, "epochs": epoch, "fit_s": fit_s,
-                    "batches_per_epoch": len(loader), "losses": losses,
-                    "launches": fit_launches}
+    trainer, fit_launches, rec["train"] = _fit_counted(
+        torch, kernels, corpus_loader(manifest, out, tok, None, 4),
+        REF_SEED, REF_UPDATES)
 
     # (d) SpeechBrain export, import, save_imported, serving
     cfg = trainer.cfg
@@ -4847,31 +4917,16 @@ def reference_io_phase(torch, kernels, smi: str, root: str) -> dict:
     for label, beam, batch in (("beam10", BEAM, wavs), ("beam1", 1, wavs[:2])):
         eng = served_engine(bf16=True, beam_size=beam, max_decode_tokens=192,
                             transfer_dtype="int16")
-        eng.translate(batch)  # first call: set-up
-        torch.cuda.synchronize()
-        counter = _StepCounter(eng)
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        got = eng.translate(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: v for k, v in kernels.launches.items()
-                    if k.startswith("decode_")}
-        counter.restore()
-        check(len(got) == len(batch) and all(isinstance(t, str) for t in got),
-              f"{label} texts")
         names = (("decode_self_attention_anc", "decode_cross_attention")
                  if beam > 1 else ("decode_self_attention",
                                    "decode_cross_attention"))
-        want = {f"{n}{v}": 6 * counter.steps for n in names
-                for v in ("", f"/{SPLIT}")}
-        check(launches == want, f"{label}: launches {launches}, want {want}")
+        got, warm = _warm_search_counted(
+            torch, kernels, eng, partial(eng.translate, batch), names)
+        check(len(got) == len(batch) and all(isinstance(t, str) for t in got),
+              f"{label} texts")
         served[label] = {"batch": len(batch), "seconds": SECONDS,
-                         "warm_s": wall,
-                         "rtfx": len(batch) * SECONDS / wall,
-                         "decode_steps": counter.steps,
-                         "searches": counter.searches,
-                         "launches": launches}
+                         "rtfx": len(batch) * SECONDS / warm["warm_s"],
+                         **warm}
         del eng
     rec["sb"] = {"parameters": int(sum(v.size for v in sd.values())),
                  "export_import_s": sb_s, "parameters_bitwise": True,
@@ -4883,6 +4938,393 @@ def reference_io_phase(torch, kernels, smi: str, root: str) -> dict:
     for call in served.values():
         for name, n in call["launches"].items():
             total[name] = total.get(name, 0) + n
+    rec["launches"] = total
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+# phase corpora_baselines: the paper's other corpora and its baselines. A
+# seeded CommonVoice/CoVoST2 + MSLT tree (CORP_CLIPS clips for each source
+# language, CORP_MSLT MSLT utterances) through the port's three drivers,
+# the flagship trained CORP_UPDATES updates over the 30 s multi-turn
+# mixture, both pairs served, the pyannote baseline (its local checkpoint
+# built on the card) and the Whisper baseline (a tiny random checkpoint)
+CORP_CLIPS, CORP_MSLT, CORP_SEED, CORP_TURN_S, CORP_UPDATES = 96, 16, 19, 30, 20
+CORP_PAIRS = ("es_en", "en_de")
+CORP_CHECK_S, CORP_CHECK_TOKENS = 4.0, 24  # the fp32 card-vs-CPU searches, B2
+CORP_CONVS = 8        # multi-turn conversations for the speaker-change F1
+PYANNOTE_ATOL = 1e-4  # the posteriors, card against CPU, TF32 off
+
+
+def _manifest_stats(path: str) -> dict:
+    with open(path) as f:
+        data = json.load(f)
+    text = " ".join(e.get("transcription", "") for e in data.values())
+    return {"utterances": len(data), "turn": text.count("[turn]"),
+            "multi_file": sum(len(e["wav"].split()) > 1
+                              for e in data.values()),
+            "audio_s": float(sum(e["duration"] for e in data.values()))}
+
+
+def _corpora_prep(base: str) -> tuple:
+    """(a) The tree and the port's three drivers, as a user runs them;
+    (tree, {name: manifest}, record)."""
+    from stac_st_tpu_torch.datasets.covost2 import run_prepare_covost2
+    from stac_st_tpu_torch.datasets.cross_datasets_experiments import (
+        prepare_cross_datasets,
+    )
+    from stac_st_tpu_torch.datasets.mslt import run_prepare_mslt
+    from stac_st_tpu_torch.examples.corpora_tree import make_corpora_tree
+    from stac_st_tpu_torch.prep.mixing import join_json
+
+    t0 = time.perf_counter()
+    tree = make_corpora_tree(os.path.join(base, "raw"), n_clips=CORP_CLIPS,
+                             n_mslt=CORP_MSLT, seed=CORP_SEED,
+                             covost_pairs=CORP_PAIRS)
+    rec = {"tree": {"clips_per_language": CORP_CLIPS, "mslt_utterances":
+                    CORP_MSLT, "audio_s": tree["seconds"],
+                    "write_s": time.perf_counter() - t0}}
+    covost, manifests = os.path.join(base, "covost"), {}
+    t0 = time.perf_counter()
+    for pair in CORP_PAIRS:
+        src, tgt = pair.split("_")
+        outputs = run_prepare_covost2.main(
+            ["--tsv", tree["tsv"][pair], "--cv", tree["cv_all"][src],
+             "--out", covost, "--src", src, "--tgt", tgt])
+        with open(tree["tsv"][pair], encoding="utf-8") as f:
+            clip_ids = {ln.split("\t")[0].split(".mp3")[0]
+                        for ln in list(f)[1:]}
+        with open(tree["cv_all"][src]) as f:
+            missing = len(clip_ids - set(json.load(f)))
+        check(missing == 1, f"covost {pair}: {missing} missing clips")
+        for split, path in sorted(outputs.items()):
+            manifests[f"covost_{pair}_{split}"] = path
+        rec[f"covost_{pair}"] = {
+            "tsv_rows": len(clip_ids), "missing_clips": missing,
+            **{split: _manifest_stats(p)["utterances"]
+               for split, p in outputs.items()}}
+    rec["covost_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    manifests["mslt_en_de"] = run_prepare_mslt.main(
+        ["--data", tree["mslt"], "--out", os.path.join(base, "mslt"),
+         "--src", "en", "--tgt", "de", "--subset", "dev"])
+    rec["mslt_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cross = os.path.join(base, "cross")
+    prepare_cross_datasets.main(
+        ["--cv", tree["cv"], "--covost", covost, "--out", cross, "--pairs",
+         *CORP_PAIRS, "--multi-turn-seconds", str(CORP_TURN_S)])
+    rec["cross_s"] = time.perf_counter() - t0
+    for pair in CORP_PAIRS:
+        src, tgt = pair.split("_")
+        folder = os.path.join(cross, f"{src}_to_{src}.and.{tgt}")
+        manifests[f"cross_{pair}"] = os.path.join(folder, "data-asr-st.json")
+        manifests[f"turns_{pair}"] = os.path.join(folder,
+                                                  "data-turns-asr-st.json")
+    manifests["all_to_all"] = os.path.join(cross, "all_to_all",
+                                           "data-asr-st.json")
+    manifests["train"] = os.path.join(cross, "train-turns.json")
+    join_json([manifests[f"turns_{p}"] for p in CORP_PAIRS],
+              manifests["train"])
+    rec["manifests"] = {name: _manifest_stats(path)
+                        for name, path in sorted(manifests.items())}
+    train = rec["manifests"]["train"]
+    check(rec["manifests"]["mslt_en_de"]["utterances"] > 0
+          and train["turn"] > 0 and train["multi_file"] > 0,
+          f"corpora manifests: {rec['manifests']}")
+    return tree, manifests, rec
+
+
+def _corpora_tokenizer(base: str, manifests: dict) -> tuple:
+    """The port's BPE on the joined transcription_and_translation field,
+    the reference's user symbols (train_bpe_5k.yaml)."""
+    from stac_st_tpu_torch.tokenizer import SentencePieceProcessor, train_bpe
+
+    lines = []
+    for name in ("all_to_all", "train", "mslt_en_de"):
+        with open(manifests[name]) as f:
+            lines += [e["transcription_and_translation"]
+                      for e in json.load(f).values()]
+    t0 = time.perf_counter()
+    path = os.path.join(base, "bpe.model")
+    train_bpe(lines, vocab_size=600, user_defined_symbols=[
+        "[es]", "[en]", "[de]", "[turn]", "[xt]"]).save(path)
+    tok = SentencePieceProcessor(path)
+    return path, tok, {"vocab": tok.get_piece_size(), "lines": len(lines),
+                       "train_s": time.perf_counter() - t0}
+
+
+def _corpora_conversations(base: str, tree: dict, manifest: str) -> str:
+    """CORP_CONVS multi-turn entries of the mixture written as one wav
+    each, with their parts' speakers as segment channels (the reference
+    for the speaker-change F1); the manifest's path."""
+    from stac_st_tpu_torch.data.audio import read_audio, write_wav
+
+    with open(manifest) as f:
+        data = json.load(f)
+    picked = sorted(uid for uid, e in data.items() if e["nb_turns"] > 0)
+    check(len(picked) >= CORP_CONVS,
+          f"{len(picked)} multi-turn entries, want {CORP_CONVS}")
+    out = {}
+    for k, uid in enumerate(picked[:CORP_CONVS]):
+        entry, parts, speakers = data[uid], [], []
+        for path in entry["wav"].split():
+            parts.append(read_audio(path, sample_rate=SR)[0])
+            speakers.append(tree["speakers"][path])
+        wav = np.concatenate(parts)
+        name = f"mtconv{k}-A-000000-{int(len(wav) / SR * 100):06d}"
+        path = os.path.join(base, "conversations", name + ".wav")
+        write_wav(path, wav, SR)
+        out[name] = {"wav": path, "duration": len(wav) / SR,
+                     "source_lang": entry["source_lang"],
+                     "segments_start": entry["segments_start"],
+                     "segments_channel": " ".join(map(str, speakers))}
+    path = os.path.join(base, "conversations", "data.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    return path
+
+
+def _rttm_changes(lines, by_speaker: bool) -> dict:
+    """Change times of RTTM lines a file: every segment start after the
+    first (the SCD path's partition), or where the speaker label changes
+    (the diarization path)."""
+    rows = {}
+    for line in lines:
+        p = line.split()
+        rows.setdefault(p[1], []).append((float(p[3]), p[7]))
+    out = {}
+    for uid, segs in rows.items():
+        segs.sort()
+        out[uid] = [t for i, (t, spk) in enumerate(segs) if i and (
+            not by_speaker or spk != segs[i - 1][1])]
+    return out
+
+
+def _f1_grid(ref, hyp) -> list:
+    from stac_st_tpu_torch.eval.speaker_change import evaluate_speaker_change
+
+    return [{"tolerance": m.tolerance, "f1": m.f1, "precision": m.precision,
+             "recall": m.recall} for m in evaluate_speaker_change(ref, hyp)]
+
+
+def _pyannote_part(base: str, conv_manifest: str) -> dict:
+    """(d) The local segmentation checkpoint built on the card, the SCD
+    and diarization paths over the conversations, the posteriors card
+    against CPU, and the speaker-change F1 of both paths."""
+    from stac_st_tpu_torch.device import set_tf32
+    from stac_st_tpu_torch.eval import pyannote_baseline as PB
+    from stac_st_tpu_torch.eval import pyannote_local as PL
+    from stac_st_tpu_torch.eval.speaker_change import gt_changes_from_manifest
+
+    folder = os.path.join(base, "pyannote")
+    os.makedirs(folder, exist_ok=True)
+    t0 = time.perf_counter()
+    ckpt = PL.build_local_segmentation_checkpoint(
+        os.path.join(folder, "local_seg.pt"), seed=CORP_SEED, device="cuda")
+    build_s = time.perf_counter() - t0
+    with open(conv_manifest) as f:
+        wavs = [e["wav"] for e in json.load(f).values()]
+    set_tf32(False)  # cuDNN convolutions default to TF32
+    posts = {}
+    for dev in ("cuda", "cpu"):
+        model = PL.load_local_model(ckpt, device=dev)
+        posts[dev] = PL.LocalInference(model).chunked(wavs[0])[0]
+    err = float(np.abs(posts["cuda"] - posts["cpu"]).max())
+    check(np.isfinite(posts["cuda"]).all() and err <= PYANNOTE_ATOL,
+          f"pyannote posteriors card vs CPU: err {err}")
+    ref = gt_changes_from_manifest(conv_manifest)
+    rec = {"checkpoint_build_s": build_s, "train_steps": 150,
+           "posteriors_max_abs_err": err, "posteriors_atol": PYANNOTE_ATOL,
+           "posteriors_shape": list(posts["cuda"].shape),
+           "reference_changes": sum(len(v) for v in ref.values())}
+    for label, pipeline, by_speaker in (
+            ("scd", "pyannote/segmentation", False),
+            ("diarization", "pyannote/speaker-diarization@2.1", True)):
+        t0 = time.perf_counter()
+        lines = PB.run_pyannote_manifest(
+            conv_manifest, os.path.join(folder, f"{label}.rttm"),
+            pipeline=pipeline, model_name=ckpt, backend="local",
+            device="cuda")
+        rec[label] = {"rttm_lines": len(lines),
+                      "seconds": time.perf_counter() - t0,
+                      "f1": _f1_grid(ref, _rttm_changes(lines, by_speaker))}
+    return rec
+
+
+def _whisper_part(base: str, manifest: str) -> dict:
+    """(e) The tiny random Whisper built here; run_whisper_baseline on the
+    card and on the CPU for both tasks over two utterances: equal texts,
+    the BLEU / WER files written."""
+    from stac_st_tpu_torch.eval.whisper_baseline import (
+        build_tiny_whisper,
+        run_whisper_baseline,
+    )
+
+    folder = os.path.join(base, "whisper")
+    t0 = time.perf_counter()
+    model = build_tiny_whisper(os.path.join(folder, "tiny"), seed=CORP_SEED)
+    with open(manifest) as f:
+        entries = dict(list(json.load(f).items())[:2])
+    two = os.path.join(folder, "data-st.json")
+    with open(two, "w") as f:
+        json.dump(entries, f)
+    rec = {"build_s": time.perf_counter() - t0, "utterances": len(entries)}
+    for task in ("translate", "transcribe"):
+        reports, ids = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(folder, f"{task}_{dev}")
+            t0 = time.perf_counter()
+            with _generated_ids() as ids[dev]:
+                summary = run_whisper_baseline(two, model, task=task,
+                                               language="es", out_dir=out,
+                                               device=dev)
+            report = os.path.join(out, f"whisper_{task}_data-st.json")
+            check(os.path.isfile(report), f"whisper {task}: no {report}")
+            with open(report) as f:
+                reports[dev] = (json.load(f)["outputs"], summary,
+                                time.perf_counter() - t0)
+        check(len(ids["cuda"]) == len(entries) and ids["cuda"] == ids["cpu"],
+              f"whisper {task}: card ids {ids['cuda']} CPU {ids['cpu']}")
+        check(reports["cuda"][0] == reports["cpu"][0],
+              f"whisper {task}: card texts {reports['cuda'][0]} CPU "
+              f"{reports['cpu'][0]}")
+        metric = "BLEU" if task == "translate" else "WER"
+        rec[task] = {metric: reports["cuda"][1][metric],
+                     "ids_equal": True, "texts_equal": True,
+                     "generated_tokens": [len(g) for g in ids["cuda"]],
+                     "outputs": reports["cuda"][0],
+                     "cuda_s": reports["cuda"][2],
+                     "cpu_s": reports["cpu"][2]}
+    return rec
+
+
+@contextlib.contextmanager
+def _generated_ids():
+    """Records the token ids of every ``WhisperForConditionalGeneration.
+    generate`` call inside the block, one list per generated row."""
+    from transformers import WhisperForConditionalGeneration as W
+
+    rows, generate, own = [], W.generate, "generate" in W.__dict__
+
+    def recorded(self, *a, **kw):
+        out = generate(self, *a, **kw)
+        rows.extend(out.detach().cpu().tolist())
+        return out
+
+    W.generate = recorded
+    try:
+        yield rows
+    finally:
+        if own:
+            W.generate = generate
+        else:
+            del W.generate
+
+
+def _pair_inputs(manifest: str) -> list:
+    """B / 2 PCM16 inputs of SECONDS: CV clips of the manifest's source
+    language laid end to end."""
+    from stac_st_tpu_torch.data.audio import read_audio
+
+    with open(manifest) as f:
+        paths = sorted({p for e in json.load(f).values()
+                        for p in e["wav"].split()})
+    n, out = int(SECONDS * SR), []
+    for k in range(B // 2):
+        parts, i = [], k
+        while sum(len(p) for p in parts) < n:
+            parts.append(read_audio(paths[i % len(paths)],
+                                    sample_rate=SR)[0])
+            i += B // 2
+        out.append(to_pcm16(np.concatenate(parts)[:n]))
+    return out
+
+
+def corpora_baselines_phase(torch, kernels, smi: str, root: str) -> dict:
+    """Phase corpora_baselines (see the module docstring)."""
+    import copy
+
+    from stac_st_tpu_torch.data.audio import read_audio
+    from stac_st_tpu_torch.device import set_tf32
+    from stac_st_tpu_torch.eval.speaker_change import gt_changes_from_manifest
+    from stac_st_tpu_torch.ops.cmvn import CmvnState
+    from stac_st_tpu_torch.serving import STEngine
+
+    base = os.path.join(root, "corpora_baselines")
+    t_phase = time.perf_counter()
+    tree, manifests, prep = _corpora_prep(base)
+    _, tok, prep["tokenizer"] = _corpora_tokenizer(base, manifests)
+    rec = {"phase": "corpora_baselines", "gpu": smi, "prep": prep}
+
+    # (b) the flagship over the multi-turn mixture
+    trainer, fit_launches, rec["train"] = _fit_counted(
+        torch, kernels, corpus_loader(manifests["train"], base, tok, None, 4),
+        CORP_SEED, CORP_UPDATES)
+
+    # (c) serving both pairs on the trained modules
+    cfg = trainer.cfg
+    mods = (cfg.transformer, cfg.cnn, cfg.seq_lin, cfg.ctc_lin)
+    cmvn = CmvnState(*(t.detach().cpu() for t in trainer.state.cmvn))
+
+    def served(dev, **kw):
+        return STEngine(*(copy.deepcopy(m) for m in mods), cmvn, tok,
+                        device=dev, **kw)
+
+    set_tf32(False)
+    checks = {}
+    for pair in CORP_PAIRS:
+        src, tgt = pair.split("_")
+        with open(manifests[f"covost_{pair}_test"]) as f:
+            paths = [e["wav"] for e in json.load(f).values()][:2]
+        wavs = [read_audio(p, sample_rate=SR)[0][:int(CORP_CHECK_S * SR)]
+                for p in paths]
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            eng = served(dev, bf16=False, beam_size=BEAM,
+                         max_decode_tokens=CORP_CHECK_TOKENS)
+            texts[dev] = eng.translate(wavs, src, tgt)
+            del eng
+        check(texts["cuda"] == texts["cpu"],
+              f"fp32 {pair}: card {texts['cuda']} CPU {texts['cpu']}")
+        checks[pair] = {"batch": len(wavs), "texts_equal": True,
+                        "texts": texts["cuda"]}
+    es = _pair_inputs(manifests["cross_es_en"])
+    de = _pair_inputs(manifests["cross_en_de"])
+    eng = served("cuda", bf16=True, beam_size=BEAM, max_decode_tokens=192,
+                 transfer_dtype="int16")
+    (es_en, en_de), warm = _warm_search_counted(
+        torch, kernels, eng, lambda: (eng.translate(es, "es", "en"),
+                                      eng.translate(de, "en", "de")),
+        ("decode_self_attention_anc", "decode_cross_attention"))
+    check(len(es_en) == len(en_de) == B // 2, "two-pair texts")
+    serve_launches = warm["launches"]
+    rec["serve"] = {"fp32_card_vs_cpu": checks, "two_pairs": {
+        "batch": B, "seconds": SECONDS,
+        "calls": [f"translate es>en, {len(es)} inputs",
+                  f"translate en>de, {len(de)} inputs"],
+        "rtfx": B * SECONDS / warm["warm_s"], **warm}}
+
+    # (d) pyannote over the multi-turn conversations, beside STAC-ST's own
+    # CTC [turn] events on the same audio
+    conv_manifest = _corpora_conversations(base, tree, manifests["train"])
+    rec["pyannote"] = _pyannote_part(base, conv_manifest)
+    with open(conv_manifest) as f:
+        convs = json.load(f)
+    turns = eng.speaker_turns([read_audio(e["wav"], sample_rate=SR)[0]
+                               for e in convs.values()])
+    hyp = {uid: sorted(t["turn"]) for uid, t in zip(convs, turns)}
+    rec["stac_st_ctc_turn"] = {
+        "events": sum(len(v) for v in hyp.values()),
+        "f1": _f1_grid(gt_changes_from_manifest(conv_manifest), hyp)}
+    del eng
+
+    # (e) the Whisper baseline
+    rec["whisper"] = _whisper_part(base, manifests["covost_es_en_test"])
+    total = dict(fit_launches)
+    for name, n in serve_launches.items():
+        total[name] = total.get(name, 0) + n
     rec["launches"] = total
     rec["phase_s"] = time.perf_counter() - t_phase
     emit(rec)
@@ -5018,6 +5460,7 @@ def main() -> int:
         data_parallel_phase(torch, kernels, smi, root)
         protocol = protocol_phase(torch, kernels, smi, root)
         ref_io = reference_io_phase(torch, kernels, smi, root)
+        corpora = corpora_baselines_phase(torch, kernels, smi, root)
     card_vs_cpu_phase(torch, kernels)
     card_vs_cpu_train_phase(torch)
 
@@ -5039,6 +5482,8 @@ def main() -> int:
             "serve_launches": served["launches"].get(rec["name"], 0),
             "protocol_launches": protocol["launches"].get(rec["name"], 0),
             "reference_io_launches": ref_io["launches"].get(rec["name"], 0),
+            "corpora_baselines_launches": corpora["launches"].get(
+                rec["name"], 0),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
@@ -5057,6 +5502,8 @@ def main() -> int:
             "recipe_launches": recipe["launches"].get(rec["name"], 0),
             "protocol_launches": protocol["launches"].get(rec["name"], 0),
             "reference_io_launches": ref_io["launches"].get(rec["name"], 0),
+            "corpora_baselines_launches": corpora["launches"].get(
+                rec["name"], 0),
             "max_abs_err": max(v for k, v in rec["abs_err"].items()
                                if "bfloat16" in k),
             "ms": enc["ms"], "plain_ms": enc["plain_ms"],
@@ -5075,6 +5522,8 @@ def main() -> int:
         # one launch a decode step of the joint search (float cache)
         "launches": options["joint_ctc"]["float"]["ctc_prefix_score_launches"],
         "protocol_launches": protocol["launches"].get("ctc_prefix_score", 0),
+        "corpora_baselines_launches": corpora["launches"].get(
+            "ctc_prefix_score", 0),
         "max_abs_err": ctc["max_abs_err"], "ms": ctc["ms"],
         "plain_ms": ctc["plain_ms"], "bound_ms": ctc["bound_ms"],
         "bound_by": ctc["bound_by"], "library_ms": None,

@@ -16,35 +16,14 @@ run_data_preparation_turns --raw /path/to/LDC --out data \
 """
 
 import argparse
-import json
 import logging
 import os
-from typing import Dict, List
 
 from ...prep.callhome import prepare_callhome_turns
 from ...prep.fisher import prepare_fisher_turns
+from ...prep.mixing import join_json
 
 logger = logging.getLogger(__name__)
-
-
-def join_json(json_paths: List[str], out_path: str) -> Dict:
-    """Union of manifests + joint transcription/translation field (the
-    JAX package's ``prep.mixing.join_json``, whose module is not ported)."""
-    merged: Dict[str, Dict] = {}
-    for path in json_paths:
-        with open(path) as f:
-            data = json.load(f)
-        for uid, entry in data.items():
-            entry = dict(entry)
-            if "transcription_and_translation" not in entry:
-                entry["transcription_and_translation"] = (
-                    f"{entry.get('transcription', '')}\n"
-                    f"{entry.get('translation_0', '')}"
-                )
-            merged[uid] = entry
-    with open(out_path, "w", encoding="utf-8") as f:
-        json.dump(merged, f, indent=2, ensure_ascii=False)
-    return merged
 
 
 def merge(out_folder, name, parts):

@@ -6,8 +6,8 @@ package's corpus preparation runs them through ``sacremoses``
 
 The port keeps its own copy because the card's environment has no
 ``sacremoses``. It carries the languages the preparation scripts clean,
-English and Spanish (nonbreaking prefixes, apostrophe and number rules);
-any other ``lang`` raises ``ValueError``.
+English, Spanish and German (nonbreaking prefixes, apostrophe and number
+rules); any other ``lang`` raises ``ValueError``.
 
 Character classes come from Python's ``unicodedata``, as in
 :mod:`.detokenize`: letters and letter numbers outside the CJK ranges for
@@ -15,8 +15,8 @@ Perl's ``IsAlpha``, those and decimal digits for ``IsAlnum``, the ``N*``
 categories for ``IsN``, ``str.islower`` for ``IsLower``. They agree with
 sacremoses' tables on every character below U+0345 and in the CJK
 ranges (beyond, on some combining marks and recent letters, they differ).
-``tests/test_torch_prep.py`` holds both stages to sacremoses on English
-and Spanish text.
+``tests/test_torch_prep.py`` holds both stages to sacremoses on English,
+Spanish and German text.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from .detokenize import _is_alpha
 
 __all__ = ["MosesPunctNormalizer", "MosesTokenizer"]
 
-_LANGUAGES = ("en", "es")
+_LANGUAGES = ("en", "es", "de")
 
 
 def _check_lang(lang: str) -> str:
@@ -68,10 +68,12 @@ _QUOTE_COMMA = {
     "en": ((r'"([,.]+)', r'\g<1>"'),),
     "es": ((r',"', r'",'), (r'(\.+)"(\s*[^<])', r'"\g<1>\g<2>')),
 }
+_QUOTE_COMMA["de"] = _QUOTE_COMMA["es"]
 _NUMBERS = {
     "en": ((f"(\\d){_NBSP}(\\d)", r"\g<1>.\g<2>"),),
     "es": ((f"(\\d){_NBSP}(\\d)", r"\g<1>,\g<2>"),),
 }
+_NUMBERS["de"] = _NUMBERS["es"]
 
 
 class MosesPunctNormalizer:
@@ -93,7 +95,7 @@ class MosesPunctNormalizer:
 
 
 # ------------------------------------------------------------- tokenizer
-# mosesdecoder's nonbreaking_prefix.{en,es}, comments and blank lines
+# mosesdecoder's nonbreaking_prefix.{en,es,de}, comments and blank lines
 # dropped, each line stripped ("+" stands for the space before
 # "#NUMERIC_ONLY#")
 _NONBREAKING = {
@@ -113,6 +115,24 @@ _NONBREAKING = {
         "c.g cap cm cta dcha doc ej entlo esq etc f.c gr grs izq kg km mg mm "
         "nÃºm núm p p.a p.ej ptas pÃ¡g pÃ¡gs pág págs q.e.g.e q.e.s.m s s.s.s "
         "vid vol"),
+    "de": (
+        "A B C D E F G H I J K L M N O P Q R S T U V W X Y Z a b c d e f "
+        "g h i j k l m n o p q r s t u v w x y z I II III IV V VI VII "
+        "VIII IX X XI XII XIII XIV XV XVI XVII XVIII XIX XX i ii iii iv v "
+        "vi vii viii ix x xi xii xiii xiv xv xvi xvii xviii xix xx Adj "
+        "Adm Adv Asst Bart Bldg Brig Bros Capt Cmdr Col Comdr Con Corp "
+        "Cpl DR Dr Ens Gen Gov Hon Hosp Insp Lt MM MR MRS MS Maj Messrs "
+        "Mlle Mme Mr Mrs Ms Msgr Op Ord Pfc Ph Prof Pvt Rep Reps Res Rev "
+        "Rt Sen Sens Sfc Sgt Sr St Supt Surg Mio Mrd bzw v vs usw d.h z.B "
+        "u.a etc Mrd MwSt ggf d.J D.h m.E vgl I.F z.T sogen ff u.E g.U "
+        "g.g.A c.-à-d Buchst u.s.w sog u.ä Std evtl Zt Chr u.U o.ä Ltd "
+        "b.A z.Zt spp sen SA k.o jun i.H.v dgl dergl Co zzt usf s.p.a Dkr "
+        "Corp bzgl BSE No Nos Art Nr pp ca Ca 1 2 3 4 5 6 7 8 9 10 11 12 "
+        "13 14 15 16 17 18 19 20 21 22 23 24 25 26 27 28 29 30 31 32 33 "
+        "34 35 36 37 38 39 40 41 42 43 44 45 46 47 48 49 50 51 52 53 54 "
+        "55 56 57 58 59 60 61 62 63 64 65 66 67 68 69 70 71 72 73 74 75 "
+        "76 77 78 79 80 81 82 83 84 85 86 87 88 89 90 91 92 93 94 95 96 "
+        "97 98 99"),
 }
 _SCAN_END = 0x20000  # past every non-CJK letter and number
 
@@ -155,6 +175,7 @@ def _tokenizer_rules():
                (compile_(rf"([{alpha}])[']([{alpha}])"), r"\1 '\2"),
                (compile_(rf"([{num}])[']([s])"), r"\1 '\2")],
         "es": [(compile_(r"\'"), " ' ")],
+        "de": [(compile_(r"\'"), " ' ")],
     }
 
 

@@ -255,7 +255,7 @@ def _jax_mesh_step():
                                    "ctc_lin"))))
     mean, std = _cmvn()
     state = jstep.TrainState(
-        params=params, opt_state=jt.tx.init(params),
+        params=params, opt_state=jax.jit(jt.tx.init)(params),
         cmvn=JCmvn(jnp.array(mean), jnp.array(std),
                    jnp.asarray(100.0, jnp.float32)),
         optimizer_step=jnp.zeros((), jnp.int32),

@@ -3,7 +3,9 @@
 Both engines serve the same weights (loaded into the port through
 ``interop.from_jax``) in fp32 on the CPU; the JAX engine runs its default
 XLA path (Pallas off, gather-mode beam). Texts must be identical, on
-identical batches, for every call, on inputs that fall into two buckets.
+identical batches, for every call, on inputs that fall into two buckets;
+the port's fused ``transcribe_and_translate`` is held to the JAX engine's
+two single-prompt calls, which its fused call equals exactly.
 This file runs at beam ``BEAM`` = 4; ``test_torch_engine_beam1.py`` runs
 the same tests at beam 1, in a file of its own so that the two JAX
 reference engines (each built once per module) compile on different
@@ -111,9 +113,16 @@ def test_transcribe_matches_jax(engines, shared):
 
 
 def test_transcribe_and_translate_matches_jax(engines, shared):
+    """The port's fused dual-prompt search against the JAX engine's two
+    single-prompt searches, which its own fused call equals exactly (each
+    tile's rows never interact; the JAX package holds that in
+    ``tests/test_serving.py::TestSTEngine::
+    test_transcribe_and_translate_matches_separate_calls``): the programs
+    the translate and transcribe tests compile serve here too."""
     jax_engine, port = engines
-    assert port.transcribe_and_translate(shared["wavs"]) == \
-        jax_engine.transcribe_and_translate(shared["wavs"])
+    wavs = shared["wavs"]
+    assert port.transcribe_and_translate(wavs) == (
+        jax_engine.transcribe(wavs), jax_engine.translate(wavs))
 
 
 def test_speaker_turns_matches_jax(engines, shared):

@@ -150,6 +150,7 @@ def test_quantized_trees_equal_jax(tiny):
 
 
 # ------------------------------------------------------------ decode steps
+@jax.jit
 def _jax_gather(cache, flat):
     layers = []
     for layer in cache["layers"]:
@@ -241,6 +242,7 @@ def test_decode_step_matches_jax(tiny, case):
     method = t.decode_step_rows if case == "rows" else t.decode_step
     step_j = jax.jit(lambda tok, pos, c: t.apply(params["Transformer"], tok,
                                                  pos, c, method=method))
+    head_j = jax.jit(lambda h: head.apply(params["seq_lin"], h))
     flipped = np.zeros(B * beam, bool)
     count = {"entries": 0, "differ": 0}
     with torch.no_grad():
@@ -263,7 +265,7 @@ def test_decode_step_matches_jax(tiny, case):
                                 cj)
                 hp = model.decode_step(torch.from_numpy(tok), p, cp)
             got = mods["seq_lin"](hp).numpy()
-            want = np.asarray(head.apply(params["seq_lin"], hj))
+            want = np.asarray(head_j(hj))
             tie = (_sync_and_check(cj, cp, count) if kv == "int8"
                    else np.zeros(len(got), bool))
             flipped |= tie

@@ -71,7 +71,10 @@ except ImportError as err:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
              or m == "stac_st_tpu" or m.startswith("stac_st_tpu."))
+lazy = sorted({m.split(".")[0] for m in sys.modules}
+              & {"transformers", "pyannote"})
 print(json.dumps({"modules": len(names), "names": names, "bad": bad,
+                  "lazy": lazy,
                   "yamls": len(yamls),
                   "foreign": found, "missing": missing,
                   "device_speed_perturb": f"{type(sp).__module__}."
@@ -98,8 +101,9 @@ def imported_all():
 
 
 # the serving front's modules, int8 / speculative decoding's, data
-# parallelism's, and the native library's, the corpus preparation's and
-# the SpeechBrain bridge's, which the import-all subprocess must reach
+# parallelism's, and the native library's, the corpus preparation's, the
+# SpeechBrain bridge's, the other corpora's and the baselines', which the
+# import-all subprocess must reach
 SERVING_MODULES = ("serving_stream", "serving_http", "serving_continuous",
                    "recipes.serve", "prep.shas", "eval.long_form",
                    "utils.quantize", "decoding.speculative",
@@ -111,15 +115,28 @@ SERVING_MODULES = ("serving_stream", "serving_http", "serving_continuous",
                    "tools.import_sb_ckpt", "tools.export_sb_ckpt",
                    "datasets.fisher_callhome.run_data_preparation",
                    "datasets.fisher_callhome.run_data_preparation_turns",
-                   "datasets.fisher_callhome.run_segmentation")
+                   "datasets.fisher_callhome.run_segmentation",
+                   "prep.mixing", "prep.covost", "prep.mslt",
+                   "examples.corpora_tree",
+                   "datasets.covost2.run_prepare_covost2",
+                   "datasets.mslt.run_prepare_mslt",
+                   "datasets.cross_datasets_experiments."
+                   "prepare_cross_datasets",
+                   "eval.pyannote_local", "eval.pyannote_baseline",
+                   "eval.whisper_baseline",
+                   "evaluations.pyannote.run_pyannote_baseline",
+                   "evaluations.whisper.run_whisper_baseline")
 
 
 def test_importing_every_module_pulls_in_no_jax(imported_all):
     # every module of the package was imported, the serving front's too
-    assert imported_all["modules"] >= 101
+    assert imported_all["modules"] >= 118
     for name in SERVING_MODULES:
         assert f"stac_st_tpu_torch.{name}" in imported_all["names"]
     assert imported_all["bad"] == []
+    # the baselines import transformers and pyannote inside their
+    # functions only
+    assert imported_all["lazy"] == []
 
 
 def test_yaml_resolution_builds_only_port_objects(imported_all):

@@ -203,14 +203,14 @@ def _random_texts(seed, n):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("lang", ["en", "es"])
+@pytest.mark.parametrize("lang", ["en", "es", "de"])
 def test_moses_stages_match_sacremoses(lang):
     import sacremoses
 
     norm, tok = moses.MosesPunctNormalizer(lang), moses.MosesTokenizer(lang)
     ref_norm = sacremoses.MosesPunctNormalizer(lang=lang)
     ref_tok = sacremoses.MosesTokenizer(lang=lang)
-    for text in _random_texts(7 if lang == "en" else 8, 400):
+    for text in _random_texts({"en": 7, "es": 8, "de": 9}[lang], 400):
         assert norm.normalize(text) == ref_norm.normalize(text), text
         assert tok.tokenize(text) == ref_tok.tokenize(text), text
     with pytest.raises(ValueError, match="lang"):

@@ -92,9 +92,12 @@ def test_nll_loss_matches_jax(reduction):
     lp = np.log(rng.dirichlet(np.ones(11), (3, 7))).astype(np.float32)
     tgt = rng.integers(0, 11, (3, 9))
     lens = np.asarray([1.0, 0.55, 0.3], np.float32)
+    # one compile a smoothing value (eager, each operation compiles)
+    reference = jax.jit(j_nll_loss,
+                        static_argnames=("label_smoothing", "reduction"))
     for ls in (0.0, 0.1):
-        want = j_nll_loss(jnp.asarray(lp), jnp.asarray(tgt), jnp.asarray(lens),
-                          label_smoothing=ls, reduction=reduction)
+        want = reference(jnp.asarray(lp), jnp.asarray(tgt), jnp.asarray(lens),
+                         label_smoothing=ls, reduction=reduction)
         got = nll_loss(_t(lp), _t(tgt), _t(lens), label_smoothing=ls,
                        reduction=reduction)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
@@ -152,9 +155,10 @@ def test_cmvn_update_matches_jax():
     rel = np.asarray([1.0, 0.62, 0.35], np.float32)
     mean = rng.standard_normal(5).astype(np.float32)
     std = (0.5 + rng.random(5)).astype(np.float32)
-    want = j_cmvn_update(JCmvn(jnp.asarray(mean), jnp.asarray(std),
-                               jnp.asarray(7.0, jnp.float32)),
-                         jnp.asarray(feats), jnp.asarray(rel))
+    want = jax.jit(j_cmvn_update)(
+        JCmvn(jnp.asarray(mean), jnp.asarray(std),
+              jnp.asarray(7.0, jnp.float32)),
+        jnp.asarray(feats), jnp.asarray(rel))
     got = cmvn_update(CmvnState(_t(mean), _t(std), torch.tensor(7.0)),
                       _t(feats), _t(rel))
     for g, w in zip(got, want):

@@ -91,10 +91,18 @@ def _tx():
                                 ACCUM, CLIP, PATIENCE)
 
 
+@jax.jit
+def _fresh_params_and_opt(params):
+    """One program for the copy (the step donates its state) and the
+    optimizer's init, not one small compile a leaf."""
+    return (jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), params),
+            _tx().init(params))
+
+
 def _fresh_state(params, mean, std):
+    params, opt_state = _fresh_params_and_opt(params)
     return jstep.TrainState(
-        params=jax.tree_util.tree_map(jnp.array, params),
-        opt_state=_tx().init(params), cmvn=_jcmvn(mean, std),
+        params=params, opt_state=opt_state, cmvn=_jcmvn(mean, std),
         optimizer_step=jnp.zeros((), jnp.int32),
         micro_step=jnp.zeros((), jnp.int32))
 
